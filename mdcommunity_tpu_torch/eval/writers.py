@@ -1,0 +1,55 @@
+"""Result-file writers matching the reference's output formats byte-for-layout.
+
+Reference formats (EvaluateRealData :645-709, testReal.py :88-95):
+  Soluion_<name>_<la><lb>.txt        one removed node id per line
+  NormalizedLMCC_<name>_<la><lb>.txt rank/max_rank per removal (padded with the
+                                     1/max_rank floor up to N lines), then the
+                                     score mean and std appended
+  time&audc_<name>.csv               "name,time,audc" rows
+(the "Soluion" typo is the reference's own and is preserved for drop-in
+compatibility of downstream tooling like drawUnweight.py / analysis_comparison.py)
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+from typing import Sequence
+
+
+def write_solution(path: str, solution: Sequence[int]):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for a in solution:
+            f.write(f"{int(a)}\n")
+
+
+def write_lmcc_curve(
+    path: str,
+    curve: Sequence[float],
+    n_nodes: int,
+    max_rank: int,
+    score_mean: float,
+    score_std: float,
+):
+    """Curve entries per removal; pad to n_nodes lines with the 1/max_rank floor
+    (reference :695-701), then append mean and std of the score."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for j in range(n_nodes):
+            if j < len(curve):
+                f.write(f"{float(curve[j]):.8f}\n")
+            else:
+                f.write(f"{1.0 / max_rank:.8f}\n")
+        f.write(f"{score_mean:.8f}\n")
+        f.write(f"{score_std:.8f}\n")
+
+
+def append_time_audc(path: str, name: str, solve_time: float, audc: float):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    new = not os.path.exists(path)
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if new:
+            w.writerow(["dataset", "time", "audc"])
+        w.writerow([name, f"{solve_time:.6f}", f"{audc:.8f}"])

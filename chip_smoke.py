@@ -8,16 +8,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      from the checkout's sources, in parallel;
   2. check kernels K1 (band_spmm, D=64 and D=2) and K2 (band_sage) against
      their plain PyTorch versions on the card, on seeded banded graphs of
-     2^16 nodes with live mirror lanes (and, for K2, no spill);
-  3. time K1, K2, their plain versions and a library yardstick (torch.bmm of
-     the widened band against materialised windows) at the main path's
-     shapes, 18,432 and 2^20 rows with D=64, each beside its bound;
+     2^16 nodes with live mirror lanes (and, for K2, no spill), and K1's
+     backward (band_spmm_bwd: torch.autograd.grad through BandSpmm, row !=
+     col) against autograd through the plain operator;
+  3. time K1, K2, K1's backward, their plain versions and a library
+     yardstick (torch.bmm of the widened band against materialised windows)
+     at the main path's shapes, 18,432 and 2^20 rows with D=64, each beside
+     its bound;
   4. drive the main path: large-graph greedy dismantling of the 18,222-node
      shuffled synthetic duplex of `large_graph_demo --sizes 18222` by the
      committed unit-cost checkpoint, through eval.real.evaluate_real
      (StepRatio 0.001, one host cascade per batch, native host engine), with
      every kernel's launch count set to 0 just before and read just after;
-     its first forward is held against the same forward on the CPU.
+     its first forward is held against the same forward on the CPU;
+  5. hold one fit's loss and parameter gradients on the card to the CPU's
+     (18,222 nodes, the fine-tuning checkpoint, 1,048 actions);
+  6. drive the training path: 6 iterations of rl.big_trainer's loop at k =
+     1,048 on a spill-free 2^20-node build (selection runs K2, every fit's
+     gradient K1 with swapped scales), counts set to 0 just before and read
+     just after, and one fit's peak memory with and without remat.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -36,6 +45,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(HERE, "models_tpu", "unit_cost_full_r1", "best_model.ckpt")
+# the checkpoint train_1m fine-tunes
+CKPT_FIT = os.path.join(HERE, "models_tpu", "unit_cost_full_r4", "best_model.ckpt")
 OUT = os.path.join(HERE, "runs", "chip_smoke")
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_S = 67e12       # H100 SXM FP32 outside the tensor cores
@@ -92,16 +103,18 @@ def build_all():
 # ---------------------------------------------------------------- graphs
 
 
-def synth_banded(n, shuffle, seed, device, reorder=True):
+def synth_banded(n, shuffle, seed, device, reorder=True, with_edges=False):
+    """A large_graph_demo graph's banded build; with_edges=True also returns
+    its ordered edge lists (for a host env)."""
     import numpy as np
 
     from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
     from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
 
     e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(seed), shuffle=shuffle)
-    banded, _, _ = build_banded_duplex(n, e0, e1, reorder=reorder, max_rank=0,
-                                       device=device)
-    return banded
+    banded, _, edges = build_banded_duplex(n, e0, e1, reorder=reorder, max_rank=0,
+                                           device=device)
+    return (banded, edges) if with_edges else banded
 
 
 def operands(dbg, D, seed, device, unit=False):
@@ -263,20 +276,222 @@ def time_kernels(device, banded, label):
     errs["band_spmm"] = max(errs["band_spmm"], compare(
         f"{label} K1 D=2", bk.spmm_band(dbg, ones, ones, h2, sub2),
         bk.spmm_band_plain(dbg, ones, ones, h2, sub2)))
+    # the backward: K1 with the scales swapped, on a cotangent g, row != col
+    row, col = scales(dbg, 9, device)
+    g = torch.nn.functional.normalize(operands(dbg, 64, 10, device)[0], dim=-1)
+    sub_g = mirror_sub(dbg, row, g)
+    errs["band_spmm_bwd"] = compare(
+        f"{label} K1 backward", bk.spmm_band(dbg, col, row, g, sub_g, "band_spmm_bwd"),
+        bk.spmm_band_plain(dbg, col, row, g, sub_g))
+    base_f = dbg.base.to(torch.float32)
+    win = _windows(g * row[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
+    lib_bwd_ms = time_ms(lambda: torch.bmm(base_f, win))
+    del base_f, win
     res = {}
-    for name, kern, plain, sage in (
+    for name, kern, plain, sage, lib in (
         ("band_spmm", lambda: bk.spmm_band(dbg, live, live, h, sub),
-         lambda: bk.spmm_band_plain(dbg, live, live, h, sub), False),
+         lambda: bk.spmm_band_plain(dbg, live, live, h, sub), False, lib_ms),
         ("band_sage", lambda: bk.sage_step(dbg, live, live, h, sub, aw, bw),
-         lambda: bk.sage_step_plain(dbg, live, live, h, sub, aw, bw), True),
+         lambda: bk.sage_step_plain(dbg, live, live, h, sub, aw, bw), True, lib_ms),
+        ("band_spmm_bwd", lambda: bk.spmm_band(dbg, col, row, g, sub_g, "band_spmm_bwd"),
+         lambda: bk.spmm_band_plain(dbg, col, row, g, sub_g), False, lib_bwd_ms),
     ):
         bound_ms, bound_by = bounds(dbg, 64, sage)
         res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
                          max_abs_err=errs[name])
         log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} "
             + json.dumps(res[name]))
     return res
+
+
+# ---------------------------------------------------------------- K1 backward
+
+
+def scales(dbg, seed, device):
+    """Different row and col scales, seeded: live·u and live·v with u, v
+    uniform in [0.5, 1.5) (a backward that forgot to swap them disagrees)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    live = (torch.rand(dbg.pad_n, generator=g) > 0.1).float()
+    live[dbg.n:] = 0
+    row = live * (0.5 + torch.rand(dbg.pad_n, generator=g))
+    col = live * (0.5 + torch.rand(dbg.pad_n, generator=g))
+    return row.to(device), col.to(device)
+
+
+def plain_operator(dbg, row, col, h):
+    """The full band operator from plain PyTorch operations only (K1's plain
+    version, the mirror gather, the spill segment sum), so that autograd
+    derives its gradient independently of BandSpmm."""
+    from mdcommunity_tpu_torch.ops.band_kernels import spmm_band_plain
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+    from mdcommunity_tpu_torch.ops.spmm_csr import spmm_sorted
+
+    out = spmm_band_plain(dbg, row, col, h, mirror_sub(dbg, col, h))
+    if dbg.spill.nnz:
+        out = out + spmm_sorted(dbg.spill, dbg.w_spill, h * col[:, None]) * row[:, None]
+    return out
+
+
+def check_backward(device, n):
+    """torch.autograd.grad through BandSpmm (K1, and K1 with the scales
+    swapped for the gradient) against autograd through the plain operator."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band_grad
+
+    dbg = synth_banded(n, True, 1, device).dbg0
+    log(f"check backward graph: n={n} C={dbg.C} spill={dbg.spill.nnz}")
+    row, col = scales(dbg, 7, device)
+    gen = torch.Generator().manual_seed(8)
+    h = torch.randn(dbg.pad_n, 64, generator=gen).to(device).requires_grad_()
+    g = torch.randn(dbg.pad_n, 64, generator=gen).to(device)
+    (got,) = torch.autograd.grad(spmm_dense_band_grad(dbg, row, col, h), h, g)
+    (ref,) = torch.autograd.grad(plain_operator(dbg, row, col, h), h, g)
+    return compare("K1 backward D=64, row != col, autograd", got, ref)
+
+
+# ---------------------------------------------------------------- the fit
+
+
+def check_fit(device, n):
+    """One fit's loss and parameter gradients on `device` against the CPU
+    (plain versions), on the main path's graph with the fine-tuning
+    checkpoint, the top 1,048 actions of its first forward and seeded
+    targets.  Each leaf is held to the CPU's f64 gradient, within 1e-4 of
+    the leaf's max |grad| or four times the CPU's own f32 error on it,
+    whichever is larger: the gate's gradients (w_layer1, w_layer2) are
+    differences of the two layers' near-equal halves, below what f32
+    resolves (~1% of their value on this graph, in either engine)."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.eval.metrics import top_k_stable
+    from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
+    from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.models.net import banded_test_forward, banded_train_loss
+
+    e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0))
+    builds = {d: build_banded_duplex(n, e0, e1, max_rank=0, device=d)[0]
+              for d in (device, "cpu")}
+    k = min(1048, n // 4)
+    tgts = torch.from_numpy(
+        (0.05 * np.random.default_rng(1).standard_normal(k) + 0.03).astype(np.float32))
+    acts, res = None, []
+    for d, dt in ((device, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        banded = builds[d]
+        net = load_model(CKPT_FIT, device=d).to(dt)
+        covered = ~banded.node_mask
+        if acts is None:
+            acts = top_k_stable(banded_test_forward(net, banded, covered), k)[1]
+        net.requires_grad_()
+        loss = banded_train_loss(net, banded, covered, torch.from_numpy(acts).to(d),
+                                 tgts.to(d, dt))
+        loss.backward()
+        res.append((loss.item(), {name: p.grad.detach().double().cpu()
+                                  for name, p in net.named_parameters()}))
+    (l_dev, g_dev), (l_32, g_32), (l_64, g_64) = res
+    log(f"fit check: loss {l_dev:.9e} on {device}, {l_32:.9e} CPU f32, "
+        f"{l_64:.9e} CPU f64")
+    if abs(l_dev - l_64) > 1e-5 * abs(l_64):
+        raise AssertionError("fit loss differs from the CPU's")
+    worst = 0.0
+    for name, ref in g_64.items():
+        scale = ref.abs().max().item()
+        err = (g_dev[name] - ref).abs().max().item()
+        cpu_err = (g_32[name] - ref).abs().max().item()
+        tol = max(1e-4 * scale, 4 * cpu_err)
+        log(f"  grad {name}: max|g| {scale:.3e}  {device} err {err:.3e}  "
+            f"CPU f32 err {cpu_err:.3e}  tol {tol:.3e}")
+        if not scale > 0 or err > tol:
+            raise AssertionError(f"fit gradient of {name} differs from the CPU's")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def trainer_phase(device, banded, edges, k):
+    """train_banded_loop for 6 iterations (target_update 3) on a spill-free
+    build, so selection runs K2 and every fit's gradient runs K1 with
+    swapped scales; launch counts set to 0 just before, read just after."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.env.host_env import make_host_env
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.rl.big_trainer import train_banded_loop
+
+    if not banded.spill_free:
+        raise AssertionError("the trainer phase needs a spill-free build")
+    net = load_model(CKPT_FIT, device=device)
+    env = make_host_env(banded.n_nodes, *edges, engine="native")
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    net2, hist = train_banded_loop(net, banded, env, iters=6, k=k, target_update=3,
+                                   log=log, log_every=1)
+    if on_card:
+        torch.cuda.synchronize()
+    counts = dict(bk.launches)
+    wall = time.perf_counter() - t0
+    rows = [h for h in hist if "loss" in h]
+    for h in rows:
+        log("trainer iteration: " + json.dumps(h))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    log("trainer phase: " + json.dumps(dict(
+        pad_n=banded.pad_n, k=k, wall_s=wall, peak_mem_gib=peak, launches=counts)))
+    fitted = [h["loss"] for h in rows if h["removed"] == k]
+    if not fitted or not np.isfinite(fitted).all():
+        raise AssertionError("a full batch was not fitted to a finite loss")
+    moved = sum((a - b.detach()).abs().sum().item()
+                for a, b in zip(net.parameters(), net2.parameters()))
+    if not moved > 0:
+        raise AssertionError("the parameters did not move")
+    if env.t != sum(h["removed"] for h in rows):
+        raise AssertionError("env.t differs from the removals the loop counted")
+    for name, c in counts.items():
+        if on_card and c <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the trainer phase")
+    return counts
+
+
+def fit_memory(device, banded, k):
+    """Peak device memory and time of one fit (loss + backward) with and
+    without remat, on a pristine build."""
+    import torch
+
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.models.net import banded_train_loss
+
+    net = load_model(CKPT_FIT, device=device).requires_grad_()
+    gen = torch.Generator().manual_seed(11)
+    acts = torch.randperm(banded.n_nodes, generator=gen)[:k].to(device)
+    tgts = (0.05 * torch.randn(k, generator=gen) + 0.03).to(device)
+    covered = ~banded.node_mask
+    for remat in (True, False):
+        net.zero_grad(set_to_none=True)
+        if device == "cpu":
+            banded_train_loss(net, banded, covered, acts, tgts, remat=remat).backward()
+            log(f"fit memory, remat={remat}: not measured (CPU)")
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        banded_train_loss(net, banded, covered, acts, tgts, remat=remat).backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        log("fit memory: " + json.dumps(dict(
+            pad_n=banded.pad_n, k=k, remat=remat, fit_ms=ms,
+            peak_gib=peak / 2**30, above_resident_gib=(peak - base) / 2**30,
+            resident_gib=base / 2**30)))
 
 
 # ---------------------------------------------------------------- main path
@@ -395,8 +610,13 @@ def main(argv=None):
 
         native_build.build()
         check_kernels("cpu", 2048)
+        check_backward("cpu", 2048)
         time_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         main_path("cpu", 2048, 0.01)
+        check_fit("cpu", 2048)
+        small, edges = synth_banded(2048, False, 0, "cpu", reorder=False, with_edges=True)
+        trainer_phase("cpu", small, edges, 16)
+        fit_memory("cpu", small, 16)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -406,29 +626,39 @@ def main(argv=None):
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_all()
     errs = check_kernels(device, 1 << 16)
+    errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
 
     main_graph = synth_banded(18222, True, 0, device)
     times = time_kernels(device, main_graph, "18,432 rows")
     del main_graph
-    big = synth_banded(1 << 20, False, 0, device, reorder=False)
+    big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
+                                  with_edges=True)
     time_kernels(device, big, "2^20 rows")
-    del big
     torch.cuda.empty_cache()
 
     counts, result = main_path(device, 18222, 0.001)
-    for k, c in counts.items():
-        if c <= 0:
+    for k in ("band_spmm", "band_sage"):
+        if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     log(f"main path AUDC {result['audc']:.6f} after {result['removed']} removals")
 
+    fit_err = check_fit(device, 18222)
+    train_counts = trainer_phase(device, big, big_edges, 1048)
+    fit_memory(device, big, 1048)
+    del big
+
     kernels = []
-    for name in ("band_spmm", "band_sage"):
+    for name, launched, replaces in (
+        ("band_spmm", counts, "259"), ("band_sage", counts, "259"),
+        ("band_spmm_bwd", train_counts, "822"),
+    ):
         t = dict(times[name])
         t["max_abs_err"] = max(errs[name], t["max_abs_err"])
         kernels.append(dict(
             name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
-            replaces="mdcommunity_tpu/ops/band_pallas.py:259",
-            launches=counts[name], **t))
+            replaces=f"mdcommunity_tpu/ops/band_pallas.py:{replaces}",
+            launches=launched[name], **t))
+    log(f"fit gradient vs CPU f64: worst leaf error {fit_err:.3e} of its max |grad|")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

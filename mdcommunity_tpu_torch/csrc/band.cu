@@ -14,7 +14,10 @@
 // What they replace.  Both replace the JAX package's Pallas TPU kernel
 // ops/band_pallas.py::_make_kernel: K1 its sage=False, halo=False mode (the
 // forward of spmm_band_packed), K2 its sage=True mode (sage_step_packed), in
-// the precise (f32 operand) mode that the eval path uses.  The TPU kernel's
+// the precise (f32 operand) mode that the eval path uses.  K1 is also the
+// backward of the operator (the VJP at band_pallas.py:811-829): the stored
+// operator is symmetric, so ops/dense_band.BandSpmm launches K1 with row and
+// col swapped for the training loss's gradient.  The TPU kernel's
 // node-pair lane packing and 128-lane scale planes exist for the TPU's vector
 // tiles and have no counterpart here: h stays [pad_n, D] and the scales are
 // read per row.

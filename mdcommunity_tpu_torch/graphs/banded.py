@@ -6,7 +6,8 @@ neighbourhood aggregation runs through the block-banded dense engine
 environment runs on the host (env/host_env.py).  Liveness is rank-1
 (covered mask -> row/col scales) and cascade-severed edges are base edits
 (apply_severs), applied incrementally by the eval loop as the host env
-reports them.
+reports them.  Severs edit the band in place, so a BandedDuplex serves one
+rollout; fork_banded copies what they edit.
 """
 
 from __future__ import annotations
@@ -143,3 +144,28 @@ def apply_severs(
         torch.cat([valid, valid]),
     )
     return banded
+
+
+def fork_banded(banded: BandedDuplex) -> BandedDuplex:
+    """A copy whose severs leave `banded` as it is: the tensors that
+    sever_edges edits (base, w_cov, w_spill) are cloned, the graph
+    constants (index arrays, COOs, mask) shared."""
+
+    def fork(dbg: DenseBandGraph) -> DenseBandGraph:
+        return dataclasses.replace(
+            dbg, base=dbg.base.clone(), w_cov=dbg.w_cov.clone(),
+            w_spill=dbg.w_spill.clone(),
+        )
+
+    return dataclasses.replace(banded, dbg0=fork(banded.dbg0), dbg1=fork(banded.dbg1))
+
+
+def restore_banded(dst: BandedDuplex, src: BandedDuplex) -> BandedDuplex:
+    """Copy the severable tensors of `src` (a build, or fork_banded of the
+    same build) into `dst`, in place: undoes every sever made on dst."""
+    for layer in range(2):
+        d, s = dst.dbg(layer), src.dbg(layer)
+        d.base.copy_(s.base)
+        d.w_cov.copy_(s.w_cov)
+        d.w_spill.copy_(s.w_spill)
+    return dst

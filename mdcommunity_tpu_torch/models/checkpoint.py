@@ -1,4 +1,5 @@
-"""Loading the JAX package's committed checkpoints (weights only).
+"""Loading the JAX package's committed checkpoints (weights only), and
+saving the port's weights in the same layout.
 
 A `models_tpu/*/best_model.ckpt` is a pickle of the JAX agent's full state:
 params, target params, the optax optimizer state, the RNG state and the
@@ -41,8 +42,19 @@ def load_params(path: str) -> Dict[str, Any]:
     return state["params"]
 
 
-def load_model(path: str, device="cpu"):
-    """load_params composed with models.net.from_jax_params."""
+def load_model(path: str, device=None):
+    """load_params composed with models.net.from_jax_params: the module on
+    `device`, CUDA unless the caller names one."""
     from mdcommunity_tpu_torch.models.net import from_jax_params
 
     return from_jax_params(load_params(path), device=device)
+
+
+def save_params(path: str, net) -> None:
+    """Write {"params": to_jax_params(net)} with pickle, the file the JAX
+    package's scripts/train_1m.py writes: load_params and the JAX package's
+    loaders read it back."""
+    from mdcommunity_tpu_torch.models.net import to_jax_params
+
+    with open(path, "wb") as f:
+        pickle.dump({"params": to_jax_params(net)}, f)

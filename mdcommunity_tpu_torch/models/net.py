@@ -1,4 +1,4 @@
-"""The duplex dismantling Q-network: banded large-graph eval forward.
+"""The duplex dismantling Q-network: banded large-graph forward and loss.
 
 The model family is the reference's (MultiDismantler_net_graphsage.py): per
 duplex layer, 3 rounds of GraphSAGE-style message passing with a virtual
@@ -17,13 +17,15 @@ Math map (reference file:line):
   Q (test)        e = H_f[l] * (Y_f[l]·cross)         net :343-393
                   q_l = [relu(e@h1) ; aux_l] @ h2
                   gate_l = softmax_l(relu(Y_f[l]@W1)@W2)
+  loss            MSE(Q[a], target) + α·Laplacian     MultiDismantler_torch :410-431
 
-This slice ports the banded eval forward (`banded_test_forward`), where the
-aggregation A_l @ H is the dense-band operator of ops/dense_band.py.  With
-fuse_sage=True each round runs as one fused SAGE step (kernel K2): the
-concat-matmul algebra concat(pool@c1, H@c2)@c3 = pool@(c1@c3[:d]) +
-H@(c2@c3[d:]) lets the dense layer and the normalisation ride the pooled
-tile.  Dead nodes get -inf.
+The aggregation A_l @ H is the dense-band operator of ops/dense_band.py.
+`banded_test_forward` is the eval forward; with fuse_sage=True each round
+runs as one fused SAGE step (kernel K2): the concat-matmul algebra
+concat(pool@c1, H@c2)@c3 = pool@(c1@c3[:d]) + H@(c2@c3[d:]) lets the dense
+layer and the normalisation ride the pooled tile.  Dead nodes get -inf.
+`banded_train_loss` is the training loss, differentiable in the parameters
+through BandSpmm (kernel K1, and K1 with swapped scales for its backward).
 """
 
 from __future__ import annotations
@@ -33,11 +35,18 @@ from typing import Dict, Mapping, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mdcommunity_tpu_torch.models.fusion import fuse
 from mdcommunity_tpu_torch.ops.aggregate import l2_normalize
 from mdcommunity_tpu_torch.ops.band_kernels import sage_step
-from mdcommunity_tpu_torch.ops.dense_band import mirror_sub, spmm_dense_band
+from mdcommunity_tpu_torch.ops.dense_band import (
+    guard_band_operands,
+    mirror_sub,
+    spmm_dense_band,
+    spmm_dense_band_grad,
+)
+from mdcommunity_tpu_torch.utils.device import resolve_device
 
 _DENSE = (
     "w_n2l", "p_node_conv", "p_node_conv2", "p_node_conv3", "h1_weight",
@@ -48,7 +57,8 @@ _DENSE = (
 class DuplexQNet(nn.Module):
     """The Q-network's parameters (the JAX package's parameter tree, one
     tensor each; fusion parameters under `fusion`) and its banded forward.
-    Eval only: parameters do not require grad."""
+    Parameters are made with requires_grad=False, for the eval;
+    `net.requires_grad_()` makes them trainable (rl/big_trainer does)."""
 
     def __init__(self, params: Mapping[str, Union[np.ndarray, Mapping]]):
         super().__init__()
@@ -75,10 +85,67 @@ def _param(a) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def from_jax_params(params: Mapping, device="cpu") -> DuplexQNet:
+def from_jax_params(params: Mapping, device=None) -> DuplexQNet:
     """The port's module from the JAX package's parameter tree (numpy
-    arrays, as in a checkpoint's `params`), on `device`."""
-    return DuplexQNet(params).to(device)
+    arrays, as in a checkpoint's `params`), on `device`: CUDA unless the
+    caller names one."""
+    return DuplexQNet(params).to(resolve_device(device))
+
+
+def to_jax_params(net: DuplexQNet) -> Dict[str, Union[np.ndarray, Dict[str, np.ndarray]]]:
+    """The inverse of from_jax_params: the JAX package's parameter tree, as
+    f32 numpy arrays (fusion leaves under "fusion")."""
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    tree: Dict = {k: leaf(getattr(net, k)) for k in _DENSE}
+    tree["fusion"] = {k: leaf(v) for k, v in net.fusion.items()}
+    return tree
+
+
+def init_params(
+    generator: torch.Generator,
+    embedding_size: int = 64,
+    reg_hidden: int = 32,
+    aux_dim: int = 4,
+    node_feat_dim: int = 2,
+    gate_hidden: int = 128,
+    w_init_std: float = 1.0,
+) -> Dict[str, Union[np.ndarray, Dict[str, np.ndarray]]]:
+    """A fresh parameter tree, as the JAX package's net.init_params makes
+    it with its default (BitwiseMultipyLogis) fusion: dense weights
+    fmod(normal·std, 2) (the reference's initializer), fusion trans = I and
+    bias = 0, the logistic head uniform in ±1/√d.  Draws come from
+    `generator` (the JAX package's from jax.random: the same distributions,
+    other numbers)."""
+    d = embedding_size
+
+    def normal(*shape):
+        x = torch.randn(shape, generator=generator) * w_init_std
+        return torch.fmod(x, 2.0).numpy()
+
+    def uniform(*shape):
+        bound = 1.0 / np.sqrt(d)
+        return ((torch.rand(shape, generator=generator) * 2 - 1) * bound).numpy()
+
+    return {
+        "w_n2l": normal(node_feat_dim, d),
+        "p_node_conv": normal(d, d),
+        "p_node_conv2": normal(d, d),
+        "p_node_conv3": normal(2 * d, d),
+        "h1_weight": normal(d, reg_hidden),
+        "h2_weight": normal(reg_hidden + aux_dim, 1),
+        "cross_product": normal(d, 1),
+        "w_layer1": normal(d, gate_hidden),
+        "w_layer2": normal(gate_hidden, 1),
+        "fusion": {
+            "trans": np.eye(d, dtype=np.float32),
+            "bias": np.zeros(d, np.float32),
+            "logis_w": uniform(d, 1),
+            "logis_b": uniform(1),
+        },
+    }
 
 
 def _graph_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -97,12 +164,14 @@ def _graph_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
     """Per-layer model inputs of a BandedDuplex + covered mask (unit cost):
-    (node_input [2, pad_n, 2], aux [2, 4], active [pad_n], live [pad_n]).
+    (node_input [2, pad_n, 2], aux [2, 4], active [pad_n], live [pad_n],
+    deg [2, pad_n] live degrees).
 
     One unit-scale band pass per layer, with D = 2 ([live, mask] as the
     right-hand side), gives both the live degree and the unsevered degree;
     the severed-edge record lives in the base itself, so the covered-edge
-    aux counter is unsevered minus live edges."""
+    aux counter is unsevered minus live edges.  The inputs are graph
+    constants: the loss computes them without grad."""
     dt = net.w_n2l.dtype
     live = (~covered) & bdx.node_mask
     livef = live.to(dt)
@@ -140,7 +209,61 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
         ],
         dim=-1,
     )
-    return node_input, aux, active, livef
+    return node_input, aux, active, livef, deg
+
+
+def _embed(net: DuplexQNet, bdx, live, node_input, active, fuse_sage=False,
+           max_bp_iter=3, spmm=spmm_dense_band):
+    """Per-layer message passing and cross-layer fusion (the JAX package's
+    net._embed over a BandedDuplex): (h_f0, h_f1) [pad_n, D] l2-normalised
+    and zero on inactive rows, and y_f [2, D].  Each round aggregates with
+    `spmm(dbg, live, live, h)`, or with fuse_sage=True runs as the fused
+    SAGE step (kernel K2, no gradient)."""
+    d = net.embedding_size
+    c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
+    if fuse_sage:
+        sage_a = c1 @ c3[:d]
+        sage_b = c2 @ c3[d:]
+    ones_feat = torch.ones(2, dtype=net.w_n2l.dtype, device=bdx.device)
+
+    node_embs, virt_embs = [], []
+    for layer in range(2):
+        dbg = bdx.dbg(layer)
+        h = l2_normalize(torch.relu(node_input[layer] @ net.w_n2l))
+        y = l2_normalize(torch.relu(ones_feat @ net.w_n2l))
+        for _ in range(max_bp_iter):
+            ypool = _graph_sum(h)  # inactive rows are exactly 0
+            y_new = torch.cat([ypool @ c1, y @ c2])
+            if fuse_sage:
+                h = sage_step(dbg, live, live, h, mirror_sub(dbg, live, h),
+                              sage_a, sage_b)
+            else:
+                pool = spmm(dbg, live, live, h)
+                h = l2_normalize(torch.relu(torch.cat([pool @ c1, h @ c2], -1) @ c3))
+            y = l2_normalize(torch.relu(y_new @ c3))
+        node_embs.append(h)
+        virt_embs.append(y)
+
+    fp = net.fusion_params()
+    h0, h1 = fuse(fp, node_embs[0], node_embs[1])
+    y0, y1 = fuse(fp, virt_embs[0][None], virt_embs[1][None])
+    actf = active.to(h0.dtype)[:, None]
+    y_f = torch.stack([l2_normalize(y0)[0], l2_normalize(y1)[0]])  # [2, D]
+    return l2_normalize(h0) * actf, l2_normalize(h1) * actf, y_f
+
+
+def _q_values(net: DuplexQNet, rows, y_f, aux) -> torch.Tensor:
+    """The gated Q head over per-layer embedding rows [M, D]: q [M]."""
+    q_layers = []
+    for layer in range(2):
+        scal = y_f[layer] @ net.cross_product                      # [1]
+        hidden = torch.relu((rows[layer] * scal) @ net.h1_weight)  # [M, R]
+        aux_l = aux[layer].expand(hidden.shape[0], aux.shape[-1])
+        last = torch.cat([hidden, aux_l], dim=-1)
+        q_layers.append((last @ net.h2_weight)[:, 0])
+    s = torch.relu(y_f @ net.w_layer1) @ net.w_layer2               # [2, 1]
+    w = torch.softmax(s[:, 0], dim=0)
+    return w[0] * q_layers[0] + w[1] * q_layers[1]
 
 
 @torch.no_grad()
@@ -164,47 +287,71 @@ def banded_test_forward(
     the JAX package's net.banded_test_forward in f32."""
     if fuse_sage and not bdx.spill_free:
         raise ValueError("fuse_sage needs empty spill sets in both layers")
-    node_input, aux, active, live = _banded_inputs(net, bdx, covered)
-    d = net.embedding_size
-    c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
-    if fuse_sage:
-        sage_a = c1 @ c3[:d]
-        sage_b = c2 @ c3[d:]
-    ones_feat = torch.ones(2, dtype=net.w_n2l.dtype, device=bdx.device)
-
-    node_embs, virt_embs = [], []
-    for layer in range(2):
-        dbg = bdx.dbg(layer)
-        h = l2_normalize(torch.relu(node_input[layer] @ net.w_n2l))
-        y = l2_normalize(torch.relu(ones_feat @ net.w_n2l))
-        for _ in range(max_bp_iter):
-            ypool = _graph_sum(h)  # inactive rows are exactly 0
-            y_new = torch.cat([ypool @ c1, y @ c2])
-            if fuse_sage:
-                h = sage_step(dbg, live, live, h, mirror_sub(dbg, live, h),
-                              sage_a, sage_b)
-            else:
-                pool = spmm_dense_band(dbg, live, live, h)
-                h = l2_normalize(torch.relu(torch.cat([pool @ c1, h @ c2], -1) @ c3))
-            y = l2_normalize(torch.relu(y_new @ c3))
-        node_embs.append(h)
-        virt_embs.append(y)
-
-    fp = net.fusion_params()
-    h0, h1 = fuse(fp, node_embs[0], node_embs[1])
-    y0, y1 = fuse(fp, virt_embs[0][None], virt_embs[1][None])
-    actf = active.to(h0.dtype)[:, None]
-    h_f = [l2_normalize(h0) * actf, l2_normalize(h1) * actf]
-    y_f = torch.stack([l2_normalize(y0)[0], l2_normalize(y1)[0]])  # [2, D]
-
-    q_layers = []
-    for layer in range(2):
-        scal = y_f[layer] @ net.cross_product                      # [1]
-        hidden = torch.relu((h_f[layer] * scal) @ net.h1_weight)   # [pad_n, R]
-        aux_l = aux[layer].expand(hidden.shape[0], aux.shape[-1])
-        last = torch.cat([hidden, aux_l], dim=-1)
-        q_layers.append((last @ net.h2_weight)[:, 0])
-    s = torch.relu(y_f @ net.w_layer1) @ net.w_layer2               # [2, 1]
-    w = torch.softmax(s[:, 0], dim=0)
-    q = w[0] * q_layers[0] + w[1] * q_layers[1]
+    node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered)
+    h0, h1, y_f = _embed(net, bdx, live, node_input, active, fuse_sage, max_bp_iter)
+    q = _q_values(net, (h0, h1), y_f, aux)
     return torch.where(active, q, torch.full_like(q, -float("inf")))
+
+
+def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate) -> torch.Tensor:
+    """Σ_l 2·tr(HᵀLH)/|E_l| with L = D - A of the live subgraph (the JAX
+    package's net.laplacian_regularizer; reference calc_loss,
+    MultiDismantler_torch.py:410-431).
+
+    tr(HᵀLH) = Σ_v deg_v·||H_v||² - Σ_{(u,v) directed} H_u·H_v.
+    h_f: per-layer [pad_n, D]; deg [2, pad_n] live degrees;
+    aggregate(layer, h) = A_l @ h over the live subgraph."""
+    total = 0.0
+    for layer in range(2):
+        h = h_f[layer]
+        quad = torch.sum(deg[layer] * torch.sum(h * h, dim=-1))
+        cross = torch.sum(h * aggregate(layer, h))
+        denom = torch.clamp(torch.sum(deg[layer]), min=1.0)
+        total = total + 2.0 * (quad - cross) / denom
+    return total
+
+
+def banded_train_loss(
+    net: DuplexQNet,
+    bdx,
+    covered: torch.Tensor,
+    actions: torch.Tensor,
+    targets: torch.Tensor,
+    alpha: float = 1e-3,
+    remat: bool = True,
+) -> torch.Tensor:
+    """DQN loss on one large BandedDuplex: MSE(Q[actions], targets) +
+    alpha·Laplacian embedding regularizer (the JAX package's
+    net.banded_train_loss, unit cost, precise).
+
+    actions: int [K] node ids, targets: f32 [K].  Every aggregation of the
+    embedding and of the regularizer runs through BandSpmm, so its gradient
+    is kernel K1 with swapped scales; the degree passes of the inputs run
+    without grad.  The fit runs in f32 (the caller keeps TF32 off,
+    utils/device.set_precise_matmul).
+
+    remat=True recomputes the embedding in the backward instead of storing
+    its activations (torch.utils.checkpoint, as the JAX package's
+    jax.checkpoint).  The recomputed forward reads the band operands again,
+    so a guard makes the backward raise if they were edited after this
+    call; BandSpmm's own check covers remat=False."""
+    with torch.no_grad():
+        node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered)
+
+    def embed():
+        return _embed(net, bdx, live, node_input, active, spmm=spmm_dense_band_grad)
+
+    if remat:
+        h0, h1, y_f = checkpoint(embed, use_reentrant=False)
+        h0, h1, y_f = guard_band_operands((bdx.dbg0, bdx.dbg1), h0, h1, y_f)
+    else:
+        h0, h1, y_f = embed()
+    actions = torch.as_tensor(actions, device=bdx.device).long()
+    targets = torch.as_tensor(targets, device=bdx.device, dtype=h0.dtype)
+    q = _q_values(net, (h0[actions], h1[actions]), y_f, aux)
+    mse = torch.mean(torch.square(q - targets))
+    reg = laplacian_regularizer(
+        (h0, h1), deg,
+        lambda layer, h: spmm_dense_band_grad(bdx.dbg(layer), live, live, h),
+    )
+    return mse + alpha * reg

@@ -8,7 +8,9 @@ rows, G the mirror one-hot (`slot_of_row`), and `mir_sub` [nb·C, D] the
 mirror-space result that ops/dense_band.mirror_sub computes in PyTorch.  They
 replace the JAX package's Pallas TPU kernel ops/band_pallas.py::_make_kernel
 (modes sage=False and sage=True, precise); the CUDA sources are in
-csrc/band.cu, which also says what bounds them on an H100.
+csrc/band.cu, which also says what bounds them on an H100.  K1 is also the
+operator's backward: ops/dense_band.BandSpmm launches it with row and col
+swapped, counted under `band_spmm_bwd`.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches its kernel or raises.  Nothing falls back.  The kernels build with
@@ -32,8 +34,9 @@ SRC = os.path.join(_PKG, "csrc", "band.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD_DIR, "libmdc_band.so")
 
-# kernel launches on CUDA tensors, by kernel name
-launches = {"band_spmm": 0, "band_sage": 0}
+# kernel launches on CUDA tensors, by kernel name; band_spmm_bwd counts the
+# launches of K1 that compute a gradient (ops/dense_band.BandSpmm.backward)
+launches = {"band_spmm": 0, "band_sage": 0, "band_spmm_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -187,13 +190,14 @@ def sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w) -> torch.Tensor:
 # ---------------------------------------------------------------- wrappers
 
 
-def spmm_band(dbg, row, col, h, mir_sub) -> torch.Tensor:
+def spmm_band(dbg, row, col, h, mir_sub, counter: str = "band_spmm") -> torch.Tensor:
     """K1: out = row ⊙ (A_band @ (col ⊙ h) + Gᵀ·mir_sub), f32 [pad_n, D].
-    The spill COO is not part of it (ops/dense_band.spmm_dense_band adds it)."""
+    The spill COO is not part of it (ops/dense_band.spmm_dense_band adds it).
+    A launch counts under launches[counter]."""
     _check(dbg, row, col, h, mir_sub)
     if h.device.type == "cpu":
         return spmm_band_plain(dbg, row, col, h, mir_sub)
-    return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), "band_spmm")
+    return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), counter)
 
 
 def sage_step(dbg, row, col, h, mir_sub, A_w, B_w) -> torch.Tensor:

@@ -20,7 +20,9 @@ build_dense_band, moved to a torch device.  On top it keeps two index arrays
 that the CUDA kernels and the wrapper use instead of the one-hot lanes:
 `mirror_node[b, c]` (the node of mirror slot c of block b, or -1) and its
 inverse `slot_of_row[b, s]` (the slot that row s of block b owns, or -1).
-The band contraction itself is ops/band_kernels.spmm_band (kernel K1).
+The band contraction itself is ops/band_kernels.spmm_band (kernel K1); the
+training loss differentiates through it with BandSpmm, whose backward is K1
+with the scales swapped.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from mdcommunity_tpu_torch.ops.spmm_csr import SortedCOO, build_sorted_coo, spmm_sorted
+from mdcommunity_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -122,12 +125,14 @@ def build_dense_band(
     S: int = 256,
     B: int = 128,
     max_mirror: int = 64,
-    device="cpu",
+    device=None,
 ) -> DenseBandGraph:
     """Host build from directed unit-weight edges (out[dst] += h[src]);
     duplicate edges accumulate.  The edge set must be symmetric.  The arrays
-    equal the JAX package's build_dense_band(w=None, dtype=int8)."""
+    equal the JAX package's build_dense_band(w=None, dtype=int8).  The
+    result lies on `device`: CUDA unless the caller names one."""
     assert B <= S and S % 8 == 0 and B % 8 == 0
+    device = resolve_device(device)
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     w = np.ones(len(src), np.float32)
@@ -249,7 +254,11 @@ def mirror_sub(dbg: DenseBandGraph, col: torch.Tensor, h: torch.Tensor) -> torch
 
 
 def spmm_dense_band(
-    dbg: DenseBandGraph, row: torch.Tensor, col: torch.Tensor, h: torch.Tensor
+    dbg: DenseBandGraph,
+    row: torch.Tensor,
+    col: torch.Tensor,
+    h: torch.Tensor,
+    counter: str = "band_spmm",
 ) -> torch.Tensor:
     """out = (A ⊙ row⊗col) @ h for the full stored operator (band + mirror
     overflow + spill), in f32.
@@ -258,11 +267,92 @@ def spmm_dense_band(
     col : f32 [pad_n] source-side scale
     h   : f32 [pad_n, D]
     The band and the mirror expansion run in kernel K1 (on the CPU its plain
-    version); the spill COO is added after it, as the JAX package does."""
+    version), whose launch counts under `counter`; the spill COO is added
+    after it, as the JAX package does.  Not differentiable: the training
+    loss aggregates through spmm_dense_band_grad."""
     from mdcommunity_tpu_torch.ops.band_kernels import spmm_band
 
-    out = spmm_band(dbg, row, col, h, mirror_sub(dbg, col, h))
+    out = spmm_band(dbg, row, col, h, mirror_sub(dbg, col, h), counter)
     if dbg.spill.nnz:
         sp = spmm_sorted(dbg.spill, dbg.w_spill, h * col[:, None])
         out = out + sp * row[:, None]
     return out
+
+
+def band_versions(dbg: DenseBandGraph) -> Tuple[int, int, int]:
+    """The in-place edit counters of the tensors sever_edges writes."""
+    return dbg.base._version, dbg.w_cov._version, dbg.w_spill._version
+
+
+def check_band_versions(dbg: DenseBandGraph, versions: Tuple[int, int, int]) -> None:
+    """Raise if the band operands were edited since `versions` was taken: a
+    gradient would then mix two graph states."""
+    if band_versions(dbg) != versions:
+        raise RuntimeError(
+            "the band operands were edited (a sever) between the forward "
+            "and the backward of the band operator; the gradient would be "
+            "wrong"
+        )
+
+
+class BandSpmm(torch.autograd.Function):
+    """The band operator, differentiable in h (the counterpart of the JAX
+    package's dense_band custom VJP and of band_pallas's VJP of kernel K1).
+
+    The stored operator is symmetric (band, mirror COO and spill COO all
+    hold both directions of every edge, and a sever zeroes both), so with
+    (R·A·C)ᵀ = C·A·R the backward is the same operator with row and col
+    swapped: kernel K1 again, counted under launches["band_spmm_bwd"].  Its
+    mirror and spill parts reuse the sorted segment sums, so the gradient is
+    deterministic.  dbg, row and col are graph constants; the backward
+    raises if the band operands or the scales were edited since the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, dbg, row, col, h):
+        ctx.dbg = dbg
+        ctx.versions = band_versions(dbg)
+        ctx.save_for_backward(row, col)  # autograd checks their versions
+        return spmm_dense_band(dbg, row, col, h.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        check_band_versions(ctx.dbg, ctx.versions)
+        row, col = ctx.saved_tensors
+        dh = spmm_dense_band(ctx.dbg, col, row, g.contiguous(), "band_spmm_bwd")
+        return None, None, None, dh
+
+
+class _BandGuard(torch.autograd.Function):
+    """Identity on its tensors; its backward raises if the band operands of
+    `dbgs` were edited since its forward."""
+
+    @staticmethod
+    def forward(ctx, dbgs, *xs):
+        ctx.dbgs = dbgs
+        ctx.versions = [band_versions(d) for d in dbgs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        for dbg, versions in zip(ctx.dbgs, ctx.versions):
+            check_band_versions(dbg, versions)
+        return (None, *gs)
+
+
+def guard_band_operands(dbgs, *xs):
+    """xs unchanged, but a backward through them raises if any of `dbgs`
+    was edited after this call.  A checkpointed (recomputed) forward needs
+    it: its BandSpmm calls run again in the backward and record the
+    operands as they are then."""
+    return _BandGuard.apply(tuple(dbgs), *xs)
+
+
+def spmm_dense_band_grad(
+    dbg: DenseBandGraph, row: torch.Tensor, col: torch.Tensor, h: torch.Tensor
+) -> torch.Tensor:
+    """spmm_dense_band with a gradient for h (BandSpmm).  row and col must
+    not require grad: the operator has no gradient for its scales."""
+    if row.requires_grad or col.requires_grad:
+        raise ValueError("the band operator is differentiable in h only")
+    return BandSpmm.apply(dbg, row, col, h)

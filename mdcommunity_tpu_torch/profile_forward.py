@@ -1,12 +1,17 @@
-"""Where the time of one model call goes, on the card.
+"""Where the time of one model call, or of one trainer iteration, goes on
+the card.
 
-Builds the `large_graph_demo` graph of each size (same generator and seed),
-runs a few warm-up model calls of the greedy loop (forward + stable top-k +
-fetch), then profiles a steady window of them with torch.profiler and prints
-the device time by kernel, the host-clock time per call and the device's busy
-share of the window.
+Builds the `large_graph_demo` graph of each size (same generator and seed).
+By default it runs a few warm-up model calls of the greedy loop (forward +
+stable top-k + fetch), then profiles a steady window of them with
+torch.profiler.  With --fit it runs the training loop of train_1m
+(rl/big_trainer.py, k = 0.001·n) and profiles one iteration after the
+warm-up ones: selection, host cascade, severs, target forward and the fit
+(forward, backward, Adam).  Prints the device time by kernel, the host-clock
+time, the device's busy share and the kernel launches.
 
     python -m mdcommunity_tpu_torch.profile_forward --sizes 18222 1048576
+    python -m mdcommunity_tpu_torch.profile_forward --fit --sizes 1048576
 """
 
 from __future__ import annotations
@@ -24,49 +29,70 @@ def main(argv=None):
     ap.add_argument("--sizes", type=int, nargs="*", default=[18222, 1048576])
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--fit", action="store_true",
+                    help="profile one trainer iteration instead of model calls")
     args = ap.parse_args(argv)
+    warm = 3  # calls or iterations before the profiled ones
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    from mdcommunity_tpu_torch.env.host_env import make_host_env
     from mdcommunity_tpu_torch.eval.metrics import top_k_stable
     from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
     from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
     from mdcommunity_tpu_torch.models.checkpoint import load_model
     from mdcommunity_tpu_torch.models.net import banded_test_forward
+    from mdcommunity_tpu_torch.rl.big_trainer import train_banded_loop
     from mdcommunity_tpu_torch.utils.device import resolve_device, set_precise_matmul
 
     device = resolve_device(None)
     set_precise_matmul()
     net = load_model(args.model, device=device)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for n in args.sizes:
         e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0))
-        banded, _, _ = build_banded_duplex(n, e0, e1, max_rank=0, device=device)
-        covered = ~banded.node_mask
+        banded, _, (o0, o1) = build_banded_duplex(n, e0, e1, max_rank=0, device=device)
         fuse = banded.spill_free
         k = max(int(0.001 * n), 1)
 
-        def call():
-            return top_k_stable(banded_test_forward(net, banded, covered, fuse), k)
+        if args.fit:
+            env = make_host_env(n, o0, o1)
+            sched = schedule(wait=0, warmup=warm, active=1, repeat=1)
+            with profile(activities=activities, schedule=sched) as prof:
+                _, hist = train_banded_loop(
+                    net, banded, env, iters=warm + 1, k=k,
+                    log=lambda *a: None, on_iter=lambda row: prof.step())
+            row = [h for h in hist if "loss" in h][warm]
+            wall, what = row["t_iter_s"], dict(iteration=row)
+            reps = 1
+        else:
+            def call():
+                return top_k_stable(banded_test_forward(net, banded, ~banded.node_mask,
+                                                        fuse), k)
 
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.calls):
+            for _ in range(warm):
                 call()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for _ in range(args.calls):
+                    call()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            what = dict(calls=args.calls, call_ms=1e3 * wall / args.calls)
+            reps = args.calls
+        # device kernels only: ranges such as ProfilerStep*, BandSpmm or
+        # Optimizer.step also appear on the device timeline, spanning kernels
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
         busy_us = sum(e.self_device_time_total for e in events)
         print(json.dumps(dict(
-            n=n, pad_n=banded.pad_n, fuse_sage=fuse, calls=args.calls,
-            call_ms=1e3 * wall / args.calls,
-            device_busy_ms_per_call=busy_us / 1e3 / args.calls,
+            n=n, pad_n=banded.pad_n, fuse_sage=fuse, fit=args.fit, **what,
+            device_busy_ms=busy_us / 1e3 / reps,
             busy_share=busy_us / 1e6 / wall,
-            kernel_launches_per_call=sum(e.count for e in events) / args.calls,
+            kernel_launches=sum(e.count for e in events) / reps,
             device=torch.cuda.get_device_name(device),
         )), flush=True)
         print(prof.key_averages().table(sort_by="self_device_time_total",

@@ -1,0 +1,265 @@
+"""DQN training on one large banded duplex (10^6 nodes), unit cost.
+
+The reference's Train() loop (MultiDismantler_torch.py:433-547: rollout,
+transitions, fit, target snapshot) at the scale of the large-graph eval, as
+the JAX package's rl/big_trainer.py runs it: the unit of interaction is a
+StepRatio macro-step.  The policy ranks all nodes, the top k (eps-mixed) are
+removed together, and one host cascade advances the environment.
+
+* A transition is (s_t, A_t, r_t, s_{t+1}): A_t the k actions of the
+  macro-step, r_t(a) = -norm_post/n per action (step_many's score contract).
+* The TD target of every a in A_t is r_t(a) + gamma·max_a' Q_target(s_{t+1},
+  a'), or r_t(a) at terminal.
+* The replay buffer is the episode stream: each macro-step is one fit batch
+  of k state-action pairs on the pre-step state s_t.
+* Target-network snapshots every `target_update` iterations; eps-greedy
+  exploration per slot over the valid actions.
+
+Selection and targets run the eval forward (kernels K1 and K2); the fit
+runs models/net.banded_train_loss, whose gradient is K1 with swapped scales.
+
+The JAX package's operands are values, so its pre-step state is still at
+hand when it fits after applying the next state's severs.  Here severs edit
+the band in place, so the loop keeps two operand sets, `cur` and `prev`,
+equal at every episode reset: it selects on cur, severs cur, runs the
+target forward on cur, fits on prev, then severs prev the same way.  The
+covered mask of s_{t+1} is a new tensor.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from mdcommunity_tpu_torch.eval.metrics import top_k_stable
+from mdcommunity_tpu_torch.graphs.banded import (
+    BandedDuplex,
+    apply_severs,
+    fork_banded,
+    restore_banded,
+)
+from mdcommunity_tpu_torch.models.net import (
+    DuplexQNet,
+    banded_test_forward,
+    banded_train_loss,
+)
+from mdcommunity_tpu_torch.utils.device import set_precise_matmul
+
+
+def _apply_severs(banded: BandedDuplex, layer: int, ns: np.ndarray) -> None:
+    """Sever the undirected edges `ns` [K, 2] of one layer, in place.  The
+    counterpart of the JAX package's _apply_severs_chunked: the port matches
+    mirror and spill edges by sorted keys, not by a [E_ov, K] comparison, so
+    a cascade report of any size is one call."""
+    if len(ns):
+        e = torch.from_numpy(np.asarray(ns, np.int64)).to(banded.device)
+        ok = torch.ones(len(e), dtype=torch.bool, device=banded.device)
+        apply_severs(banded, layer, e[:, 0], e[:, 1], ok)
+
+
+def sync_env_severs(banded: BandedDuplex, env) -> BandedDuplex:
+    """Replay the env's current persistent sever masks into the band (at
+    episode start: the t=0 cascade usually severs some edges)."""
+    for layer in range(2):
+        _apply_severs(banded, layer, env.edges[layer][env.sever[layer]])
+    return banded
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_banded_loop(
+    net: DuplexQNet,
+    banded0: BandedDuplex,
+    env,
+    *,
+    iters: int = 600,
+    k: int = 1024,
+    variant: str = "unit_cost",
+    lr: float = 1e-4,
+    gamma: float = 1.0,
+    alpha_recon: float = 1e-3,
+    eps_start: float = 0.1,
+    eps_end: float = 0.02,
+    target_update: int = 100,
+    fits_per_step: int = 1,
+    stop_rank_sqrt: bool = True,
+    packed: bool = True,
+    precise: bool = True,
+    mesh=None,
+    seed: int = 0,
+    log=print,
+    log_every: int = 25,
+    on_iter=None,
+):
+    """Train a copy of `net` by dismantling the single large duplex `env`
+    holds; returns (trained net, history).
+
+    banded0: the pristine BandedDuplex in the env's (band) node order, on
+    the device the loop runs on; it is never edited (episode resets copy
+    it).  history: one row per iteration (the JAX package's keys, plus the
+    iteration's time split: t_select_s, t_env_s, t_sever_s, t_target_s,
+    t_fit_s), one row per finished episode (AUDC) and a closing row.
+
+    packed=True runs the eval forward with fused SAGE steps (kernel K2)
+    when the build is spill-free.  Adam is torch.optim.Adam with optax.adam's
+    defaults (betas 0.9/0.999, eps 1e-8; the same bias-corrected update).
+    Eps mixing draws from np.random.default_rng(seed) in the JAX package's
+    order.  Unlike the JAX package, the batch is de-duplicated after the
+    mix (first occurrences kept): a mixed slot the pool could not refill
+    may repeat a replacement, and the env removes it once.
+
+    stop_rank_sqrt: end the episode once rank <= sqrt(N), the reference's
+    synthetic stopping rule (the JAX package's naive 2^20 run spent most of
+    its iterations past the rank collapse, where targets are pure bootstrap).
+    on_iter, when given, is called with each iteration's history row as the
+    iteration ends (profile_forward --fit steps its profiler with it).
+
+    The JAX package's mesh (multi-GPU) and pack_G (a TPU layout) are not
+    ported; precise=False (bf16) neither."""
+    if variant != "unit_cost":
+        raise NotImplementedError(f"variant {variant!r}: only unit_cost is ported")
+    if mesh is not None:
+        raise NotImplementedError("sharded (multi-GPU) training is not ported")
+    if not precise:
+        raise NotImplementedError("the bf16 (precise=False) fit is not ported")
+    set_precise_matmul()
+    device = banded0.device
+    rng = np.random.default_rng(seed)
+    n, pad_n = env.n, banded0.pad_n
+    fuse = packed and banded0.spill_free
+
+    net = copy.deepcopy(net).to(device).requires_grad_(True)
+    target = copy.deepcopy(net).requires_grad_(False)
+    opt = torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    cost = np.full(n, 1.0 / n)
+    cur, prev = fork_banded(banded0), fork_banded(banded0)
+
+    def reset_episode() -> torch.Tensor:
+        env.reset()
+        for b in (cur, prev):
+            sync_env_severs(restore_banded(b, banded0), env)
+        return torch.from_numpy(
+            np.pad(env.covered, (0, pad_n - n), constant_values=True)
+        ).to(device)
+
+    covered = reset_episode()
+    history: List[dict] = []
+    episode = 0
+    t_loop = time.perf_counter()
+
+    for it in range(iters):
+        t0 = time.perf_counter()
+        eps = eps_start + (eps_end - eps_start) * it / max(iters - 1, 1)
+
+        # --- action selection: device top-k, host eps mixing ------------
+        vals, order = top_k_stable(
+            banded_test_forward(net, cur, covered, fuse_sage=fuse), k)
+        ok = np.isfinite(vals) & ~env.covered[order]
+        cut = int(np.argmin(ok)) if not ok.all() else len(ok)
+        acts = order[:cut].astype(np.int64)
+        if len(acts) == 0:
+            # no live action (the forward masks dead nodes to -inf)
+            covered = reset_episode()
+            episode += 1
+            continue
+        mix = rng.random(len(acts)) < eps
+        if mix.any():
+            valid = env.alive_nodes(0) & env.alive_nodes(1) & ~env.covered
+            valid[acts[~mix]] = False
+            pool = np.flatnonzero(valid)
+            n_mix = min(int(mix.sum()), len(pool))
+            if n_mix:
+                repl = rng.choice(pool, size=n_mix, replace=False)
+                acts[np.flatnonzero(mix)[:n_mix]] = repl
+            _, first = np.unique(acts, return_index=True)
+            acts = acts[np.sort(first)]
+        t1 = time.perf_counter()
+
+        # --- env macro-step (one cascade), rewards ----------------------
+        _, new_sev, removed = env.step_many(acts)
+        norm = env.rank / max(env.max_rank, 1)
+        rewards = -norm * cost[acts]
+        t2 = time.perf_counter()
+
+        # --- next state on the device: a new covered mask, cur severed ---
+        acts_dev = torch.from_numpy(acts).to(device)
+        prev_covered = covered
+        covered = covered.clone()
+        covered[acts_dev] = True
+        for layer in range(2):
+            _apply_severs(cur, layer, new_sev[layer])
+        _sync(device)
+        t3 = time.perf_counter()
+
+        # --- TD targets ---------------------------------------------------
+        if env.terminal:
+            targets = rewards
+            maxq = 0.0
+        else:
+            q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse)
+            maxq = float(q_next.max())
+            targets = rewards + gamma * maxq
+        t4 = time.perf_counter()
+
+        # --- fit on the pre-step state s_t (prev), then sever prev --------
+        loss_v = float("nan")
+        if len(acts) == k:  # the JAX package skips the short terminal batch
+            tgts_dev = torch.from_numpy(targets.astype(np.float32)).to(device)
+            for _ in range(fits_per_step):
+                opt.zero_grad(set_to_none=True)
+                loss = banded_train_loss(net, prev, prev_covered, acts_dev,
+                                         tgts_dev, alpha=alpha_recon)
+                loss.backward()
+                opt.step()
+            loss_v = loss.item()
+        t5 = time.perf_counter()
+        for layer in range(2):
+            _apply_severs(prev, layer, new_sev[layer])
+        _sync(device)
+        t6 = time.perf_counter()
+
+        if (it + 1) % target_update == 0:
+            target.load_state_dict(net.state_dict())
+
+        row = {
+            "iter": it, "episode": episode, "eps": round(float(eps), 4),
+            "removed": int(removed), "norm": round(float(norm), 6),
+            "maxq": round(float(maxq), 6), "loss": loss_v,
+            "t_iter_s": round(time.perf_counter() - t0, 3),
+            "t_select_s": round(t1 - t0, 4), "t_env_s": round(t2 - t1, 4),
+            "t_sever_s": round(t3 - t2 + t6 - t5, 4),
+            "t_target_s": round(t4 - t3, 4), "t_fit_s": round(t5 - t4, 4),
+        }
+        history.append(row)
+        if on_iter is not None:
+            on_iter(row)
+        if it % log_every == 0 or env.terminal:
+            log(f"[big] it {it} ep {episode} eps {eps:.3f} "
+                f"norm {norm:.4f} loss {loss_v:.3e} maxq {maxq:.4f} "
+                f"t {row['t_iter_s']:.2f}s")
+
+        ep_done = env.terminal or (stop_rank_sqrt and env.rank * env.rank <= n)
+        if ep_done:
+            history.append({
+                "episode_end": episode, "audc": float(env.score),
+                "removals": int(env.t), "iters_used": it + 1,
+                "terminal": bool(env.terminal), "rank": int(env.rank),
+            })
+            log(f"[big] episode {episode} done (terminal={env.terminal}, "
+                f"rank={env.rank}): AUDC {env.score:.6f} "
+                f"({env.t} removals)")
+            covered = reset_episode()
+            episode += 1
+
+    history.append({
+        "total_wall_s": round(time.perf_counter() - t_loop, 1),
+        "iters": iters, "episodes": episode + 1,
+    })
+    return net, history

@@ -41,7 +41,7 @@ def test_load_params_equals_the_agent_loader(jax_params):
             node = node[k.key]
         assert node.dtype == np.float32
         np.testing.assert_array_equal(node, np.asarray(leaf))
-    net = load_model(CKPT)
+    net = load_model(CKPT, device="cpu")
     assert sum(p.numel() for p in net.parameters()) == 31205
 
 
@@ -70,7 +70,7 @@ def test_forward_matches_xla_engine(jax_params, fuse_sage, covered_frac):
     jb, tb, covered = _state(0, covered_frac)
     ref = jax.jit(lambda p, b, c: jax_forward(p, b, c, precise=True))(
         jax_params, jb, jnp.asarray(covered))
-    q = banded_test_forward(load_model(CKPT), tb, torch.from_numpy(covered),
+    q = banded_test_forward(load_model(CKPT, device="cpu"), tb, torch.from_numpy(covered),
                             fuse_sage=fuse_sage)
     _assert_q_close(q, ref)
 
@@ -84,7 +84,7 @@ def test_forward_matches_packed_engine(jax_params, fuse_sage):
         jax_params, jb, pack_duplex(jb), jnp.asarray(covered), interpret=True,
         fuse_sage=fuse_sage, precise=True,
     )
-    q = banded_test_forward(load_model(CKPT), tb, torch.from_numpy(covered),
+    q = banded_test_forward(load_model(CKPT, device="cpu"), tb, torch.from_numpy(covered),
                             fuse_sage=fuse_sage)
     _assert_q_close(q, ref)
 
@@ -102,7 +102,7 @@ def test_fuse_sage_needs_empty_spill():
     tb, _, _ = build_banded_duplex(N, e, e, reorder=False, device="cpu")
     assert not tb.spill_free
     covered = ~tb.node_mask
-    net = load_model(CKPT)
+    net = load_model(CKPT, device="cpu")
     with pytest.raises(ValueError, match="spill"):
         banded_test_forward(net, tb, covered, fuse_sage=True)
     q = banded_test_forward(net, tb, covered)

@@ -53,7 +53,7 @@ TIE = 1e-5  # of max|Q|: a gap no f32 forward of this depth resolves
 def models():
     agent = DQNAgent(Config(variant="unit_cost"), seed=0)
     agent.load(CKPT)
-    return agent.params, load_model(CKPT)
+    return agent.params, load_model(CKPT, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +236,7 @@ def main(argv=None):
     jax.config.update("jax_default_matmul_precision", "highest")
     agent = DQNAgent(Config(variant="unit_cost"), seed=0)
     agent.load(CKPT)
-    models = (agent.params, load_model(CKPT))
+    models = (agent.params, load_model(CKPT, device="cpu"))
     edges = synth_duplex_edges(args.n, 6, np.random.default_rng(args.seed))
     n = args.n
     e0, e1 = edges

@@ -26,7 +26,8 @@ def test_import_leaves_jax_out():
     """A fresh interpreter (conftest.py imports jax in this one) imports the
     package and every submodule, and the checkpoint loader runs."""
     mods = _submodules()
-    assert "mdcommunity_tpu_torch.ops.band_kernels" in mods
+    for m in ("ops.band_kernels", "rl.big_trainer", "train_1m"):
+        assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,3 +82,23 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
         main(["--sizes", "16"])
     banded, _, _ = build_banded_duplex(4, e, e, S=8, B=8, device="cpu")
     assert banded.device.type == "cpu"
+
+
+def test_constructors_need_cuda_unless_cpu_asked(monkeypatch):
+    """The model and band constructors resolve their device as the entry
+    points do: CUDA unless the caller names one."""
+    from mdcommunity_tpu_torch.models.checkpoint import load_model, load_params
+    from mdcommunity_tpu_torch.models.net import from_jax_params
+    from mdcommunity_tpu_torch.ops.dense_band import build_dense_band
+    from mdcommunity_tpu_torch.train_1m import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = "models_tpu/unit_cost_full_r1/best_model.ckpt"
+    s, d = np.array([0, 1]), np.array([1, 0])
+    for call in (lambda: load_model(ckpt), lambda: from_jax_params(load_params(ckpt)),
+                 lambda: build_dense_band(s, d, 4, S=8, B=8),
+                 lambda: main(["--n", "64", "--iters", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert load_model(ckpt, device="cpu").w_n2l.device.type == "cpu"
+    assert build_dense_band(s, d, 4, S=8, B=8, device="cpu").device.type == "cpu"

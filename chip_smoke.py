@@ -51,6 +51,10 @@ OUT = os.path.join(HERE, "runs", "chip_smoke")
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_S = 67e12       # H100 SXM FP32 outside the tensor cores
 REL_TOL = 1e-4           # kernel vs plain: f32 sums in another order
+TIE = 1e-5               # of max|Q|: a gap no f32 forward of this depth resolves
+BLOCKED_STEPS = 720      # removals of the blocked path's run (step 18): about a minute
+GOLDEN_VC = 0.1194451824  # tests/test_golden_models.py, unit cost, 32 graphs
+GOLDEN_SYN = os.path.join(HERE, "results_tpu", "golden_synthetic", "golden.json")
 
 
 def log(*a):
@@ -69,7 +73,7 @@ def gpu_line() -> str:
 
 def build_all():
     from mdcommunity_tpu_torch.native import build as native_build
-    from mdcommunity_tpu_torch.ops import band_kernels
+    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels
 
     errs, times = {}, {}
 
@@ -83,6 +87,7 @@ def build_all():
 
     threads = [
         threading.Thread(target=run, args=("band.cu (nvcc)", band_kernels.build)),
+        threading.Thread(target=run, args=("blocked.cu (nvcc)", blocked_kernels.build)),
         threading.Thread(target=run, args=("mdc_native.cpp (g++)", native_build.build)),
     ]
     t0 = time.perf_counter()
@@ -94,10 +99,11 @@ def build_all():
         raise RuntimeError(f"build of {name} failed") from exc
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    with open(os.path.join(os.path.dirname(band_kernels.LIB), "band_ptxas.log")) as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+    for name in ("band", "blocked"):
+        with open(os.path.join(os.path.dirname(band_kernels.LIB), f"{name}_ptxas.log")) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}:", line.strip())
 
 
 # ---------------------------------------------------------------- graphs
@@ -494,6 +500,368 @@ def fit_memory(device, banded, k):
             resident_gib=base / 2**30)))
 
 
+# ---------------------------------------------------------------- K4, K5
+
+
+def random_blocked(device):
+    """A random blocked layout (S = T = 512, 2,048 rows) whose destination
+    block 1 has no pairs and whose pair count is padded past the real
+    pairs, with weights on its real slots."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.ops.blocked_kernels import build_block_coo
+
+    rng = np.random.default_rng(12)
+    src, dst = rng.integers(0, 2048, 6000), rng.integers(0, 2048, 6000)
+    keep = dst // 512 != 1
+    bcoo, _, _, mask = build_block_coo(src[keep], dst[keep], 2048, 512, 512,
+                                       device=device)
+    if not (int(bcoo.rowptr[2]) == int(bcoo.rowptr[1])
+            and int(bcoo.rowptr[-1]) < bcoo.n_pairs):
+        raise AssertionError("the random layout needs an empty block and padded pairs")
+    w = torch.from_numpy((rng.random(mask.size) * mask).astype(np.float32))
+    return bcoo, w.reshape(bcoo.n_pairs, bcoo.T).to(device)
+
+
+def check_blocked(device):
+    """K4 and K5 against their plain versions on the random layout, at
+    D = 64 and D = 48."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import blocked_kernels as bk
+
+    bcoo, w = random_blocked(device)
+    gen = torch.Generator().manual_seed(13)
+    errs = {"spmm_block": 0.0, "sddmm_block": 0.0}
+    for D in (64, 48):
+        h = torch.randn(bcoo.n_rows, D, generator=gen).to(device)
+        g = torch.randn(bcoo.n_rows, D, generator=gen).to(device)
+        out = bk.spmm_block(bcoo, w, h)
+        if out[512:1024].abs().max().item() != 0:
+            raise AssertionError("K4 wrote into the empty destination block")
+        errs["spmm_block"] = max(errs["spmm_block"], compare(
+            f"K4 random layout D={D}", out, bk.spmm_block_plain(bcoo, w, h)))
+        errs["sddmm_block"] = max(errs["sddmm_block"], compare(
+            f"K5 random layout D={D} (every slot)", bk.sddmm_block(bcoo, h, g),
+            bk.sddmm_block_plain(bcoo, h, g)))
+    return errs
+
+
+def blocked_graph(n, device, max_rank=None):
+    """The RCM-ordered blocked build (S = T = 512) of the large_graph_demo
+    graph of n nodes (its generator's first draw, shuffled ids)."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.graphs.blocked import build_blocked_duplex
+    from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
+
+    e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0))
+    return build_blocked_duplex(n, e0, e1, S=512, T=512, max_rank=max_rank,
+                                device=device)
+
+
+def blocked_operands(bd, seed, device):
+    """Layer 0's layout, its live weights in slot order (10% of nodes
+    covered, seeded) and an h [n_rows, 64]: the shapes of a model call."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    bcoo = bd.bcoo[0]
+    live = (torch.rand(bd.pad_n, generator=gen) > 0.1).to(device) & bd.g.node_mask
+    g = bd.g
+    w = (g.edge_mask[0] & live[g.src[0]] & live[g.dst[0]]).float()
+    w = w[: bcoo.n_slots].reshape(bcoo.n_pairs, bcoo.T).contiguous()
+    h = torch.nn.functional.normalize(torch.randn(bd.pad_n, 64, generator=gen), dim=-1)
+    return bcoo, w, h.to(device)
+
+
+def blocked_bounds(bcoo, w, D, kernel):
+    """Least time on these inputs: K4 reads w and the two local-index
+    arrays over all P·T slots, h once, writes the output once, and does one
+    multiply-add per live edge and column; K5 reads the index arrays, h and
+    g once, writes P·T results, and does one multiply-add per slot and
+    column.  Returns (ms, bound_by)."""
+    slots, rows = bcoo.n_slots, bcoo.n_rows
+    if kernel == "sddmm_block":
+        byts = slots * 8 + 2 * rows * D * 4 + slots * 4
+        ops = 2 * slots * D
+    else:
+        byts = slots * 12 + 2 * rows * D * 4
+        ops = 2 * int((w != 0).sum().item()) * D
+    t_b, t_o = byts / PEAK_BYTES_S, ops / PEAK_F32_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def time_blocked(device, bd, label):
+    """K4, K4 as the backward (on a gradient g), K5: each against its plain
+    version at these shapes, then timed beside its bound and its library
+    yardstick (torch.sparse.mm on a CSR of the same weights for K4,
+    torch.sparse.sampled_addmm on the real slots' pattern for K5)."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import blocked_kernels as bk
+
+    bcoo, w, h = blocked_operands(bd, 14, device)
+    g = torch.nn.functional.normalize(torch.randn_like(h), dim=-1)
+    n_real = int(bcoo.rowptr[-1])
+    src, dst = bk._rows(bcoo, n_real)
+    wr = w[:n_real].reshape(-1)
+    real = torch.zeros(n_real * bcoo.T, dtype=torch.bool, device=h.device)
+    real[bcoo.row_slot.long()] = True
+    R = bcoo.n_rows
+    a_csr = torch.sparse_coo_tensor(torch.stack([dst[real], src[real]]), wr[real],
+                                    (R, R), check_invariants=True).coalesce().to_sparse_csr()
+    pattern = torch.sparse_coo_tensor(torch.stack([src[real], dst[real]]),
+                                      torch.zeros(int(real.sum()), device=h.device),
+                                      (R, R), check_invariants=True).coalesce().to_sparse_csr()
+    g_t = g.t().contiguous()
+    errs = {
+        "spmm_block": compare(f"{label} K4", bk.spmm_block(bcoo, w, h),
+                              bk.spmm_block_plain(bcoo, w, h)),
+        "spmm_block_bwd": compare(f"{label} K4 backward",
+                                  bk.spmm_block(bcoo, w, g, "spmm_block_bwd"),
+                                  bk.spmm_block_plain(bcoo, w, g)),
+        "sddmm_block": compare(f"{label} K5", bk.sddmm_block(bcoo, h, g),
+                               bk.sddmm_block_plain(bcoo, h, g)),
+    }
+    res = {}
+    for name, kern, plain, lib in (
+        ("spmm_block", lambda: bk.spmm_block(bcoo, w, h),
+         lambda: bk.spmm_block_plain(bcoo, w, h), lambda: torch.sparse.mm(a_csr, h)),
+        ("spmm_block_bwd", lambda: bk.spmm_block(bcoo, w, g, "spmm_block_bwd"),
+         lambda: bk.spmm_block_plain(bcoo, w, g), lambda: torch.sparse.mm(a_csr, g)),
+        ("sddmm_block", lambda: bk.sddmm_block(bcoo, h, g),
+         lambda: bk.sddmm_block_plain(bcoo, h, g),
+         lambda: torch.sparse.sampled_addmm(pattern, h, g_t)),
+    ):
+        bound_ms, bound_by = blocked_bounds(bcoo, w, 64, name)
+        res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=time_ms(lib),
+                         max_abs_err=errs[name])
+        log(f"time {label} {name}: n_rows={R} P={bcoo.n_pairs} slots={bcoo.n_slots} "
+            f"live={int((w != 0).sum().item())} " + json.dumps(res[name]))
+    return res
+
+
+def check_blocked_backward(device, bd):
+    """torch.autograd.grad through BlockSpmm (K4, then K4 on the gradient
+    and K5) against autograd through the plain operator, on the symmetric
+    main-path layout: dh, and dw on every slot (padded pairs, which the
+    plain forward never reads, against K5's plain version)."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import blocked_kernels as bk
+
+    bcoo, w, h = blocked_operands(bd, 15, device)
+    gen = torch.Generator().manual_seed(16)
+    G = torch.randn(h.shape, generator=gen).to(device)
+    grads = []
+    for fn in (bk.blocked_spmm, bk.spmm_block_plain):
+        wv, hv = w.clone().requires_grad_(), h.clone().requires_grad_()
+        grads.append(torch.autograd.grad(torch.sum(fn(bcoo, wv, hv) * G), (wv, hv)))
+    (dw, dh), (dw_ref, dh_ref) = grads
+    n_real = int(bcoo.rowptr[-1])
+    err = compare("BlockSpmm backward dh, autograd", dh, dh_ref)
+    err = max(err, compare("BlockSpmm backward dw (real pairs, padding slots too)",
+                           dw[:n_real], dw_ref[:n_real]))
+    err = max(err, compare("BlockSpmm backward dw (padded pairs)", dw[n_real:],
+                           bk.sddmm_block_plain(bcoo, h, G)[n_real:]))
+    return err
+
+
+# ---------------------------------------------------------------- small graphs
+
+
+def reset_all_launches():
+    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels
+
+    band_kernels.reset_launches()
+    blocked_kernels.reset_launches()
+
+
+def all_launches():
+    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels
+
+    return {**band_kernels.launches, **blocked_kernels.launches}
+
+
+def small_graph_phase(device, n_valid=32, sizes=(32, 64, 128), n_graphs=5):
+    """The small-graph main path: the validation VC of the unit-cost
+    checkpoint on the seed-0 pool (on the card and on the CPU) and the
+    golden synthetic sweep's model rows, with the counts set to 0 just
+    before and read just after (the dense engine runs no hand kernel)."""
+    import dataclasses
+
+    from mdcommunity_tpu_torch.eval.synthetic import evaluate_synthetic_generated
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.rl.dqn import make_valid_pool, validate
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    import torch
+
+    cfg = dataclasses.replace(Config(variant="unit_cost"), n_valid=n_valid)
+    vcs = {}
+    for dev in (device, "cpu"):
+        net = load_model(CKPT, device=dev)
+        pool = make_valid_pool(cfg, device=dev)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        vcs[dev] = validate(net, pool)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        log(f"validation VC on {dev}: {vcs[dev]:.10f} ({len(pool)} graphs, "
+            f"{time.perf_counter() - t0:.2f} s, launches {json.dumps(all_launches())})")
+    log(f"validation VC: {device} {vcs[device]:.10f}, CPU {vcs['cpu']:.10f}, golden "
+        f"{GOLDEN_VC}, |{device} - CPU| {abs(vcs[device] - vcs['cpu']):.3e}")
+    if abs(vcs[device] - GOLDEN_VC) > 5e-3:
+        raise AssertionError("validation VC is off the golden value")
+
+    with open(GOLDEN_SYN) as f:
+        golden = json.load(f)
+    net = load_model(CKPT, device=device)
+    t0 = time.perf_counter()
+    rows = evaluate_synthetic_generated(net, list(sizes), n_graphs=n_graphs, seed=0,
+                                        device=device)
+    log(f"golden synthetic sweep: {time.perf_counter() - t0:.2f} s")
+    for r, ref in zip(rows, golden["model"]):
+        log("synthetic row: " + json.dumps(dict(
+            size=r["size"], score_mean=r["score_mean"], golden_score_mean=ref["score_mean"],
+            score_std=r["score_std"], golden_score_std=ref["score_std"],
+            cost_mean=r["cost_mean"], golden_cost_mean=ref["cost_mean"],
+            time_mean_s=r["time_mean"])))
+        if r["size"] != ref["size"] or abs(r["score_mean"] - ref["score_mean"]) > 5e-3:
+            raise AssertionError("a synthetic row is off its golden value")
+    return vcs
+
+
+def _q_pair(net, bd, prefix):
+    """Both engines' Q after removing `prefix` one by one (blocked: K4;
+    segment: the plain segment sum)."""
+    import torch
+
+    from mdcommunity_tpu_torch.env.env import batched_reset, batched_step
+    from mdcommunity_tpu_torch.graphs.duplex import stack_graphs
+    from mdcommunity_tpu_torch.models.net import make_blocked_aggregate
+    from mdcommunity_tpu_torch.rl.dqn import predict_q
+
+    gb = stack_graphs([bd.g])
+    state = batched_reset(gb)
+    for a in prefix:
+        state, _ = batched_step(gb, state, torch.tensor([int(a)], device=gb.device))
+    qb = predict_q(net, gb, state.covered, state.sever, dense=False,
+                   aggregate_fn=make_blocked_aggregate(bd))
+    qs = predict_q(net, gb, state.covered, state.sever, dense=False)
+    return qb[0].cpu().numpy(), qs[0].cpu().numpy()
+
+
+def blocked_phase(device, n, step, max_steps):
+    """The blocked path on the card: dismantle_greedy over the BlockedDuplex
+    (every model call aggregates with K4), counts set to 0 just before and
+    read just after, against the segment engine on the same graph and
+    ordering.  Removals must be identical up to the first decision that
+    hangs on a gap below f32 rounding (TIE of max|Q| in both engines, the
+    rule of tests/test_torch_greedy.py)."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.eval.metrics import dismantle_greedy
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+
+    net = load_model(CKPT, device=device)
+    t0 = time.perf_counter()
+    bd = blocked_graph(n, device)
+    log(f"blocked build: n={n} pad_n={bd.pad_n} pairs={[b.n_pairs for b in bd.bcoo]} "
+        f"max_rank={int(bd.g.max_rank)} {time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for engine in ("blocked", "segment"):
+        reset_all_launches()
+        stats = {}
+        t0 = time.perf_counter()
+        if engine == "blocked":
+            sol, score, _ = dismantle_greedy(net, bd, step=step, max_steps=max_steps,
+                                             stats=stats)
+        else:
+            sol, score, _ = dismantle_greedy(net, bd.g, step=step, max_steps=max_steps,
+                                             dense=False, stats=stats)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = all_launches()
+        calls = max(stats["model_calls"], 1)
+        runs[engine] = dict(sol=sol, score=score, counts=counts, calls=calls)
+        log(f"blocked path, {engine} engine: " + json.dumps(dict(
+            n=n, step=step, removed=len(sol), score=score, wall_s=time.perf_counter() - t0,
+            model_calls=stats["model_calls"],
+            mean_model_call_ms=1e3 * stats["model_call_s"] / calls,
+            k4_launches_per_call=counts["spmm_block"] / calls, launches=counts)))
+    b, s = runs["blocked"]["sol"], runs["segment"]["sol"]
+    if len(b) < min(max_steps, 100) or len(set(b)) != len(b):
+        raise AssertionError("blocked path result out of range")
+    k = next((i for i, (x, y) in enumerate(zip(b, s)) if x != y), None)
+    if k is None:
+        if b != s:
+            raise AssertionError("the engines removed different numbers of nodes")
+        log(f"blocked vs segment engine: identical removals ({len(b)})")
+    else:
+        k0 = (k // step) * step  # the model call that ordered removal k
+        qb, qs = _q_pair(net, bd, b[:k0])
+        tie = TIE * np.abs(qb[np.isfinite(qb)]).max()
+        a_b, a_s = b[k], s[k]
+        log(f"blocked vs segment engine: first difference at removal {k} (call from "
+            f"{k0}): blocked takes {a_b} (Q {qb[a_b]:.9e} / segment {qs[a_b]:.9e}), "
+            f"segment takes {a_s} (Q {qs[a_s]:.9e} / blocked {qb[a_s]:.9e}), tie {tie:.3e}")
+        if not (qb[a_b] >= qb[a_s] and qs[a_s] >= qs[a_b]
+                and qb[a_b] - qb[a_s] <= tie and qs[a_s] - qs[a_b] <= tie):
+            raise AssertionError("the engines part at a decision that is not a near-tie")
+    if device != "cpu" and runs["blocked"]["counts"]["spmm_block"] != 6 * runs["blocked"]["calls"]:
+        raise AssertionError("K4 did not run 6 times a model call")
+    return bd, net, runs["blocked"]["counts"]
+
+
+def blocked_gradient_phase(bd, net):
+    """The blocked aggregation's VJP on the path: the gradient of ΣQ over a
+    BlockedDuplex's live nodes in the parameters and in the live-edge
+    weights (BlockSpmm's backward: K4 on the gradient for dh, K5 for dw),
+    counts set to 0 just before and read just after, held against the same
+    gradient through the segment engine (plain segment sums)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from mdcommunity_tpu_torch.env.batch import make_batch_inputs
+    from mdcommunity_tpu_torch.env.env import batched_reset
+    from mdcommunity_tpu_torch.graphs.duplex import stack_graphs
+    from mdcommunity_tpu_torch.models.net import make_blocked_aggregate, test_forward
+
+    gb = stack_graphs([bd.g])
+    state = batched_reset(gb)
+    inputs = make_batch_inputs(gb, state.covered, state.sever, dense=False)
+    res = []
+    for agg in (make_blocked_aggregate(bd), None):
+        net2 = copy.deepcopy(net).requires_grad_()
+        lw = inputs.live_w.clone().requires_grad_()
+        reset_all_launches()
+        q = test_forward(net2, gb, dataclasses.replace(inputs, live_w=lw), aggregate_fn=agg)
+        loss = torch.sum(torch.where(inputs.active, q, torch.zeros_like(q)))
+        loss.backward()
+        if gb.device.type != "cpu":
+            torch.cuda.synchronize()
+        res.append((all_launches(), lw.grad, {k: p.grad for k, p in net2.named_parameters()}))
+    (counts, dw, gp), (_, dw_ref, gp_ref) = res
+    log("blocked gradient: launches " + json.dumps(counts))
+    # padding slots' gradients differ by layout (K5 reads h[src_blk·S], the
+    # segment engine h[0]) and feed nothing: compare the real edges
+    real = gb.edge_mask
+    err = compare("blocked gradient d(ΣQ)/dw vs segment engine (real edges)", dw[real],
+                  dw_ref[real])
+    worst = max((gp[k] - gp_ref[k]).abs().max().item() / max(gp_ref[k].abs().max().item(), 1e-30)
+                for k in gp)
+    log(f"blocked gradient: parameters vs segment engine, worst leaf error {worst:.3e} "
+        "of its max |grad|")
+    return counts, err
+
+
 # ---------------------------------------------------------------- main path
 
 
@@ -594,6 +962,9 @@ def main(argv=None):
     ap.add_argument("--rehearse", action="store_true",
                     help="every phase at a small size on the CPU (plain "
                          "versions); prints no result line")
+    ap.add_argument("--blocked-only", action="store_true",
+                    help="only the builds and the phases of K4 and K5 (checks, "
+                         "times, the blocked path); prints no result line")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "mdcommunity_tpu_torch")):
@@ -601,7 +972,6 @@ def main(argv=None):
     sys.path.insert(0, HERE)
     import torch
 
-    from mdcommunity_tpu_torch.ops import band_kernels as bk
     from mdcommunity_tpu_torch.utils.device import set_precise_matmul
 
     set_precise_matmul()
@@ -612,11 +982,18 @@ def main(argv=None):
         check_kernels("cpu", 2048)
         check_backward("cpu", 2048)
         time_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
+        check_blocked("cpu")
+        small_bd = blocked_graph(2048, "cpu", max_rank=0)
+        time_blocked("cpu", small_bd, "rehearsal")
+        check_blocked_backward("cpu", small_bd)
         main_path("cpu", 2048, 0.01)
         check_fit("cpu", 2048)
         small, edges = synth_banded(2048, False, 0, "cpu", reorder=False, with_edges=True)
         trainer_phase("cpu", small, edges, 16)
         fit_memory("cpu", small, 16)
+        small_graph_phase("cpu")
+        bd, net = blocked_phase("cpu", 2048, 4, 40)[:2]
+        blocked_gradient_phase(bd, net)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -625,6 +1002,12 @@ def main(argv=None):
     log(gpu_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_all()
+    if args.blocked_only:
+        blocked_errs, blocked_times = blocked_kernel_phases(device)
+        bd, net, _ = blocked_phase(device, 18222, 18, BLOCKED_STEPS)
+        blocked_gradient_phase(bd, net)
+        log("blocked phases done")
+        return 0
     errs = check_kernels(device, 1 << 16)
     errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
 
@@ -635,6 +1018,7 @@ def main(argv=None):
                                   with_edges=True)
     time_kernels(device, big, "2^20 rows")
     torch.cuda.empty_cache()
+    blocked_errs, blocked_times = blocked_kernel_phases(device)
 
     counts, result = main_path(device, 18222, 0.001)
     for k in ("band_spmm", "band_sage"):
@@ -646,6 +1030,16 @@ def main(argv=None):
     train_counts = trainer_phase(device, big, big_edges, 1048)
     fit_memory(device, big, 1048)
     del big
+    torch.cuda.empty_cache()
+
+    small_graph_phase(device)
+    bd, net, blocked_counts = blocked_phase(device, 18222, 18, BLOCKED_STEPS)
+    grad_counts, grad_err = blocked_gradient_phase(bd, net)
+    blocked_errs["sddmm_block"] = max(blocked_errs["sddmm_block"], grad_err)
+    for name, c in (("spmm_block", blocked_counts), ("spmm_block_bwd", grad_counts),
+                    ("sddmm_block", grad_counts)):
+        if c[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on its path")
 
     kernels = []
     for name, launched, replaces in (
@@ -658,6 +1052,16 @@ def main(argv=None):
             name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
             replaces=f"mdcommunity_tpu/ops/band_pallas.py:{replaces}",
             launches=launched[name], **t))
+    for name, launched, replaces in (
+        ("spmm_block", blocked_counts, "184"), ("spmm_block_bwd", grad_counts, "184"),
+        ("sddmm_block", grad_counts, "309"),
+    ):
+        t = dict(blocked_times[name])
+        t["max_abs_err"] = max(blocked_errs[name], t["max_abs_err"])
+        kernels.append(dict(
+            name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/blocked.cu",
+            replaces=f"mdcommunity_tpu/ops/pallas_spmm.py:{replaces}",
+            launches=launched[name], **t))
     log(f"fit gradient vs CPU f64: worst leaf error {fit_err:.3e} of its max |grad|")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
@@ -665,6 +1069,24 @@ def main(argv=None):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def blocked_kernel_phases(device):
+    """K4 and K5 checked (random layout; BlockSpmm's backward at 18,432
+    rows) and timed at the 18,432-row and the 2^20-row layouts.  Returns
+    (max abs errors, the 18,432-row times) by kernel name."""
+    import torch
+
+    errs = check_blocked(device)
+    bd = blocked_graph(18222, device, max_rank=0)
+    errs["spmm_block_bwd"] = check_blocked_backward(device, bd)
+    times = time_blocked(device, bd, "18,432 rows")
+    del bd
+    big = blocked_graph(1 << 20, device, max_rank=0)
+    time_blocked(device, big, "2^20 rows")
+    del big
+    torch.cuda.empty_cache()
+    return errs, times
 
 
 if __name__ == "__main__":

@@ -1,8 +1,14 @@
-"""Greedy dismantling of a large banded duplex, and AUDC scoring.
+"""Greedy dismantling rollouts and scoring (AUDC / normalised-LMCC curves).
 
 Reference call sites: GetSolution :711-736 (greedy rollout taking `step`
-nodes per model call) and mvc_env.stepWithoutReward :74-87 (score +=
-rank/(max_rank·N) per removal; the MaxCCList curve starts at [1]).
+nodes per model call), Test :738-755 (validation score + remaining/(max_rank·N))
+and mvc_env.stepWithoutReward :74-87 (score += rank/(max_rank·N) per
+removal; the MaxCCList curve starts at [1]).
+
+`dismantle_greedy` runs a padded graph with the cascade on the device: the
+dense engine (pad_n <= 2048), the segment engine, or over a BlockedDuplex
+the blocked-pair kernel K4.  `dismantle_greedy_banded` runs a large
+BandedDuplex with the cascade on the host.
 
 AUDC = Σ_t rank_t/(max_rank·N): the area under the normalised-LMCC curve.
 """
@@ -15,14 +21,173 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from mdcommunity_tpu_torch.env.env import batched_reset, batched_step
 from mdcommunity_tpu_torch.graphs.banded import BandedDuplex, apply_severs
-from mdcommunity_tpu_torch.models.net import DuplexQNet, banded_test_forward
+from mdcommunity_tpu_torch.graphs.blocked import BlockedDuplex
+from mdcommunity_tpu_torch.graphs.duplex import DuplexGraph, stack_graphs
+from mdcommunity_tpu_torch.models.net import (
+    DuplexQNet,
+    banded_test_forward,
+    make_blocked_aggregate,
+)
+from mdcommunity_tpu_torch.rl.dqn import predict_q
 from mdcommunity_tpu_torch.utils.device import set_precise_matmul
 
 
 def audc_from_curve(curve: List[float], n: int) -> float:
     """AUDC from a rank/max_rank curve (excluding the leading 1.0 entry)."""
     return float(np.sum(curve[1:]) / n)
+
+
+def dismantle_greedy(
+    net: DuplexQNet,
+    g,
+    step: int = 1,
+    variant: str = "unit_cost",
+    dense: Optional[bool] = None,
+    max_steps: Optional[int] = None,
+    syn_stop: bool = False,
+    stats: Optional[Dict[str, float]] = None,
+) -> Tuple[List[int], float, List[float]]:
+    """Greedy Q rollout on one padded graph (a DuplexGraph, or a
+    BlockedDuplex whose model calls aggregate through kernel K4), with the
+    cascade on the graph's device.
+
+    Removes the top-`step` nodes per model call (reference GetSolution's
+    argsort(-pred)[:step]; a stable sort, so equal Q go lowest index first),
+    with a cascade after each removal; max_steps is tested before each
+    model call, as the JAX package tests it.  dense None picks the dense engine
+    for pad_n <= 2048 and the segment engine above.  syn_stop=True stops
+    once rank <= sqrt(N) (the baselines' `_syn` convention,
+    hda_2max_syn.py:78-81).  stats, when given, receives the number of model
+    calls and their total seconds (forward + fetch of Q).
+
+    Returns (solution node list, score = AUDC, MaxCCList curve from 1.0)."""
+    set_precise_matmul()
+    aggregate_fn = None
+    if isinstance(g, BlockedDuplex):
+        aggregate_fn = make_blocked_aggregate(g)
+        g = g.g
+        dense = False
+    if dense is None:
+        dense = g.pad_n <= 2048
+    degree_cost = variant == "degree_cost"
+    gb = stack_graphs([g])
+    state = batched_reset(gb)
+    sol: List[int] = []
+    curve: List[float] = [1.0]
+    n = int(g.n_nodes)
+    max_rank = float(g.max_rank)
+    max_steps = max_steps or n
+    stop_rank = float(np.sqrt(n)) if syn_stop else 0.0
+    calls, call_s = 0, 0.0
+
+    while (not bool(state.terminal[0]) and len(sol) < max_steps
+           and float(state.rank[0]) > stop_rank):
+        t0 = time.perf_counter()
+        q = predict_q(net, gb, state.covered, state.sever, variant, dense=dense,
+                      aggregate_fn=aggregate_fn)
+        q_np = q[0].cpu().numpy()
+        call_s += time.perf_counter() - t0
+        calls += 1
+        order = np.argsort(-q_np, kind="stable")[:step]
+        for a in order:
+            if bool(state.terminal[0]) or float(state.rank[0]) <= stop_rank:
+                break
+            if not np.isfinite(q_np[a]):
+                break
+            act = torch.tensor([int(a)], device=gb.device)
+            state, _ = batched_step(gb, state, act, degree_cost)
+            sol.append(int(a))
+            curve.append(float(state.rank[0]) / max_rank)
+    if stats is not None:
+        stats.update(model_calls=calls, model_call_s=call_s)
+    return sol, float(state.score[0]), curve
+
+
+def dismantle_batch_greedy(
+    net: DuplexQNet, gb: DuplexGraph, variant: str = "unit_cost"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Greedy argmax rollout over a batch of graphs at once; returns
+    (scores, covered counts)."""
+    from mdcommunity_tpu_torch.rl.dqn import greedy_rollout
+
+    set_precise_matmul()
+    state = greedy_rollout(net, gb, batched_reset(gb), variant,
+                           degree_cost=variant == "degree_cost")
+    covered_cnt = torch.sum(state.covered & gb.node_mask, dim=1)
+    return state.score.cpu().numpy(), covered_cnt.cpu().numpy()
+
+
+def validation_score(score: float, n: int, covered: int, max_rank: int) -> float:
+    """Reference Test() metric: rollout score + untouched-node tail."""
+    return score + (n - covered) / (max_rank * n)
+
+
+def solution_robustness(g: DuplexGraph, solution: List[int], degree_cost: bool = False):
+    """Score a full removal order by replaying it against the cascade
+    (reference: Utils.getRobustness, utils.py:53-97, which rebuilds the
+    duplex in reverse insertion order; replaying forward over the same order
+    visits identical states).  Returns (score = AUDC, normalised-LMCC curve)."""
+    gb = stack_graphs([g])
+    state = batched_reset(gb)
+    curve = []
+    max_rank = float(g.max_rank)
+    for a in solution:
+        if bool(state.terminal[0]):
+            break
+        act = torch.tensor([int(a)], device=gb.device)
+        state, _ = batched_step(gb, state, act, degree_cost)
+        curve.append(float(state.rank[0]) / max_rank)
+    return float(state.score[0]), curve
+
+
+def reinsert_solution(g: DuplexGraph, solution: List[int], each_step: int = 1) -> List[int]:
+    """Greedy reinsertion post-processing (reference: Utils.reInsert :12-51;
+    the strategy is the standard component-merge count): starting from the
+    dismantled graph, re-add the removed nodes that merge the fewest
+    components (union of both layers) first, and return the reversed
+    insertion order as the improved removal order."""
+    n = int(g.n_nodes)
+    src, dst, em = (t.cpu().numpy() for t in (g.src, g.dst, g.edge_mask))
+    adj = [[] for _ in range(n)]
+    for l in range(2):
+        for s, d in zip(src[l][em[l]], dst[l][em[l]]):
+            adj[int(s)].append(int(d))
+
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    def attach(v):
+        for u in adj[v]:
+            if present[u]:
+                ra, rb = find(v), find(u)
+                if ra != rb:
+                    parent[ra] = rb
+
+    present = np.zeros(n, bool)
+    removed = set(solution)
+    keep = [v for v in range(n) if v not in removed]
+    present[keep] = True
+    for v in keep:
+        attach(v)
+
+    left = list(dict.fromkeys(int(v) for v in solution))
+    inserted = []
+    while left:
+        scored = sorted((len({find(u) for u in adj[v] if present[u]}), v) for v in left)
+        for _, v in scored[:each_step]:
+            left.remove(v)
+            inserted.append(v)
+            present[v] = True
+            attach(v)
+    inserted.reverse()
+    return inserted
 
 
 def top_k_stable(q: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:

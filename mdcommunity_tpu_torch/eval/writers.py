@@ -53,3 +53,25 @@ def append_time_audc(path: str, name: str, solve_time: float, audc: float):
         if new:
             w.writerow(["dataset", "time", "audc"])
         w.writerow([name, f"{solve_time:.6f}", f"{audc:.8f}"])
+
+
+def write_cost_curve(path: str, weights, solution, n_nodes: int, score: float):
+    """Degree-cost cumulative-cost curve (reference Cost_* file,
+    MultiDismantler_degree_cost/MultiDismantler_torch.py:669-679): starts at 0,
+    adds each node's normalized mean-layer weight in removal order (solution,
+    then the surviving nodes except the last), and appends the final score."""
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    w = np.asarray(weights, np.float64)[:, :n_nodes]  # [2, n]
+    tot = np.maximum(w.sum(axis=1, keepdims=True), 1e-300)
+    per_node = (w / tot).mean(axis=0)  # (w0/Σw0 + w1/Σw1)/2
+    removed = set(solution)
+    order = list(solution) + [v for v in range(n_nodes) if v not in removed][:-1]
+    with open(path, "w") as f:
+        f.write("0.00000000\n")
+        total = 0.0
+        for v in order:
+            total += per_node[v]
+            f.write(f"{total:.8f}\n")
+        f.write(f"{score:.8f}\n")

@@ -1,4 +1,5 @@
-"""The duplex dismantling Q-network: banded large-graph forward and loss.
+"""The duplex dismantling Q-network: padded small-graph forward, banded
+large-graph forward and loss.
 
 The model family is the reference's (MultiDismantler_net_graphsage.py): per
 duplex layer, 3 rounds of GraphSAGE-style message passing with a virtual
@@ -19,9 +20,13 @@ Math map (reference file:line):
                   gate_l = softmax_l(relu(Y_f[l]@W1)@W2)
   loss            MSE(Q[a], target) + α·Laplacian     MultiDismantler_torch :410-431
 
-The aggregation A_l @ H is the dense-band operator of ops/dense_band.py.
-`banded_test_forward` is the eval forward; with fuse_sage=True each round
-runs as one fused SAGE step (kernel K2): the concat-matmul algebra
+`test_forward` and `train_forward` run a batch of padded graphs
+(env/batch.py's operands), aggregating with a dense matmul, a segment sum
+or, over a BlockedDuplex, the blocked-pair kernel K4 (make_blocked_aggregate).
+Over a BandedDuplex the aggregation A_l @ H is the dense-band operator of
+ops/dense_band.py: `banded_test_forward` is the large-graph eval forward;
+with fuse_sage=True each round runs as one fused SAGE step (kernel K2): the
+concat-matmul algebra
 concat(pool@c1, H@c2)@c3 = pool@(c1@c3[:d]) + H@(c2@c3[d:]) lets the dense
 layer and the normalisation ride the pooled tile.  Dead nodes get -inf.
 `banded_train_loss` is the training loss, differentiable in the parameters
@@ -38,8 +43,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mdcommunity_tpu_torch.models.fusion import fuse
-from mdcommunity_tpu_torch.ops.aggregate import l2_normalize
+from mdcommunity_tpu_torch.ops.aggregate import l2_normalize, segment_spmm
 from mdcommunity_tpu_torch.ops.band_kernels import sage_step
+from mdcommunity_tpu_torch.ops.blocked_kernels import blocked_spmm
 from mdcommunity_tpu_torch.ops.dense_band import (
     guard_band_operands,
     mirror_sub,
@@ -212,33 +218,37 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
     return node_input, aux, active, livef, deg
 
 
-def _embed(net: DuplexQNet, bdx, live, node_input, active, fuse_sage=False,
-           max_bp_iter=3, spmm=spmm_dense_band):
+def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
+           sage=None):
     """Per-layer message passing and cross-layer fusion (the JAX package's
-    net._embed over a BandedDuplex): (h_f0, h_f1) [pad_n, D] l2-normalised
-    and zero on inactive rows, and y_f [2, D].  Each round aggregates with
-    `spmm(dbg, live, live, h)`, or with fuse_sage=True runs as the fused
-    SAGE step (kernel K2, no gradient)."""
+    net._embed), for one graph or a batch: node_input [2, ..., N, F],
+    active bool [..., N].  Returns (h_f0, h_f1) [..., N, D], l2-normalised
+    and zero on inactive rows, and y_f [2, ..., D].
+
+    Each round aggregates with `aggregate(layer, h)` (A_l @ h), or, when
+    `sage` is given, runs as `sage(layer, h)`, the fused SAGE step (kernel
+    K2, no gradient).  The virtual-node pool is a graph-wide f64 sum
+    (`_graph_sum`)."""
     d = net.embedding_size
     c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
-    if fuse_sage:
-        sage_a = c1 @ c3[:d]
-        sage_b = c2 @ c3[d:]
-    ones_feat = torch.ones(2, dtype=net.w_n2l.dtype, device=bdx.device)
+    dt, dev = net.w_n2l.dtype, node_input.device
+    # virtual-node input: ones on the two degree channels, zero on any extra
+    # prior channel (the JAX package's ones_feat)
+    f_dim = node_input.shape[-1]
+    ones_feat = torch.cat([torch.ones(2, dtype=dt, device=dev),
+                           torch.zeros(f_dim - 2, dtype=dt, device=dev)])
 
     node_embs, virt_embs = [], []
     for layer in range(2):
-        dbg = bdx.dbg(layer)
         h = l2_normalize(torch.relu(node_input[layer] @ net.w_n2l))
-        y = l2_normalize(torch.relu(ones_feat @ net.w_n2l))
+        y = l2_normalize(torch.relu(ones_feat @ net.w_n2l)).expand(h.shape[:-2] + (d,))
         for _ in range(max_bp_iter):
-            ypool = _graph_sum(h)  # inactive rows are exactly 0
-            y_new = torch.cat([ypool @ c1, y @ c2])
-            if fuse_sage:
-                h = sage_step(dbg, live, live, h, mirror_sub(dbg, live, h),
-                              sage_a, sage_b)
+            ypool = _graph_sum(h, dim=-2)  # inactive rows are exactly 0
+            y_new = torch.cat([ypool @ c1, y @ c2], -1)
+            if sage is not None:
+                h = sage(layer, h)
             else:
-                pool = spmm(dbg, live, live, h)
+                pool = aggregate(layer, h)
                 h = l2_normalize(torch.relu(torch.cat([pool @ c1, h @ c2], -1) @ c3))
             y = l2_normalize(torch.relu(y_new @ c3))
         node_embs.append(h)
@@ -246,24 +256,46 @@ def _embed(net: DuplexQNet, bdx, live, node_input, active, fuse_sage=False,
 
     fp = net.fusion_params()
     h0, h1 = fuse(fp, node_embs[0], node_embs[1])
-    y0, y1 = fuse(fp, virt_embs[0][None], virt_embs[1][None])
-    actf = active.to(h0.dtype)[:, None]
-    y_f = torch.stack([l2_normalize(y0)[0], l2_normalize(y1)[0]])  # [2, D]
+    # the virtual rows fuse as a matrix [rows, D], one row per graph
+    y_shape = virt_embs[0].shape
+    y0, y1 = fuse(fp, virt_embs[0].reshape(-1, d), virt_embs[1].reshape(-1, d))
+    actf = active.to(h0.dtype)[..., None]
+    y_f = torch.stack([l2_normalize(y0).reshape(y_shape),
+                       l2_normalize(y1).reshape(y_shape)])
     return l2_normalize(h0) * actf, l2_normalize(h1) * actf, y_f
 
 
 def _q_values(net: DuplexQNet, rows, y_f, aux) -> torch.Tensor:
-    """The gated Q head over per-layer embedding rows [M, D]: q [M]."""
+    """The gated Q head over per-layer embedding rows [..., M, D], with y_f
+    [2, ..., D] and aux [2, ..., 4]: q [..., M]."""
     q_layers = []
     for layer in range(2):
-        scal = y_f[layer] @ net.cross_product                      # [1]
-        hidden = torch.relu((rows[layer] * scal) @ net.h1_weight)  # [M, R]
-        aux_l = aux[layer].expand(hidden.shape[0], aux.shape[-1])
+        scal = y_f[layer] @ net.cross_product                      # [..., 1]
+        hidden = torch.relu((rows[layer] * scal[..., None, :]) @ net.h1_weight)
+        aux_l = aux[layer][..., None, :].expand(hidden.shape[:-1] + (aux.shape[-1],))
         last = torch.cat([hidden, aux_l], dim=-1)
-        q_layers.append((last @ net.h2_weight)[:, 0])
-    s = torch.relu(y_f @ net.w_layer1) @ net.w_layer2               # [2, 1]
-    w = torch.softmax(s[:, 0], dim=0)
-    return w[0] * q_layers[0] + w[1] * q_layers[1]
+        q_layers.append((last @ net.h2_weight)[..., 0])
+    s = torch.relu(y_f @ net.w_layer1) @ net.w_layer2               # [2, ..., 1]
+    w = torch.softmax(s[..., 0], dim=0)
+    return w[0][..., None] * q_layers[0] + w[1][..., None] * q_layers[1]
+
+
+def _banded_aggregate(bdx, live, spmm=spmm_dense_band):
+    return lambda layer, h: spmm(bdx.dbg(layer), live, live, h)
+
+
+def _banded_sage(net: DuplexQNet, bdx, live):
+    """The fused SAGE step over a BandedDuplex (kernel K2), with the
+    concat-matmul algebra's two D×D weights."""
+    d = net.embedding_size
+    c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
+    sage_a, sage_b = c1 @ c3[:d], c2 @ c3[d:]
+
+    def step(layer, h):
+        dbg = bdx.dbg(layer)
+        return sage_step(dbg, live, live, h, mirror_sub(dbg, live, h), sage_a, sage_b)
+
+    return step
 
 
 @torch.no_grad()
@@ -288,7 +320,9 @@ def banded_test_forward(
     if fuse_sage and not bdx.spill_free:
         raise ValueError("fuse_sage needs empty spill sets in both layers")
     node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered)
-    h0, h1, y_f = _embed(net, bdx, live, node_input, active, fuse_sage, max_bp_iter)
+    sage = _banded_sage(net, bdx, live) if fuse_sage else None
+    h0, h1, y_f = _embed(net, node_input, active, _banded_aggregate(bdx, live),
+                         max_bp_iter, sage)
     q = _q_values(net, (h0, h1), y_f, aux)
     return torch.where(active, q, torch.full_like(q, -float("inf")))
 
@@ -339,7 +373,8 @@ def banded_train_loss(
         node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered)
 
     def embed():
-        return _embed(net, bdx, live, node_input, active, spmm=spmm_dense_band_grad)
+        return _embed(net, node_input, active,
+                      _banded_aggregate(bdx, live, spmm_dense_band_grad))
 
     if remat:
         h0, h1, y_f = checkpoint(embed, use_reentrant=False)
@@ -355,3 +390,60 @@ def banded_train_loss(
         lambda layer, h: spmm_dense_band_grad(bdx.dbg(layer), live, live, h),
     )
     return mse + alpha * reg
+
+
+# ---------------------------------------------------------------------------
+# padded small-graph forward: dense, segment and blocked aggregation
+# ---------------------------------------------------------------------------
+
+
+def _aggregate(g, inputs, layer: int, h: torch.Tensor) -> torch.Tensor:
+    """Live-adjacency A_l @ h for one duplex layer, [B, N, D] -> [B, N, D]:
+    a batched matmul with the dense adjacency when the inputs carry one,
+    else the destination-sorted segment sum over the live-edge weights."""
+    if inputs.adj is not None:
+        return torch.matmul(inputs.adj[:, layer], h)
+    return segment_spmm(g.src[:, layer], g.dst[:, layer], inputs.live_w[:, layer],
+                        h, h.shape[-2])
+
+
+def make_blocked_aggregate(bd):
+    """Aggregate function over a BlockedDuplex (graphs/blocked.py): its edge
+    arrays are in pair-slot order, so each layer's live weights are the
+    blocked kernel's w [P, T] operand by a reshape, a view.  The product is
+    BlockSpmm (kernel K4; K4 and K5 in its backward)."""
+
+    def agg(g, inputs, layer, h):
+        bcoo = bd.bcoo[layer]
+        w = inputs.live_w[0, layer, : bcoo.n_slots].reshape(bcoo.n_pairs, bcoo.T)
+        return blocked_spmm(bcoo, w, h[0])[None]
+
+    return agg
+
+
+def _batched_embed(net, g, inputs, max_bp_iter, aggregate_fn):
+    agg = aggregate_fn or _aggregate
+    return _embed(net, inputs.node_input.transpose(0, 1), inputs.active,
+                  lambda layer, h: agg(g, inputs, layer, h), max_bp_iter)
+
+
+def test_forward(net: DuplexQNet, g, inputs, max_bp_iter: int = 3,
+                 aggregate_fn=None) -> torch.Tensor:
+    """Q(s, ·) for every node of a batch of padded graphs: [B, N]; dead
+    nodes get -inf (the JAX package's net.test_forward).  inputs come from
+    env/batch.make_batch_inputs; aggregate_fn(g, inputs, layer, h) replaces
+    the dense or segment aggregation (make_blocked_aggregate)."""
+    h0, h1, y_f = _batched_embed(net, g, inputs, max_bp_iter, aggregate_fn)
+    q = _q_values(net, (h0, h1), y_f, inputs.aux.transpose(0, 1))
+    return torch.where(inputs.active, q, torch.full_like(q, -float("inf")))
+
+
+def train_forward(net: DuplexQNet, g, inputs, actions: torch.Tensor,
+                  max_bp_iter: int = 3):
+    """Q(s, a) for one chosen action per graph: (q [B], H_fused [2, B, N, D])
+    (the JAX package's net.train_forward)."""
+    h0, h1, y_f = _batched_embed(net, g, inputs, max_bp_iter, None)
+    b = torch.arange(actions.shape[0], device=actions.device)
+    rows = (h0[b, actions][:, None, :], h1[b, actions][:, None, :])
+    q = _q_values(net, rows, y_f, inputs.aux.transpose(0, 1))[:, 0]
+    return q, torch.stack([h0, h1])

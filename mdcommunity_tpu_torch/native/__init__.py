@@ -3,7 +3,8 @@
 `load()` builds the shared library into the port's _build/ directory on
 first use and returns None when no toolchain is available.
 `NativeDuplexEnv` has the same surface as env/host_env.HostDuplexEnv and is
-the engine of the large-graph eval path.
+the engine of the large-graph eval path; `gmm_connect` is the GMM
+generator's pair sampler for large N (graphs/gmm.py).
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ def load() -> Optional[ctypes.CDLL]:
     lib.mdc_env_alive_nodes.argtypes = [p, i32, p]
     lib.mdc_env_sever_mask.argtypes = [p, i32, p]
     lib.mdc_env_set_uf_epoch.argtypes = [p, u32]
+    lib.mdc_gmm_connect.restype = i64
+    lib.mdc_gmm_connect.argtypes = [i64, p, p, f64, f64, ctypes.c_uint64, p, i64]
     _lib = lib
     return _lib
 
@@ -187,3 +190,25 @@ class NativeDuplexEnv:
         """Move the relabel union-find's epoch counter (a test hook: set it
         near 2^32 to drive the counter through its wrap)."""
         self._lib.mdc_env_set_uf_epoch(self._handle, int(epoch))
+
+
+def gmm_connect(
+    kappa: np.ndarray, theta: np.ndarray, T: float, mu: float, seed: int
+) -> Optional[np.ndarray]:
+    """Native pairwise Fermi-Dirac connector (the JAX package's
+    native.gmm_connect, same stream for the same seed): undirected edges
+    [M, 2] int32, or None if the library is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(kappa)
+    kappa = np.ascontiguousarray(kappa, np.float64)
+    theta = np.ascontiguousarray(theta, np.float64)
+    cap = max(4 * n, 1024)
+    while True:
+        out = np.empty((cap, 2), np.int32)
+        cnt = lib.mdc_gmm_connect(n, _ptr(kappa), _ptr(theta), float(T), float(mu),
+                                  np.uint64(seed), _ptr(out), cap)
+        if cnt >= 0:
+            return np.ascontiguousarray(out[:cnt])
+        cap *= 4

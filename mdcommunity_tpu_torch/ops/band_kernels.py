@@ -22,16 +22,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "band.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from mdcommunity_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC, build_library
+
+SRC = os.path.join(CSRC, "band.cu")
 LIB = os.path.join(BUILD_DIR, "libmdc_band.so")
 
 # kernel launches on CUDA tensors, by kernel name; band_spmm_bwd counts the
@@ -46,43 +43,11 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the band kernels need the CUDA toolkit")
-    return path
-
-
 def build(force: bool = False) -> str:
     """Compile csrc/band.cu for sm_90a if the library is missing or older
-    than the source; returns the library path.  The ptxas report (registers,
-    shared memory, spills) is kept in _build/band_ptxas.log."""
-    if (
-        not force
-        and os.path.exists(LIB)
-        and os.path.getmtime(LIB) >= os.path.getmtime(SRC)
-    ):
-        return LIB
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, SRC,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {SRC}:\n{proc.stderr}")
-    with open(os.path.join(BUILD_DIR, "band_ptxas.log"), "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp, LIB)  # atomic: concurrent builders never load a partial file
-    return LIB
+    than the source; returns the library path (ptxas report in
+    _build/band_ptxas.log)."""
+    return build_library(SRC, LIB, force)
 
 
 def _load() -> ctypes.CDLL:

@@ -26,7 +26,9 @@ def test_import_leaves_jax_out():
     """A fresh interpreter (conftest.py imports jax in this one) imports the
     package and every submodule, and the checkpoint loader runs."""
     mods = _submodules()
-    for m in ("ops.band_kernels", "rl.big_trainer", "train_1m"):
+    for m in ("ops.band_kernels", "rl.big_trainer", "train_1m", "ops.blocked_kernels",
+              "graphs.duplex", "graphs.gmm", "graphs.blocked", "env.cascade", "env.env",
+              "env.batch", "rl.dqn", "eval.synthetic"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -102,3 +104,39 @@ def test_constructors_need_cuda_unless_cpu_asked(monkeypatch):
             call()
     assert load_model(ckpt, device="cpu").w_n2l.device.type == "cpu"
     assert build_dense_band(s, d, 4, S=8, B=8, device="cpu").device.type == "cpu"
+
+
+def test_small_graph_entry_points_need_cuda_unless_cpu_asked(monkeypatch, tmp_path):
+    """The small-graph slice's graph constructors and entry points resolve their
+    device as the others do: CUDA unless the caller names one."""
+    from mdcommunity_tpu_torch.eval.real import evaluate_real
+    from mdcommunity_tpu_torch.eval.synthetic import evaluate_synthetic_generated
+    from mdcommunity_tpu_torch.graphs.blocked import build_blocked_duplex
+    from mdcommunity_tpu_torch.graphs.duplex import build_duplex
+    from mdcommunity_tpu_torch.graphs.gmm import generate_pool
+    from mdcommunity_tpu_torch.graphs.io import duplex_from_layers
+    from mdcommunity_tpu_torch.large_graph_demo import write_edges
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.ops.blocked_kernels import build_block_coo
+    from mdcommunity_tpu_torch.rl.dqn import make_valid_pool
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    e = np.array([[0, 1], [1, 2], [2, 3], [3, 0]])
+    net = load_model("models_tpu/unit_cost_full_r1/best_model.ckpt", device="cpu")
+    write_edges(str(tmp_path / "toy.edges"), e, e)
+    calls = [
+        lambda: build_duplex(4, e, e, 8, 128),
+        lambda: duplex_from_layers(4, e, e),
+        lambda: generate_pool(np.random.default_rng(0), 1, 30, 50, 64, 1024),
+        lambda: build_blocked_duplex(4, e, e, S=8, T=8),
+        lambda: build_block_coo(e[:, 0], e[:, 1], 4, 8, 8),
+        lambda: make_valid_pool(Config(n_valid=1)),
+        lambda: evaluate_synthetic_generated(net, [32], n_graphs=1),
+        lambda: evaluate_real(net, str(tmp_path), "toy.edges", str(tmp_path / "out"),
+                              n_nodes=4, layers=(1, 2)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert build_duplex(4, e, e, 8, 128, device="cpu").device.type == "cpu"

@@ -10,23 +10,32 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      their plain PyTorch versions on the card, on seeded banded graphs of
      2^16 nodes with live mirror lanes (and, for K2, no spill), and K1's
      backward (band_spmm_bwd: torch.autograd.grad through BandSpmm, row !=
-     col) against autograd through the plain operator;
-  3. time K1, K2, K1's backward, their plain versions and a library
-     yardstick (torch.bmm of the widened band against materialised windows)
-     at the main path's shapes, 18,432 and 2^20 rows with D=64, each beside
-     its bound;
+     col) against autograd through the plain operator; and K1's and K2's
+     bf16 modes (precise=False), h stored in f32 and in bf16, each launched
+     twice for bit-identical output;
+  3. time K1, K2, K1's backward, the bf16 modes, their plain versions and a
+     library yardstick (torch.bmm of the widened band against materialised
+     windows, in bf16 for the bf16 modes) at the main path's shapes, 18,432
+     and 2^20 rows with D=64, each beside its bound;
   4. drive the main path: large-graph greedy dismantling of the 18,222-node
      shuffled synthetic duplex of `large_graph_demo --sizes 18222` by the
      committed unit-cost checkpoint, through eval.real.evaluate_real
      (StepRatio 0.001, one host cascade per batch, native host engine), with
      every kernel's launch count set to 0 just before and read just after;
-     its first forward is held against the same forward on the CPU;
+     its first forward is held against the same forward on the CPU; then
+     the fast eval's main path, `cli test-real --fast --packed` in-process
+     on the same file (its first forward held to the CPU's fast forward),
+     and one fast model call in each mode (fused or not, f32 or bf16
+     storage), with counts set to 0 just before and read just after;
   5. hold one fit's loss and parameter gradients on the card to the CPU's
      (18,222 nodes, the fine-tuning checkpoint, 1,048 actions);
   6. drive the training path: 6 iterations of rl.big_trainer's loop at k =
      1,048 on a spill-free 2^20-node build (selection runs K2, every fit's
      gradient K1 with swapped scales), counts set to 0 just before and read
-     just after, and one fit's peak memory with and without remat.
+     just after, and one fit's peak memory with and without remat;
+  7. check and time K4 and K5, run the small-graph validation and golden
+     synthetic rows, and the 18,222-node blocked dismantling against the
+     segment engine with one blocked gradient.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -51,7 +60,20 @@ CKPT_FIT = os.path.join(HERE, "models_tpu", "unit_cost_full_r4", "best_model.ckp
 OUT = os.path.join(HERE, "runs", "chip_smoke")
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_S = 67e12       # H100 SXM FP32 outside the tensor cores
+PEAK_BF16_S = 989e12     # H100 SXM bf16 tensor cores, dense
 REL_TOL = 1e-4           # kernel vs plain: f32 sums in another order
+# the fast forward on the card vs on the CPU, in units of max|Q|.  TF32
+# dense layers round each operand to 10 bits (2^-11 relative) where the
+# CPU's are f32; that moves a quarter of the bf16 operands of the next round
+# (their ulp is 2^-8) to a neighbouring bf16 value, each by one ulp; through
+# three rounds and the Q head that stays below FAST_Q_TOL.  With the dense
+# layers in f32 on both sides only the f32 sums differ: a bf16 operand within
+# that noise of a rounding boundary moves by one ulp, rarely, so nearly all
+# nodes agree to F32_Q_TOL (a share of F32_Q_SHARE: the CPU tests ask 99% at
+# up to 4,096 nodes; the 18,222-node graph has more rounding events) and all
+# to FLIP_Q_TOL (tests/test_torch_fast.py)
+FAST_Q_TOL = 1e-2
+F32_Q_TOL, F32_Q_SHARE, FLIP_Q_TOL = 1e-5, 0.95, 2 ** -7
 TIE = 1e-5               # of max|Q|: a gap no f32 forward of this depth resolves
 BLOCKED_STEPS = 720      # removals of the blocked path's run (step 18): about a minute
 GOLDEN_VC = 0.1194451824  # tests/test_golden_models.py, unit cost, 32 graphs
@@ -236,21 +258,24 @@ def time_ms(fn, reps=20, warm=3):
     return times[len(times) // 2]
 
 
-def bounds(dbg, D, sage):
+def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S):
     """Least time for the function on these inputs: each input read once,
-    the output written once, over the card's memory rate; the operations
-    this data needs (one multiply-add per band nonzero and column, the
-    mirror add, the row scale; K2 also its two D×D products and the
-    normalisation) over the FP32 rate.  Returns (ms, bound_by)."""
+    the output written once (h and the output at their storage width), over
+    the card's memory rate; the operations this data needs: one multiply-add
+    per band nonzero and column at `band_rate` (FP32, or the bf16 tensor
+    cores for the bf16 modes), and the mirror add, the row scale (K2 also
+    its two D×D products and the normalisation) at the FP32 rate.  Returns
+    (ms, bound_by)."""
     nb, S, C, pad_n = dbg.n_blocks, dbg.S, dbg.C, dbg.pad_n
     nnz = int((dbg.base[:, :S] != 0).sum().item())
-    byts = (nb * S * dbg.W2 + pad_n * D * 4 * 2 + 2 * pad_n * 4
+    byts = (nb * S * dbg.W2 + 2 * pad_n * D * store_bytes + 2 * pad_n * 4
             + nb * C * D * 4 + nb * S * 4)
-    ops = 2 * nnz * D + 2 * pad_n * D
+    f32_ops = 2 * pad_n * D
     if sage:
         byts += 2 * D * D * 4
-        ops += 2 * 2 * pad_n * D * D + 3 * pad_n * D
-    t_b, t_o = byts / PEAK_BYTES_S, ops / PEAK_F32_S
+        f32_ops += 2 * 2 * pad_n * D * D + 3 * pad_n * D
+    t_b = byts / PEAK_BYTES_S
+    t_o = 2 * nnz * D / band_rate + f32_ops / PEAK_F32_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -309,6 +334,124 @@ def time_kernels(device, banded, label):
                          max_abs_err=errs[name])
         log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} "
             + json.dumps(res[name]))
+    return res
+
+
+# ---------------------------------------------------------------- bf16 modes
+
+# (counter, kernel, storage) of K1's and K2's bf16 modes
+BF16_MODES = (
+    ("band_spmm_bf16", "spmm", "float32"), ("band_spmm_bf16_act", "spmm", "bfloat16"),
+    ("band_sage_bf16", "sage", "float32"), ("band_sage_bf16_act", "sage", "bfloat16"),
+)
+
+
+def compare_bf16(name, got, ref):
+    """A bf16-storage output against its plain version: within one bf16 ulp
+    of each element (the f32 sums before the rounding run in another order)
+    plus REL_TOL of max|ref|."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().item()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    excess = ((got - ref).abs() - ulp - REL_TOL * scale).max().item()
+    err = (got - ref).abs().max().item()
+    log(f"check {name}: max_abs_err {err:.3e}  max|ref| {scale:.3e}  "
+        f"worst excess over 1 bf16 ulp + REL_TOL·max {excess:.3e}")
+    if not torch.isfinite(got).all() or excess > 0:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def bf16_mode_fns(dbg, live, h32, aw, bw, kernel, store):
+    """(kernel call, plain call) of one bf16 mode on the col = row = live
+    operands; h is stored in `store`."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+
+    h = h32.to(getattr(torch, store)).contiguous()
+    sub = mirror_sub(dbg, live, h, precise=False)
+    if kernel == "spmm":
+        return (lambda: bk.spmm_band(dbg, live, live, h, sub, precise=False),
+                lambda: bk.spmm_band_plain(dbg, live, live, h, sub, precise=False))
+    return (lambda: bk.sage_step(dbg, live, live, h, sub, aw, bw, precise=False),
+            lambda: bk.sage_step_plain(dbg, live, live, h, sub, aw, bw, precise=False))
+
+
+def check_bf16_mode(label, name, kern, plain):
+    """Kernel vs plain version, and two launches bit-identical."""
+    import torch
+
+    got, ref = kern(), plain()
+    if got.dtype == torch.bfloat16:
+        err = compare_bf16(f"{label} {name}", got, ref)
+    else:
+        err = compare(f"{label} {name}", got, ref)
+    if not torch.equal(kern(), got):
+        raise AssertionError(f"{label} {name}: two launches differ")
+    return err
+
+
+def check_bf16_kernels(device, n):
+    """K1's and K2's bf16 modes, both storages, against their plain versions
+    on the 2^16-node check graphs (A: mirror lanes and spill, K1 at D = 64
+    and D = 2; B: mirror lanes and no spill, K2)."""
+    import torch
+
+    errs = {}
+    dbg = synth_banded(n, True, 1, device).dbg0
+    h, live = operands(dbg, 64, 2, device)
+    h2, ones = operands(dbg, 2, 3, device, unit=True)
+    clean = synth_banded(n, False, 1, device).dbg0
+    hc, live_c = operands(clean, 64, 4, device)
+    hc = torch.nn.functional.normalize(hc, dim=-1)
+    aw, bw = sage_weights(device)
+    for name, kernel, store in BF16_MODES:
+        if kernel == "spmm":
+            errs[name] = max(
+                check_bf16_mode("bf16 D=64", name,
+                                *bf16_mode_fns(dbg, live, h, aw, bw, kernel, store)),
+                check_bf16_mode("bf16 D=2", name,
+                                *bf16_mode_fns(dbg, ones, h2, aw, bw, kernel, store)))
+        else:
+            errs[name] = check_bf16_mode(
+                "bf16", name, *bf16_mode_fns(clean, live_c, hc, aw, bw, kernel, store))
+    return errs
+
+
+def time_bf16_kernels(device, banded, label):
+    """Each bf16 mode at D = 64 beside its bound, its plain version and the
+    library yardstick (torch.bmm of the bf16-widened band against
+    materialised bf16(col ⊙ h) windows), after a check at these shapes.
+    Also logs the time of the dense formulation the kernel runs, 2·rows·W2·D
+    at the bf16 rate."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops.band_kernels import _windows
+
+    dbg = banded.dbg0
+    h, live = operands(dbg, 64, 5, device)
+    h = torch.nn.functional.normalize(h, dim=-1)
+    aw, bw = sage_weights(device)
+    base_b = dbg.base.to(torch.bfloat16)
+    win = _windows((h * live[:, None]).to(torch.bfloat16), dbg.n_blocks, dbg.S,
+                   dbg.B).contiguous()
+    lib_ms = time_ms(lambda: torch.bmm(base_b, win))
+    del base_b, win
+    res = {}
+    for name, kernel, store in BF16_MODES:
+        kern, plain = bf16_mode_fns(dbg, live, h, aw, bw, kernel, store)
+        err = check_bf16_mode(label, name, kern, plain)
+        bound_ms, bound_by = bounds(dbg, 64, kernel == "sage",
+                                    2 if store == "bfloat16" else 4, PEAK_BF16_S)
+        res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms, max_abs_err=err)
+        dense_ms = 1e3 * 2 * dbg.pad_n * dbg.W2 * 64 / PEAK_BF16_S
+        log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} "
+            + json.dumps(dict(res[name], dense_formulation_ms=dense_ms)))
     return res
 
 
@@ -461,8 +604,8 @@ def trainer_phase(device, banded, edges, k):
         raise AssertionError("the parameters did not move")
     if env.t != sum(h["removed"] for h in rows):
         raise AssertionError("env.t differs from the removals the loop counted")
-    for name, c in counts.items():
-        if on_card and c <= 0:
+    for name in ("band_spmm", "band_sage", "band_spmm_bwd"):
+        if on_card and counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the trainer phase")
     return counts
 
@@ -960,7 +1103,162 @@ def main_path(device, n, step_ratio):
         log("main path, unshuffled phase: " + json.dumps(dict(
             removed=len(sol2), score=score2, launches=more)))
         counts = {k: counts[k] + more[k] for k in counts}
-    return counts, dict(audc=score, removed=len(sol))
+    return counts, dict(audc=score, removed=len(sol), mean_model_call_ms=mean_fwd)
+
+
+def fast_main_path(device, n, step_ratio, precise_result):
+    """The fast eval's main path: `cli test-real --fast --packed` in-process
+    on main_path's graph file (StepRatio and one cascade per batch as
+    there), counts set to 0 just before and read just after.  Its first
+    forward on the card is held to the CPU's fast forward within FAST_Q_TOL
+    of max|Q|; the TF32 flags are as they were after the run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch import cli
+    from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
+    from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges, write_edges
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.models.net import banded_test_forward
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    # the graph of `large_graph_demo --sizes n`, as main_path writes it
+    e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0))
+    name = f"synthetic_{n}_multiplex.edges"
+    os.makedirs(OUT, exist_ok=True)
+    write_edges(os.path.join(OUT, name), e0, e1)
+    qs = {}
+    for dev in (device, "cpu"):
+        banded, _, _ = build_banded_duplex(n, e0, e1, max_rank=0, device=dev)
+        net = load_model(CKPT, device=dev)
+        for tf32 in (True, False):  # the fast path's dense layers; f32 ones
+            with matmul_precision(not tf32):
+                qs[dev, tf32] = banded_test_forward(
+                    net, banded, ~banded.node_mask, fuse_sage=banded.spill_free,
+                    precise=False).cpu()
+        if dev == device:
+            with matmul_precision(True):
+                exact = banded_test_forward(net, banded, ~banded.node_mask,
+                                            fuse_sage=banded.spill_free).cpu()
+    ref = qs["cpu", True]
+    fin = torch.isfinite(ref)
+    scale = ref[fin].abs().max().item()
+    log(f"fast vs precise first forward on {device}: max err "
+        f"{(qs[device, True][fin] - exact[fin]).abs().max().item() / scale:.3e} of max|Q|")
+    for tf32 in (True, False):
+        q = qs[device, tf32]
+        if not torch.equal(torch.isfinite(q), fin) or not fin.any():
+            raise AssertionError("fast first forward: -inf masks differ")
+        err = (q[fin] - ref[fin]).abs() / scale
+        within = (err <= F32_Q_TOL).double().mean().item()
+        log(f"fast path first forward vs CPU, dense layers in {'TF32' if tf32 else 'f32'}"
+            f" on {device}: max err {err.max().item():.3e} of max|Q| {scale:.3e}, "
+            f"{within:.4f} of the nodes within {F32_Q_TOL:.0e}")
+        if tf32 and err.max().item() > FAST_Q_TOL:
+            raise AssertionError("fast first forward disagrees with the CPU's")
+        if not tf32 and (err.max().item() > FLIP_Q_TOL or within < F32_Q_SHARE):
+            raise AssertionError("fast first forward (f32 dense layers) disagrees "
+                                 "with the CPU's")
+
+    out_dir = os.path.join(OUT, "results_fast")
+    argv = ["test-real", "--fast", "--packed", "--model", CKPT, "--data", OUT,
+            "-o", out_dir, "--datasets", name, "--n-nodes", str(n), "--layers", "1", "2",
+            "--step-ratio", str(step_ratio), "--batch-env"]
+    if device == "cpu":
+        argv.append("--cpu")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    buf = io.StringIO()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    counts = dict(bk.launches)
+    wall = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"fast main path (cli {' '.join(argv[:3])} ...): {line}")
+    fields = dict(kv.split("=") for kv in line.split(": ", 1)[1].split())
+    res = dict(audc=float(fields["audc"]), removed=int(fields["removed"]),
+               mean_model_call_ms=float(fields["model_call_ms"]))
+    log("fast vs precise main path: " + json.dumps(dict(
+        n=n, step_ratio=step_ratio, wall_s=wall, fast=res, precise=precise_result,
+        launches=counts)))
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != tf32:
+        raise AssertionError("the fast run left the TF32 flags changed")
+    if device != "cpu":
+        if counts["band_spmm_bf16"] + counts["band_sage_bf16"] <= 0:
+            raise AssertionError("the fast main path launched no bf16 kernel")
+        if counts["band_sage"] != 0:
+            raise AssertionError("the fast main path launched the precise K2")
+    if not 0.0 < res["audc"] < 1.0:
+        raise AssertionError("fast main path result out of range")
+    sub = os.path.join(out_dir, f"StepRatio_{step_ratio:.4f}")
+    with open(os.path.join(sub, f"NormalizedLMCC_synthetic_{n}_multiplex_12.txt")) as f:
+        lines = f.read().split()
+    if len(lines) != n + 2 or abs(float(lines[-2]) - res["audc"]) > 5e-7:
+        raise AssertionError("fast NormalizedLMCC file malformed")
+    with open(os.path.join(sub, f"Soluion_synthetic_{n}_multiplex_12.txt")) as f:
+        sol = [int(v) for v in f.read().split()]
+    if len(sol) != res["removed"] or len(set(sol)) != len(sol) or not all(
+            0 <= v < n for v in sol):
+        raise AssertionError("fast Soluion file malformed")
+    return counts, res
+
+
+def fast_forward_phase(device, n):
+    """The fast model call in each mode at n nodes (the main path's graph):
+    fused or not, h stored in f32 or bf16 (the JAX package's act_dtype),
+    counts set to 0 just before each and read just after, with its mean
+    model-call ms (forward + stable top-k + fetch, host clock)."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.eval.metrics import top_k_stable
+    from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
+    from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.models.net import banded_test_forward
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0))
+    banded, _, _ = build_banded_duplex(n, e0, e1, max_rank=0, device=device)
+    net = load_model(CKPT, device=device)
+    covered = ~banded.node_mask
+    k = max(int(0.001 * n), 1)
+    total = dict.fromkeys(bk.launches, 0)
+    for fuse in (False, True):
+        if fuse and not banded.spill_free:
+            continue
+        for act in (torch.float32, torch.bfloat16):
+            def call():
+                with matmul_precision(False):
+                    q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
+                                            precise=False, act_dtype=act)
+                return top_k_stable(q, k)
+
+            bk.reset_launches()
+            call()
+            counts = dict(bk.launches)
+            reps = 10
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call()
+            ms = 1e3 * (time.perf_counter() - t0) / reps
+            log("fast forward: " + json.dumps(dict(
+                n=n, fuse_sage=fuse, act_dtype=str(act).split(".")[1], model_call_ms=ms,
+                launches={c: v for c, v in counts.items() if v})))
+            want = "band_{}_bf16{}".format("sage" if fuse else "spmm",
+                                           "_act" if act == torch.bfloat16 else "")
+            if device != "cpu" and counts[want] <= 0:
+                raise AssertionError(f"the fast forward did not launch {want}")
+            total = {c: total[c] + counts[c] for c in total}
+    return total
 
 
 # ---------------------------------------------------------------- driver
@@ -986,13 +1284,17 @@ def main(argv=None):
 
         native_build.build()
         check_kernels("cpu", 2048)
+        check_bf16_kernels("cpu", 2048)
         check_backward("cpu", 2048)
         time_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
+        time_bf16_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         check_blocked("cpu")
         small_bd = blocked_graph(2048, "cpu", max_rank=0)
         time_blocked("cpu", small_bd, "rehearsal")
         check_blocked_backward("cpu", small_bd)
-        main_path("cpu", 2048, 0.01)
+        result = main_path("cpu", 2048, 0.01)[1]
+        fast_main_path("cpu", 5000, 0.01, result)  # above the small-graph threshold
+        fast_forward_phase("cpu", 2048)
         check_fit("cpu", 2048)
         small, edges = synth_banded(2048, False, 0, "cpu", reorder=False, with_edges=True)
         trainer_phase("cpu", small, edges, 16)
@@ -1009,14 +1311,17 @@ def main(argv=None):
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_all()
     errs = check_kernels(device, 1 << 16)
+    errs.update(check_bf16_kernels(device, 1 << 16))
     errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
 
     main_graph = synth_banded(18222, True, 0, device)
     times = time_kernels(device, main_graph, "18,432 rows")
+    times.update(time_bf16_kernels(device, main_graph, "18,432 rows"))
     del main_graph
     big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
                                   with_edges=True)
     time_kernels(device, big, "2^20 rows")
+    time_bf16_kernels(device, big, "2^20 rows")
     torch.cuda.empty_cache()
     blocked_errs, blocked_times = blocked_kernel_phases(device)
 
@@ -1025,6 +1330,12 @@ def main(argv=None):
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     log(f"main path AUDC {result['audc']:.6f} after {result['removed']} removals")
+    fast_counts = fast_main_path(device, 18222, 0.001, result)[0]
+    fwd_counts = fast_forward_phase(device, 18222)
+    fast_counts = {k: fast_counts[k] + fwd_counts[k] for k in fast_counts}
+    for name, _, _ in BF16_MODES:
+        if fast_counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the fast path")
 
     fit_err = check_fit(device, 18222)
     train_counts = trainer_phase(device, big, big_edges, 1048)
@@ -1052,6 +1363,13 @@ def main(argv=None):
             name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
             replaces=f"mdcommunity_tpu/ops/band_pallas.py:{replaces}",
             launches=launched[name], **t))
+    for name, kernel, store in BF16_MODES:
+        t = dict(times[name])
+        t["max_abs_err"] = max(errs[name], t["max_abs_err"])
+        kernels.append(dict(
+            name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
+            replaces="mdcommunity_tpu/ops/band_pallas.py:259",
+            mode=f"precise=False, {store} storage", launches=fast_counts[name], **t))
     for name, launched, replaces in (
         ("spmm_block", blocked_counts, "184"), ("spmm_block_bwd", grad_counts, "184"),
         ("sddmm_block", grad_counts, "309"),

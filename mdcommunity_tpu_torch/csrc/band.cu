@@ -3,24 +3,30 @@
 //
 // K1  mdc_band_spmm : out = row ⊙ (A_band @ (col ⊙ h) + Gᵀ·sub)
 // K2  mdc_band_sage : h' = l2n(relu(out_K1 @ A_w + h @ B_w))
+// and their bf16 modes mdc_band_spmm_bf16 and mdc_band_sage_bf16.
 //
 // A_band is a DenseBandGraph's int8 base [nb, S+C, W2] (only its S band rows
 // are read): row s of destination block b holds the edges from source rows
 // (b·S − B + w) mod pad_n, w in [0, W2).  G is the mirror one-hot: row
 // (b, s) owns mirror slot slot[b, s] (or none, -1), and `sub` [nb·C, D] is
 // the mirror-space result computed by the wrapper (compaction gather +
-// sorted-COO SpMM).  h, out: f32 [pad_n, D] row-major.
+// sorted-COO SpMM).  h, out: [pad_n, D] row-major, f32 (or, in the bf16
+// modes, bf16 storage); row, col, sub: f32.
 //
 // What they replace.  Both replace the JAX package's Pallas TPU kernel
 // ops/band_pallas.py::_make_kernel: K1 its sage=False, halo=False mode (the
-// forward of spmm_band_packed), K2 its sage=True mode (sage_step_packed), in
-// the precise (f32 operand) mode that the eval path uses.  K1 is also the
-// backward of the operator (the VJP at band_pallas.py:811-829): the stored
-// operator is symmetric, so ops/dense_band.BandSpmm launches K1 with row and
-// col swapped for the training loss's gradient.  The TPU kernel's
-// node-pair lane packing and 128-lane scale planes exist for the TPU's vector
-// tiles and have no counterpart here: h stays [pad_n, D] and the scales are
-// read per row.
+// forward of spmm_band_packed), K2 its sage=True mode (sage_step_packed).
+// mdc_band_spmm and mdc_band_sage are its precise (f32 operand) mode, which
+// the default eval path uses.  K1 is also the backward of the operator (the
+// VJP at band_pallas.py:811-829): the stored operator is symmetric, so
+// ops/dense_band.BandSpmm launches K1 with row and col swapped for the
+// training loss's gradient.  The *_bf16 entry points are its precise=False
+// mode (band_pallas.py:535, 577-578, 609-620: bf16 band, bf16(col ⊙ h) and
+// bf16(sub) operands, f32 accumulation, f32 epilogue), with h and out
+// stored in f32 or, as its dtype=bf16 mode (:262-264, 743), in bf16.  The
+// TPU kernel's node-pair lane packing and 128-lane scale planes exist for
+// the TPU's vector tiles and have no counterpart here: h stays [pad_n, D]
+// and the scales are read per row.
 //
 // What bounds them on an H100.  The function itself is bound by bytes: it
 // must read the int8 band once (pad_n·W2 bytes, 0.54 GB at 2^20 nodes) and
@@ -30,50 +36,182 @@
 // flops (6.9e10 at 2^20 nodes, D=64): ~1 ms at the 67 TFLOP/s of FP32 FMA
 // against ~0.17 ms for the bytes, so a dense kernel is bound by operations.
 // Tensor cores are no way out for the precise eval: TF32 rounds h to ~10
-// bits, the kind of rounding that cost the JAX package 0.035 AUDC.
+// bits, the kind of rounding that cost the JAX package 0.035 AUDC.  The
+// bf16 modes have accepted that rounding, and there the same dense product
+// runs on the bf16 tensor cores (989 TFLOP/s: ~0.07 ms at 2^20), under the
+// bytes.
 //
-// What the simple design does about it.  Every multiply-add is an FP32 FFMA
-// from registers: a thread owns a 4-row × 4-column register tile of the
-// output, and each step of the window loop reads one float4 of the base tile
-// and one float4 of the h tile from shared memory for 16 FFMAs.  The int8
-// base is widened to f32 once, while it is staged (KC=64 window columns at a
-// time, four columns per 32-bit load), not once per FMA.  All NT threads
-// stage, also when fewer own an output tile (D=2: 64 of 256), because
-// staging, not the FMAs, is what a narrow D waits on.  A chunk whose staged
-// base tile is all zero (most
-// of them: a row's neighbours sit in one or two chunks of the window) skips
-// its h staging and its FMAs, so the operations follow the band's fill
-// rather than its dense size.  The window is staged col-scaled, so the row
-// scale, the mirror add and (K2) the dense layer and normalisation are
-// epilogues on the tile.  Sums run in a fixed order (window position, then
+// What the simple design does about it.  Precise mode: every multiply-add is
+// an FP32 FFMA from registers: a thread owns a 4-row × 4-column register
+// tile of the output, and each step of the window loop reads one float4 of
+// the base tile and one float4 of the h tile from shared memory for 16
+// FFMAs.  bf16 modes: the staged chunks are bf16 (the int8 band widened
+// exactly; the window as col ⊙ h formed in f32 from the stored h and rounded
+// to nearest even, as XLA's astype(bfloat16)), and each warp multiplies
+// 16×16×16 bf16 fragments on the tensor cores (nvcuda::wmma, f32
+// accumulators); at the end the accumulators go through shared memory into
+// the same 4×4 register tiles, so both modes share the epilogue.  The int8
+// base is widened once, while it is staged (KC=64 window columns at a time,
+// four columns per 32-bit load), not once per FMA.  All NT threads stage,
+// also when fewer own an output tile (D=2: 64 of 256), because staging, not
+// the FMAs, is what a narrow D waits on.  A chunk whose staged base tile is
+// all zero (most of them: a row's neighbours sit in one or two chunks of
+// the window) skips its h staging and its multiplies, so the operations
+// follow the band's fill rather than its dense size.  The window is staged
+// col-scaled, so the row scale, the mirror add (bf16(sub) in the bf16
+// modes, added in f32: the one-hot expansion is exact) and (K2) the dense
+// layer and normalisation are f32 epilogues on the tile; a bf16 store
+// rounds to nearest even.  Sums run in a fixed order (window position, then
 // k of the epilogue dots), so results are deterministic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int KC = 64;    // window columns staged per step
 constexpr int NT = 256;   // threads per block
+constexpr int NW = NT / 32;
+constexpr int LDA = KC + 8;   // bf16 modes: staged band row pitch (elements)
 
+template <typename T>
 struct BandArgs {
   const int8_t* base;
-  const float* h;
+  const T* h;
   const float* row;
   const float* col;
   const float* sub;
   const int32_t* slot;
   const float* aw;   // K2 only: [D, D]
   const float* bw;   // K2 only: [D, D]
-  float* out;
+  T* out;
   int nb, S, B, C, D;
-  int TR;            // destination rows per block (multiple of 4)
-  int DG;            // column groups of 4: ceil(D / 4)
+  int TR;            // destination rows per block (multiple of 4; of 16 in
+                     // the bf16 modes)
+  int DG;            // column groups of 4: ceil(D / 4) (bf16 modes: of 16)
 };
 
-template <bool SAGE>
-__global__ void __launch_bounds__(NT) band_kernel(BandArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// window row (b·S − B + w) mod pad_n; |b·S − B + w − wrap| < pad_n because
+// B <= S
+__device__ __forceinline__ int window_row(int b, int S, int B, int w, int pad_n) {
+  int j = b * S - B + w;
+  if (j < 0) j += pad_n;
+  if (j >= pad_n) j -= pad_n;
+  return j;
+}
+
+// bf16 modes: acc[i][j] (rows 4·rg+i, columns 4·dg+j of the tile) =
+// bf16(A_band) @ bf16(col ⊙ h) on the tensor cores, f32 accumulation.
+template <typename T>
+__device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
+                                              unsigned char* smem,
+                                              float (&acc)[4][4]) {
+  using namespace nvcuda;
+  const int TR = a.TR, DP = 4 * a.DG, D = a.D, S = a.S, B = a.B;
+  const int W2 = S + 2 * B, LDB = DP + 8;
+  const int b = blockIdx.y, tile0 = blockIdx.x * TR;
+  const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / 32;
+  const int pad_n = a.nb * S;
+  const int nfc = DP / 16, ntile = (TR / 16) * nfc;   // ntile <= 2·NW
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [TR][LDA]
+  __nv_bfloat16* bs = as + TR * LDA;                            // [KC][LDB]
+  const int8_t* base_blk = a.base + (long long)b * (S + a.C) * W2;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[2];
+  wmma::fill_fragment(fc[0], 0.f);
+  wmma::fill_fragment(fc[1], 0.f);
+
+  for (int w0 = 0; w0 < W2; w0 += KC) {
+    int nz = 0;
+    // 4 window columns per 32-bit load; 16 consecutive threads read one
+    // row's 64 bytes.  int8 -> bf16 is exact.
+    for (int e = tid; e < TR * (KC / 4); e += nthr) {
+      const int q = e % (KC / 4), r = e / (KC / 4);
+      const int w = w0 + 4 * q;
+      uint32_t word = 0;
+      if (w < W2 && tile0 + r < S)
+        word = *reinterpret_cast<const uint32_t*>(
+            base_blk + (long long)(tile0 + r) * W2 + w);
+      nz |= word != 0u;
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(as + r * LDA + 4 * q);
+      dst[0] = __floats2bfloat162_rn((float)(int8_t)word, (float)(int8_t)(word >> 8));
+      dst[1] = __floats2bfloat162_rn((float)(int8_t)(word >> 16),
+                                     (float)(int8_t)(word >> 24));
+    }
+    // all-zero base chunk: nothing to add (the barrier also orders the
+    // previous chunk's fragment loads before this chunk's writes)
+    if (!__syncthreads_or(nz)) continue;
+    for (int e = tid; e < KC * DP; e += nthr) {
+      const int k = e / DP, d = e - k * DP;
+      float v = 0.f;
+      if (w0 + k < W2 && d < D) {
+        const int j = window_row(b, S, B, w0 + k, pad_n);
+        v = a.col[j] * ld(a.h + (long long)j * D + d);
+      }
+      bs[k * LDB + d] = __float2bfloat16_rn(v);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int tile = warp + NW * t;
+      if (tile < ntile) {
+        const int rt = tile / nfc, ct = tile - rt * nfc;
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fa, as + rt * 16 * LDA + kk, LDA);
+          wmma::load_matrix_sync(fb, bs + kk * LDB + ct * 16, LDB);
+          wmma::mma_sync(fc[t], fa, fb, fc[t]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // accumulators -> shared [TR][DP] -> each owner's 4×4 register tile
+  float* accs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const int tile = warp + NW * t;
+    if (tile < ntile) {
+      const int rt = tile / nfc, ct = tile - rt * nfc;
+      wmma::store_matrix_sync(accs + rt * 16 * DP + ct * 16, fc[t], DP,
+                              wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+  const int dg = tid % a.DG, rg = tid / a.DG;
+  if (tid < a.DG * (TR / 4)) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = accs[(4 * rg + i) * DP + 4 * dg + j];
+  }
+}
+
+// BF: bf16 operands (precise=False).  T: storage of h and out (float, or
+// __nv_bfloat16 with BF).
+template <bool SAGE, bool BF, typename T>
+__global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
+  static_assert(BF || std::is_same<T, float>::value, "bf16 storage needs BF");
+  extern __shared__ __align__(128) unsigned char smem[];
   const int TR = a.TR, DG = a.DG, DP = 4 * DG, D = a.D, S = a.S, B = a.B;
   const int W2 = S + 2 * B;
   const int b = blockIdx.y;
@@ -84,67 +222,67 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs a) {
   const int dg = tid % DG, rg = tid / DG;
   const int pad_n = a.nb * S;
 
-  float* bs = reinterpret_cast<float*>(smem);   // [KC][TR] base, transposed
-  float* hs = bs + KC * TR;                     // [KC][DP] col ⊙ h window
-  const int8_t* base_blk = a.base + (long long)b * (S + a.C) * W2;
-
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int w0 = 0; w0 < W2; w0 += KC) {
-    int nz = 0;
-    // 4 window columns per 32-bit load (W2 and w0 are multiples of 4);
-    // consecutive threads take consecutive rows, so the shared stores of a
-    // warp hit 32 banks
-    for (int e = tid; e < TR * (KC / 4); e += nthr) {
-      const int r = e % TR, q = e / TR;
-      const int w = w0 + 4 * q;
-      uint32_t word = 0;
-      if (w < W2 && tile0 + r < S)
-        word = *reinterpret_cast<const uint32_t*>(
-            base_blk + (long long)(tile0 + r) * W2 + w);
-      nz |= word != 0u;
+  if constexpr (BF) {
+    contract_bf16(a, smem, acc);
+  } else {
+    float* bs = reinterpret_cast<float*>(smem);   // [KC][TR] base, transposed
+    float* hs = bs + KC * TR;                     // [KC][DP] col ⊙ h window
+    const int8_t* base_blk = a.base + (long long)b * (S + a.C) * W2;
+    for (int w0 = 0; w0 < W2; w0 += KC) {
+      int nz = 0;
+      // 4 window columns per 32-bit load (W2 and w0 are multiples of 4);
+      // consecutive threads take consecutive rows, so the shared stores of
+      // a warp hit 32 banks
+      for (int e = tid; e < TR * (KC / 4); e += nthr) {
+        const int r = e % TR, q = e / TR;
+        const int w = w0 + 4 * q;
+        uint32_t word = 0;
+        if (w < W2 && tile0 + r < S)
+          word = *reinterpret_cast<const uint32_t*>(
+              base_blk + (long long)(tile0 + r) * W2 + w);
+        nz |= word != 0u;
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-        bs[(4 * q + t) * TR + r] = (float)(int8_t)(word >> (8 * t));
-    }
-    // all-zero base chunk: nothing to add (the barrier also orders the
-    // previous chunk's reads of hs before this chunk's writes)
-    if (!__syncthreads_or(nz)) continue;
-    for (int e = tid; e < KC * DP; e += nthr) {
-      const int k = e / DP, d = e - k * DP;
-      float v = 0.f;
-      if (w0 + k < W2 && d < D) {
-        // window row (b·S − B + w) mod pad_n; |b·S − B + w − wrap| < pad_n
-        // because B <= S
-        int j = b * S - B + w0 + k;
-        if (j < 0) j += pad_n;
-        if (j >= pad_n) j -= pad_n;
-        v = a.col[j] * a.h[(long long)j * D + d];
+        for (int t = 0; t < 4; ++t)
+          bs[(4 * q + t) * TR + r] = (float)(int8_t)(word >> (8 * t));
       }
-      hs[k * DP + d] = v;
-    }
-    __syncthreads();
-    if (owner) {
+      // all-zero base chunk: nothing to add (the barrier also orders the
+      // previous chunk's reads of hs before this chunk's writes)
+      if (!__syncthreads_or(nz)) continue;
+      for (int e = tid; e < KC * DP; e += nthr) {
+        const int k = e / DP, d = e - k * DP;
+        float v = 0.f;
+        if (w0 + k < W2 && d < D) {
+          const int j = window_row(b, S, B, w0 + k, pad_n);
+          v = a.col[j] * a.h[(long long)j * D + d];
+        }
+        hs[k * DP + d] = v;
+      }
+      __syncthreads();
+      if (owner) {
 #pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        const float4 bv = *reinterpret_cast<const float4*>(bs + k * TR + 4 * rg);
-        const float4 hv = *reinterpret_cast<const float4*>(hs + k * DP + 4 * dg);
-        const float bf[4] = {bv.x, bv.y, bv.z, bv.w};
-        const float hf[4] = {hv.x, hv.y, hv.z, hv.w};
+        for (int k = 0; k < KC; ++k) {
+          const float4 bv = *reinterpret_cast<const float4*>(bs + k * TR + 4 * rg);
+          const float4 hv = *reinterpret_cast<const float4*>(hs + k * DP + 4 * dg);
+          const float bf[4] = {bv.x, bv.y, bv.z, bv.w};
+          const float hf[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bf[i], hf[j], acc[i][j]);
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bf[i], hf[j], acc[i][j]);
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
-  // mirror expansion (+ sub[slot]) before the row scale, as the TPU kernel
+  // mirror expansion (+ sub[slot]) before the row scale, as the TPU kernel;
+  // the bf16 modes add bf16(sub), as the TPU kernel's bf16 one-hot dot
   float* pool = reinterpret_cast<float*>(smem);  // K2: [TR][DP], reuses stage
 #pragma unroll
   for (int i = 0; i < 4 && owner; ++i) {
@@ -158,9 +296,12 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs a) {
       const int d = 4 * dg + j;
       float v = acc[i][j];
       if (rv && d < D) {
-        if (sl >= 0) v += a.sub[((long long)b * a.C + sl) * D + d];
+        if (sl >= 0) {
+          const float s = a.sub[((long long)b * a.C + sl) * D + d];
+          v += BF ? round_bf16(s) : s;
+        }
         v *= rs;
-        if (!SAGE) a.out[node * D + d] = v;
+        if (!SAGE) st(a.out + node * D + d, v);
       } else {
         v = 0.f;
       }
@@ -177,7 +318,7 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs a) {
   for (int e = tid; e < TR * DP; e += nthr) {
     const int r = e / DP, d = e - r * DP;
     float v = 0.f;
-    if (tile0 + r < S && d < D) v = a.h[((long long)b * S + tile0 + r) * D + d];
+    if (tile0 + r < S && d < D) v = ld(a.h + ((long long)b * S + tile0 + r) * D + d);
     hown[e] = v;
   }
   for (int e = tid; e < D * DP; e += nthr) {
@@ -231,34 +372,54 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int d = 4 * dg + j;
-      if (d < D) a.out[node * D + d] = za[i][j] * scale;
+      if (d < D) st(a.out + node * D + d, za[i][j] * scale);
     }
   }
 }
 
-int launch(bool sage, BandArgs a, cudaStream_t stream) {
-  a.DG = (a.D + 3) / 4;
-  if (a.D < 1 || a.DG > NT || a.nb < 1 || a.nb > 65535 || a.S < 1 ||
-      a.B < 0 || a.B > a.S || a.C < 0 || (a.S + 2 * a.B) % 4 != 0)
+template <bool BF, typename T>
+int launch(bool sage, BandArgs<T> a, cudaStream_t stream) {
+  // the bf16 modes pad D to whole 16-column fragments and take 16-row
+  // fragments, with at most 2·NW fragments a block (TR·DP <= 16·NT)
+  const int q = BF ? 16 : 4;
+  if (a.D < 1 || a.nb < 1 || a.nb > 65535 || a.S < 1 || a.B < 0 ||
+      a.B > a.S || a.C < 0 || (a.S + 2 * a.B) % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  const int s4 = (a.S + 3) / 4 * 4;
-  a.TR = 4 * (NT / a.DG);
-  if (a.TR > s4) a.TR = s4;
-  const int DP = 4 * a.DG;
-  size_t shm = sizeof(float) * (size_t)KC * (a.TR + DP);
+  const int DP = (a.D + q - 1) / q * q;
+  a.DG = DP / 4;
+  if (a.DG > NT) return (int)cudaErrorInvalidValue;
+  int TR = 4 * (NT / a.DG) / q * q;
+  const int cap = (a.S + q - 1) / q * q;
+  if (TR > cap) TR = cap;
+  if (TR < q) return (int)cudaErrorInvalidValue;
+  a.TR = TR;
+  size_t shm = BF ? sizeof(__nv_bfloat16) * ((size_t)TR * LDA + (size_t)KC * (DP + 8))
+                  : sizeof(float) * (size_t)KC * (TR + DP);
+  if (BF && sizeof(float) * (size_t)TR * DP > shm) shm = sizeof(float) * (size_t)TR * DP;
   if (sage) {
     const size_t epi =
-        sizeof(float) * ((size_t)2 * a.TR * DP + (size_t)2 * a.D * DP +
-                         (size_t)a.TR * a.DG);
+        sizeof(float) * ((size_t)2 * TR * DP + (size_t)2 * a.D * DP +
+                         (size_t)TR * a.DG);
     if (epi > shm) shm = epi;
   }
-  void (*kern)(BandArgs) = sage ? band_kernel<true> : band_kernel<false>;
+  void (*kern)(BandArgs<T>) =
+      sage ? band_kernel<true, BF, T> : band_kernel<false, BF, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + a.TR - 1) / a.TR, a.nb);
+  dim3 grid((a.S + TR - 1) / TR, a.nb);
   kern<<<grid, NT, shm, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bf16(bool sage, const int8_t* base, const void* h, const float* row,
+                const float* col, const float* sub, const int32_t* slot,
+                const float* aw, const float* bw, void* out, int nb, int S,
+                int B, int C, int D, cudaStream_t stream) {
+  BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, aw, bw,
+                static_cast<T*>(out), nb, S, B, C, D, 0, 0};
+  return launch<true, T>(sage, a, stream);
 }
 
 }  // namespace
@@ -270,9 +431,9 @@ int mdc_band_spmm(const int8_t* base, const float* h, const float* row,
                   const float* col, const float* sub, const int32_t* slot,
                   float* out, int nb, int S, int B, int C, int D,
                   void* stream) {
-  BandArgs a{base, h, row, col, sub, slot, nullptr, nullptr, out,
-             nb, S, B, C, D, 0, 0};
-  return launch(false, a, (cudaStream_t)stream);
+  BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
+                    nb, S, B, C, D, 0, 0};
+  return launch<false, float>(false, a, (cudaStream_t)stream);
 }
 
 // K2.  aw, bw: f32 [D, D].  Returns the cudaError_t of the launch.
@@ -280,9 +441,33 @@ int mdc_band_sage(const int8_t* base, const float* h, const float* row,
                   const float* col, const float* sub, const int32_t* slot,
                   const float* aw, const float* bw, float* out, int nb,
                   int S, int B, int C, int D, void* stream) {
-  BandArgs a{base, h, row, col, sub, slot, aw, bw, out,
-             nb, S, B, C, D, 0, 0};
-  return launch(true, a, (cudaStream_t)stream);
+  BandArgs<float> a{base, h, row, col, sub, slot, aw, bw, out,
+                    nb, S, B, C, D, 0, 0};
+  return launch<false, float>(true, a, (cudaStream_t)stream);
+}
+
+// K1, bf16 operands.  h and out are f32 (bf16_act = 0) or bf16 (1); D <= 256.
+int mdc_band_spmm_bf16(const int8_t* base, const void* h, const float* row,
+                       const float* col, const float* sub, const int32_t* slot,
+                       void* out, int nb, int S, int B, int C, int D,
+                       int bf16_act, void* stream) {
+  return bf16_act
+      ? launch_bf16<__nv_bfloat16>(false, base, h, row, col, sub, slot, nullptr,
+                                   nullptr, out, nb, S, B, C, D, (cudaStream_t)stream)
+      : launch_bf16<float>(false, base, h, row, col, sub, slot, nullptr, nullptr,
+                           out, nb, S, B, C, D, (cudaStream_t)stream);
+}
+
+// K2, bf16 operands, f32 epilogue.  aw, bw: f32 [D, D].
+int mdc_band_sage_bf16(const int8_t* base, const void* h, const float* row,
+                       const float* col, const float* sub, const int32_t* slot,
+                       const float* aw, const float* bw, void* out, int nb,
+                       int S, int B, int C, int D, int bf16_act, void* stream) {
+  return bf16_act
+      ? launch_bf16<__nv_bfloat16>(true, base, h, row, col, sub, slot, aw, bw,
+                                   out, nb, S, B, C, D, (cudaStream_t)stream)
+      : launch_bf16<float>(true, base, h, row, col, sub, slot, aw, bw, out, nb,
+                           S, B, C, D, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@ from mdcommunity_tpu_torch.models.net import (
     make_blocked_aggregate,
 )
 from mdcommunity_tpu_torch.rl.dqn import predict_q
-from mdcommunity_tpu_torch.utils.device import set_precise_matmul
+from mdcommunity_tpu_torch.utils.device import matmul_precision, set_precise_matmul
 
 
 def audc_from_curve(curve: List[float], n: int) -> float:
@@ -207,13 +207,21 @@ def dismantle_greedy_banded(
     batch_env: bool = False,
     fuse_sage: Optional[bool] = None,
     stats: Optional[Dict[str, float]] = None,
+    precise: bool = True,
+    act_dtype: torch.dtype = torch.float32,
 ) -> Tuple[List[int], float, List[float]]:
     """Greedy Q rollout on a large BandedDuplex with a host env.
 
-    Each model call runs the banded Q forward on the banded duplex's device,
-    in true f32, and takes its top `step` nodes; the cascade runs on the
-    host.  Severs the env reports are applied to the band in place, so a
-    BandedDuplex serves one rollout.
+    Each model call runs the banded Q forward on the banded duplex's device
+    and takes its top `step` nodes; the cascade runs on the host.  precise
+    (default True): the forward runs in true f32, aggregation operands and
+    dense layers (TF32 off).  precise=False is the JAX package's fast eval:
+    K1's and K2's bf16 modes, h stored in `act_dtype`, dense layers in TF32.
+    Greedy quality is sensitive to that rounding (RESULTS.md:244-270), so it
+    is a throughput knob only.  The matmul flags are set for each forward
+    and restored after it (utils/device.matmul_precision).  Severs the env
+    reports are applied to the band in place, so a BandedDuplex serves one
+    rollout.
 
     step == 1 and not batch_env (StepRatio 0): sever -> cover -> forward ->
     top-1 per removal.  Otherwise the top `step` nodes are removed one by
@@ -226,10 +234,10 @@ def dismantle_greedy_banded(
     (kernel K2); None decides per build, on the host: fused exactly when
     both layers' spill sets are empty, as the JAX package's packed engine
     decides.  stats, when given, receives the number of model calls and
-    their total seconds (forward + top-k + the fetch that ends them).
+    their total seconds (forward + top-k + the fetch that ends them), and
+    the mode (fuse_sage, precise, act_dtype).
 
     Returns (solution in banded ids, score = AUDC, curve)."""
-    set_precise_matmul()
     fuse = banded.spill_free if fuse_sage is None else bool(fuse_sage)
     device = banded.device
     pad_n, n = banded.pad_n, env.n
@@ -250,7 +258,9 @@ def dismantle_greedy_banded(
     def q_top(covered: torch.Tensor, k: int):
         nonlocal calls, call_s
         t0 = time.perf_counter()
-        q = banded_test_forward(net, banded, covered, fuse_sage=fuse)
+        with matmul_precision(precise):
+            q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
+                                    precise=precise, act_dtype=act_dtype)
         out = top_k_stable(q, k)
         call_s += time.perf_counter() - t0
         calls += 1
@@ -308,5 +318,6 @@ def dismantle_greedy_banded(
                 for layer in range(2):
                     apply(layer, new_sev[layer])
     if stats is not None:
-        stats.update(model_calls=calls, model_call_s=call_s, fuse_sage=fuse)
+        stats.update(model_calls=calls, model_call_s=call_s, fuse_sage=fuse,
+                     precise=precise, act_dtype=str(act_dtype).replace("torch.", ""))
     return sol, float(env.score), list(env.curve)

@@ -49,6 +49,7 @@ def evaluate_real(
     device=None,
     engine: str = "auto",
     stats: Optional[Dict] = None,
+    precise: bool = True,
 ) -> Tuple[list, float, float]:
     """Dismantle one real dataset with a unit-cost DuplexQNet; returns
     (solution in original ids, solve_time, score).
@@ -57,7 +58,10 @@ def evaluate_real(
       Soluion_<name>_<la><lb>.txt, NormalizedLMCC_<name>_<la><lb>.txt,
     and <save_dir>/time&audc_real.csv gains one row.
     device: where the forward runs (CUDA unless given); engine: the host
-    env of the large-graph path (env/host_env.make_host_env).  stats, when
+    env of the large-graph path (env/host_env.make_host_env).  precise=False
+    runs the large-graph path's fast eval (bf16 aggregation operands, TF32
+    dense layers; eval/metrics.dismantle_greedy_banded); the small-graph path
+    ignores it, as the JAX package's does.  stats, when
     given, receives the rollout's model-call counts and times, and on the
     large-graph path the host engine and the build's spill and mirror
     sizes."""
@@ -88,7 +92,7 @@ def evaluate_real(
         t0 = time.time()
         sol, score, curve = dismantle_greedy_banded(
             net, banded, env, step=step, batch_env=batch_env, fuse_sage=fuse_sage,
-            stats=stats,
+            stats=stats, precise=precise,
         )
         solve_time = time.time() - t0
         sol = [int(perm[v]) for v in sol]  # back to original node ids

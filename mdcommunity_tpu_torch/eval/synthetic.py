@@ -1,7 +1,8 @@
 """Synthetic evaluation sweep (reference: Evaluate :563-600 + testSynthetic.py).
 
 Network sizes x GMM generator settings, on GMM graphs generated on the fly
-from a seed (the JAX package's stream, graphs/gmm.py).  Reports AUDC mean/std, solve time and cost per
+from a seed (the JAX package's stream, graphs/gmm.py); evaluate_synthetic_sweep
+sweeps one generator parameter at a fixed size.  Reports AUDC mean/std, solve time and cost per
 size, and writes rows in the reference's result-file format.  The model
 runs on the graphs' device through eval/metrics.dismantle_greedy.
 """
@@ -63,6 +64,38 @@ def evaluate_synthetic_generated(
             scores.append(score)
             costs.append(len(sol) / n)
         rows.append(_row(n, scores, times, costs))
+    return rows
+
+
+def evaluate_synthetic_sweep(
+    net,
+    sweep_param: str,
+    values: List[float],
+    size: int = 128,
+    n_graphs: int = 20,
+    variant: str = "unit_cost",
+    seed: int = 0,
+    device=None,
+) -> List[dict]:
+    """Sweep one GMM generator parameter (the reference's data_g /
+    data_gamma / data_k dataset families, testSynthetic.py:14-39): angular
+    correlation g, degree exponent gamma, or mean degree k̄, the others at
+    g = 0.5, gamma = 2.5, k̄ from the generator.  Each value draws its
+    graphs from `seed` afresh, as the JAX package's sweep.  One result row
+    per value, with the value under `sweep_param`."""
+    if sweep_param not in ("g", "gamma", "k"):
+        raise ValueError(f"sweep_param must be g, gamma or k, got {sweep_param!r}")
+    key = {"g": "g_corr", "gamma": "gamma", "k": "kbar"}[sweep_param]
+    rows = []
+    for v in values:
+        kw = dict(g_corr=0.5, gamma=2.5, kbar=None)
+        kw[key] = v
+        (row,) = evaluate_synthetic_generated(
+            net, [size], n_graphs=n_graphs, variant=variant, seed=seed,
+            device=device, **kw,
+        )
+        row[sweep_param] = v
+        rows.append(row)
     return rows
 
 

@@ -11,6 +11,7 @@ Usage:
     python -m mdcommunity_tpu_torch.large_graph_demo --sizes 18222
     python -m mdcommunity_tpu_torch.large_graph_demo --sizes 1048576 \\
         --step-ratio 0.001 --batch-env
+    python -m mdcommunity_tpu_torch.large_graph_demo --sizes 18222 --fast --packed
 
 Prints one JSON line per size.
 """
@@ -66,6 +67,9 @@ def main(argv=None):
     ap.add_argument("--batch-env", action="store_true",
                     help="ONE host cascade per StepRatio batch "
                          "(env.step_many; AUDC bias <= step/n)")
+    ap.add_argument("--fast", action="store_true",
+                    help="bf16 eval forward (precise=False): K1/K2 bf16 modes, "
+                         "TF32 dense layers")
     ap.add_argument("--no-shuffle", action="store_true",
                     help="keep the generator's angular order")
     ap.add_argument("--device", default=None,
@@ -96,7 +100,7 @@ def main(argv=None):
             net, args.output, name, os.path.join(args.output, "results"),
             n_nodes=n, layers=(1, 2), step_ratio=args.step_ratio,
             batch_env=args.batch_env, fuse_sage=None if args.packed else False,
-            device=device, stats=stats,
+            device=device, stats=stats, precise=not args.fast,
         )
         print(json.dumps(dict(
             n=n, edges=int(len(e0) + len(e1)), solve_s=round(solve_time, 2),
@@ -104,7 +108,8 @@ def main(argv=None):
             removed=len(sol), ref_same_scale_s=ref_times.get(n),
             device=(torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
-            fuse_sage=stats["fuse_sage"], host_env=stats["host_env"],
+            fuse_sage=stats["fuse_sage"], precise=stats["precise"],
+            host_env=stats["host_env"],
             model_calls=stats["model_calls"],
             model_call_ms=1e3 * stats["model_call_s"] / max(stats["model_calls"], 1),
         )), flush=True)

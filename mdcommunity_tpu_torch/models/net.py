@@ -164,8 +164,9 @@ def _graph_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     bit-equal, the gate is exactly 0.5/0.5, and layer-swapped nodes get
     bit-equal Q, so the lowest-index rule decides between them.  An f32
     sum rounds differently for the two layers' row orders and breaks such
-    ties at random."""
-    return torch.sum(x, dim=dim, dtype=torch.float64).to(x.dtype)
+    ties at random.  A bf16 x (stored activations) sums to f32."""
+    out_dt = torch.promote_types(x.dtype, torch.float32)
+    return torch.sum(x, dim=dim, dtype=torch.float64).to(out_dt)
 
 
 def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
@@ -219,7 +220,7 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
 
 
 def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
-           sage=None):
+           sage=None, store=None):
     """Per-layer message passing and cross-layer fusion (the JAX package's
     net._embed), for one graph or a batch: node_input [2, ..., N, F],
     active bool [..., N].  Returns (h_f0, h_f1) [..., N, D], l2-normalised
@@ -227,8 +228,9 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
 
     Each round aggregates with `aggregate(layer, h)` (A_l @ h), or, when
     `sage` is given, runs as `sage(layer, h)`, the fused SAGE step (kernel
-    K2, no gradient).  The virtual-node pool is a graph-wide f64 sum
-    (`_graph_sum`)."""
+    K2, no gradient), with h kept in the `store` dtype between the steps
+    when one is given (bf16 activations; the pool and the fusion widen it).
+    The virtual-node pool is a graph-wide f64 sum (`_graph_sum`)."""
     d = net.embedding_size
     c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
     dt, dev = net.w_n2l.dtype, node_input.device
@@ -242,6 +244,8 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
     for layer in range(2):
         h = l2_normalize(torch.relu(node_input[layer] @ net.w_n2l))
         y = l2_normalize(torch.relu(ones_feat @ net.w_n2l)).expand(h.shape[:-2] + (d,))
+        if sage is not None and store is not None:
+            h = h.to(store)
         for _ in range(max_bp_iter):
             ypool = _graph_sum(h, dim=-2)  # inactive rows are exactly 0
             y_new = torch.cat([ypool @ c1, y @ c2], -1)
@@ -251,7 +255,7 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
                 pool = aggregate(layer, h)
                 h = l2_normalize(torch.relu(torch.cat([pool @ c1, h @ c2], -1) @ c3))
             y = l2_normalize(torch.relu(y_new @ c3))
-        node_embs.append(h)
+        node_embs.append(h.to(dt))
         virt_embs.append(y)
 
     fp = net.fusion_params()
@@ -280,20 +284,28 @@ def _q_values(net: DuplexQNet, rows, y_f, aux) -> torch.Tensor:
     return w[0][..., None] * q_layers[0] + w[1][..., None] * q_layers[1]
 
 
-def _banded_aggregate(bdx, live, spmm=spmm_dense_band):
-    return lambda layer, h: spmm(bdx.dbg(layer), live, live, h)
+def _banded_aggregate(bdx, live, spmm=spmm_dense_band, precise=True, store=None):
+    """A_l @ h over a BandedDuplex's live subgraph.  With a `store` dtype
+    (bf16 activations) h is rounded to it before the operator and the pool
+    comes back in h's dtype, as the JAX package's unfused packed forward."""
+    if precise and store is None:
+        return lambda layer, h: spmm(bdx.dbg(layer), live, live, h)
+    return lambda layer, h: spmm(
+        bdx.dbg(layer), live, live, h.to(store or h.dtype), precise=precise
+    ).to(h.dtype)
 
 
-def _banded_sage(net: DuplexQNet, bdx, live):
-    """The fused SAGE step over a BandedDuplex (kernel K2), with the
-    concat-matmul algebra's two D×D weights."""
+def _banded_sage(net: DuplexQNet, bdx, live, precise=True):
+    """The fused SAGE step over a BandedDuplex (kernel K2, precise=False its
+    bf16 mode), with the concat-matmul algebra's two D×D weights."""
     d = net.embedding_size
     c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
     sage_a, sage_b = c1 @ c3[:d], c2 @ c3[d:]
 
     def step(layer, h):
         dbg = bdx.dbg(layer)
-        return sage_step(dbg, live, live, h, mirror_sub(dbg, live, h), sage_a, sage_b)
+        return sage_step(dbg, live, live, h, mirror_sub(dbg, live, h, precise),
+                         sage_a, sage_b, precise)
 
     return step
 
@@ -305,6 +317,8 @@ def banded_test_forward(
     covered: torch.Tensor,
     fuse_sage: bool = False,
     max_bp_iter: int = 3,
+    precise: bool = True,
+    act_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Q(s, ·) over all nodes of a BandedDuplex: [pad_n]; dead nodes -inf.
     `covered` is bool [pad_n] (padding rows True).  It computes in the
@@ -316,13 +330,28 @@ def banded_test_forward(
     net_packed.banded_test_forward_packed(fuse_sage=True) does; it needs
     both layers' spill sets to be empty.  Otherwise each round aggregates
     with kernel K1 and runs the dense layer in torch.matmul.  Both compute
-    the JAX package's net.banded_test_forward in f32."""
+    the JAX package's net.banded_test_forward in f32.
+
+    precise=False is the fast eval (the JAX package's precise=False, and
+    net_packed.banded_test_forward_packed's act_dtype): the aggregations run
+    K1's or K2's bf16 mode; act_dtype=bfloat16 also stores h in bf16 (fused:
+    between the steps; unfused: h is rounded before K1 and the pool comes
+    back in f32).  The degree passes stay on the f32 K1: their operands are
+    0/1 and their sums small integers, exact in either mode.  The dense
+    layers run at the caller's matmul precision
+    (utils/device.matmul_precision)."""
     if fuse_sage and not bdx.spill_free:
         raise ValueError("fuse_sage needs empty spill sets in both layers")
+    if act_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"act_dtype must be float32 or bfloat16, got {act_dtype}")
+    if precise and act_dtype != torch.float32:
+        raise ValueError("precise=True requires act_dtype=float32")
+    store = None if act_dtype == torch.float32 else act_dtype
     node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered)
-    sage = _banded_sage(net, bdx, live) if fuse_sage else None
-    h0, h1, y_f = _embed(net, node_input, active, _banded_aggregate(bdx, live),
-                         max_bp_iter, sage)
+    sage = _banded_sage(net, bdx, live, precise) if fuse_sage else None
+    h0, h1, y_f = _embed(net, node_input, active,
+                         _banded_aggregate(bdx, live, precise=precise, store=store),
+                         max_bp_iter, sage, store)
     q = _q_values(net, (h0, h1), y_f, aux)
     return torch.where(active, q, torch.full_like(q, -float("inf")))
 

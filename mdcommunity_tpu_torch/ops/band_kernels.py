@@ -7,15 +7,23 @@ over a DenseBandGraph (ops/dense_band.py): A_band is the int8 base's S band
 rows, G the mirror one-hot (`slot_of_row`), and `mir_sub` [nb·C, D] the
 mirror-space result that ops/dense_band.mirror_sub computes in PyTorch.  They
 replace the JAX package's Pallas TPU kernel ops/band_pallas.py::_make_kernel
-(modes sage=False and sage=True, precise); the CUDA sources are in
-csrc/band.cu, which also says what bounds them on an H100.  K1 is also the
-operator's backward: ops/dense_band.BandSpmm launches it with row and col
-swapped, counted under `band_spmm_bwd`.
+(modes sage=False and sage=True); the CUDA sources are in csrc/band.cu,
+which also says what bounds them on an H100.  K1 is also the operator's
+backward: ops/dense_band.BandSpmm launches it with row and col swapped,
+counted under `band_spmm_bwd`.
+
+precise=True (the default) is the kernel's f32-operand mode.  precise=False
+is its bf16 mode (the JAX package's precise=False): the band, bf16(col ⊙ h)
+(formed in f32, rounded to nearest even) and bf16(mir_sub) are the operands,
+sums and the epilogue run in f32.  Its storage follows h: f32, or bf16 (the
+JAX package's act_dtype=bf16), and then the output is rounded to bf16 too.
+bf16 storage needs precise=False, as net_packed.py:142-143 enforces.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches its kernel or raises.  Nothing falls back.  The kernels build with
 nvcc for sm_90a at first use into the package's _build/ directory.  Each
-wrapper adds one to `launches[name]` where it launches its kernel.
+wrapper adds one to `launches[name]` where it launches its kernel: the bf16
+modes count under `<kernel>_bf16`, or `<kernel>_bf16_act` with bf16 storage.
 """
 
 from __future__ import annotations
@@ -33,7 +41,11 @@ LIB = os.path.join(BUILD_DIR, "libmdc_band.so")
 
 # kernel launches on CUDA tensors, by kernel name; band_spmm_bwd counts the
 # launches of K1 that compute a gradient (ops/dense_band.BandSpmm.backward)
-launches = {"band_spmm": 0, "band_sage": 0, "band_spmm_bwd": 0}
+launches = {
+    "band_spmm": 0, "band_sage": 0, "band_spmm_bwd": 0,
+    "band_spmm_bf16": 0, "band_sage_bf16": 0,
+    "band_spmm_bf16_act": 0, "band_sage_bf16_act": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -59,6 +71,10 @@ def _load() -> ctypes.CDLL:
         lib.mdc_band_spmm.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.mdc_band_sage.restype = i
         lib.mdc_band_sage.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.mdc_band_spmm_bf16.restype = i
+        lib.mdc_band_spmm_bf16.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.mdc_band_sage_bf16.restype = i
+        lib.mdc_band_sage_bf16.argtypes = [p] * 9 + [i] * 6 + [p]
         _lib = lib
     return _lib
 
@@ -66,30 +82,37 @@ def _load() -> ctypes.CDLL:
 # ---------------------------------------------------------------- checks
 
 
-def _check(dbg, row, col, h, mir_sub, ab=()) -> None:
+def _compute_dtype(h: torch.Tensor) -> torch.dtype:
+    """The dtype the scales, mir_sub, weights and sums take: f32 for bf16
+    storage, else h's own."""
+    return torch.float32 if h.dtype == torch.bfloat16 else h.dtype
+
+
+def _check(dbg, row, col, h, mir_sub, ab=(), precise=True) -> None:
     """Raise on what the kernels (and plain versions) do not take."""
-    if h.dtype != torch.float32 and not (
-        h.dtype == torch.float64 and h.device.type == "cpu"
-    ):
+    on_cpu = h.device.type == "cpu"
+    stores = (torch.float32, torch.bfloat16) if not precise else (torch.float32,)
+    if h.dtype not in stores and not (h.dtype == torch.float64 and on_cpu):
         raise NotImplementedError(
-            f"band kernels take f32 h (the plain versions also f64 on the "
-            f"CPU), got {h.dtype} on {h.device}; the bf16 modes are not "
-            "ported yet"
+            f"band kernels take {' or '.join(map(str, stores))} h with "
+            f"precise={precise} (the plain versions also f64 on the CPU), got "
+            f"{h.dtype} on {h.device}; bf16 storage needs precise=False"
         )
     if dbg.base.dtype != torch.int8 or dbg.slot_of_row.dtype != torch.int32:
         raise NotImplementedError("band kernels take an int8 base and int32 slots")
     if h.dim() != 2 or h.shape[0] != dbg.pad_n:
         raise ValueError(f"h must be [pad_n={dbg.pad_n}, D], got {tuple(h.shape)}")
     D = h.shape[1]
+    dt = _compute_dtype(h)
     want = [
-        ("row", row, (dbg.pad_n,), h.dtype),
-        ("col", col, (dbg.pad_n,), h.dtype),
-        ("mir_sub", mir_sub, (dbg.n_blocks * dbg.C, D), h.dtype),
-    ] + [(f"w{i}", w, (D, D), h.dtype) for i, w in enumerate(ab)]
-    for name, t, shape, dt in want:
-        if tuple(t.shape) != shape or t.dtype != dt:
+        ("row", row, (dbg.pad_n,), dt),
+        ("col", col, (dbg.pad_n,), dt),
+        ("mir_sub", mir_sub, (dbg.n_blocks * dbg.C, D), dt),
+    ] + [(f"w{i}", w, (D, D), dt) for i, w in enumerate(ab)]
+    for name, t, shape, want_dt in want:
+        if tuple(t.shape) != shape or t.dtype != want_dt:
             raise ValueError(
-                f"{name} must be {dt} {shape}, got {t.dtype} {tuple(t.shape)}"
+                f"{name} must be {want_dt} {shape}, got {t.dtype} {tuple(t.shape)}"
             )
     for name, t in [("base", dbg.base), ("slot_of_row", dbg.slot_of_row)] + [
         (w[0], w[1]) for w in want
@@ -100,16 +123,23 @@ def _check(dbg, row, col, h, mir_sub, ab=()) -> None:
         raise ValueError(f"unsupported device {h.device}")
 
 
-def _launch(fn, dbg, row, col, h, mir_sub, extra, name) -> torch.Tensor:
+def _counter(kernel: str, h: torch.Tensor, precise: bool) -> str:
+    if precise:
+        return kernel
+    return f"{kernel}_bf16_act" if h.dtype == torch.bfloat16 else f"{kernel}_bf16"
+
+
+def _launch(fn, dbg, row, col, h, mir_sub, extra, name, bf16_act=None) -> torch.Tensor:
     tensors = [dbg.base, h, row, col, mir_sub, dbg.slot_of_row, *extra]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    flag = () if bf16_act is None else (int(bf16_act),)
     with torch.cuda.device(h.device):
         rc = fn(
             *[t.data_ptr() for t in tensors], out.data_ptr(),
-            dbg.n_blocks, dbg.S, dbg.B, dbg.C, h.shape[1], stream,
+            dbg.n_blocks, dbg.S, dbg.B, dbg.C, h.shape[1], *flag, stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
@@ -129,14 +159,20 @@ def _windows(x: torch.Tensor, nb: int, S: int, B: int) -> torch.Tensor:
     return torch.cat([prev[:, S - B:], xb, nxt[:, :B]], dim=1)
 
 
-def spmm_band_plain(dbg, row, col, h, mir_sub) -> torch.Tensor:
-    """K1's plain version (the JAX package's _spmm_band3 without the spill):
-    one einsum over the materialised windows, then the mirror expansion and
-    the row scale."""
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) and back to x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _band_plain(dbg, row, col, h, mir_sub, precise) -> torch.Tensor:
+    """K1 in the compute dtype, before any storage rounding."""
     nb, S, B, C = dbg.n_blocks, dbg.S, dbg.B, dbg.C
     D = h.shape[1]
-    hw = _windows(h * col[:, None], nb, S, B)
-    out = torch.einsum("bsw,bwd->bsd", dbg.base[:, :S].to(h.dtype), hw)
+    hc = h.to(_compute_dtype(h)) * col[:, None]
+    if not precise:  # the kernel's operands: bf16(col ⊙ h), bf16(sub)
+        hc, mir_sub = _to_bf16(hc), _to_bf16(mir_sub)
+    hw = _windows(hc, nb, S, B)
+    out = torch.einsum("bsw,bwd->bsd", dbg.base[:, :S].to(hc.dtype), hw)
     if C:
         slot = dbg.slot_of_row.to(torch.int64)
         flat = torch.arange(nb, device=h.device)[:, None] * C + slot
@@ -145,37 +181,57 @@ def spmm_band_plain(dbg, row, col, h, mir_sub) -> torch.Tensor:
     return out.reshape(dbg.pad_n, D) * row[:, None]
 
 
-def sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w) -> torch.Tensor:
-    """K2's plain version: the fused GraphSAGE step of sage_step_packed."""
-    pool = spmm_band_plain(dbg, row, col, h, mir_sub)
-    z = torch.relu(pool @ A_w + h @ B_w)
-    return z * torch.rsqrt(torch.clamp(torch.sum(z * z, -1, keepdim=True), min=1e-24))
+def spmm_band_plain(dbg, row, col, h, mir_sub, precise: bool = True) -> torch.Tensor:
+    """K1's plain version (the JAX package's _spmm_band3 without the spill):
+    one einsum over the materialised windows, then the mirror expansion and
+    the row scale; precise=False rounds the operands as the kernel does, and
+    the result to h's storage dtype."""
+    return _band_plain(dbg, row, col, h, mir_sub, precise).to(h.dtype)
+
+
+def sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w,
+                    precise: bool = True) -> torch.Tensor:
+    """K2's plain version: the fused GraphSAGE step of sage_step_packed, its
+    epilogue in the compute dtype (f32_epi=True) on the unrounded pool."""
+    pool = _band_plain(dbg, row, col, h, mir_sub, precise)
+    z = torch.relu(pool @ A_w + h.to(pool.dtype) @ B_w)
+    z = z * torch.rsqrt(torch.clamp(torch.sum(z * z, -1, keepdim=True), min=1e-24))
+    return z.to(h.dtype)
 
 
 # ---------------------------------------------------------------- wrappers
 
 
-def spmm_band(dbg, row, col, h, mir_sub, counter: str = "band_spmm") -> torch.Tensor:
-    """K1: out = row ⊙ (A_band @ (col ⊙ h) + Gᵀ·mir_sub), f32 [pad_n, D].
-    The spill COO is not part of it (ops/dense_band.spmm_dense_band adds it).
-    A launch counts under launches[counter]."""
-    _check(dbg, row, col, h, mir_sub)
+def spmm_band(dbg, row, col, h, mir_sub, counter: Optional[str] = None,
+              precise: bool = True) -> torch.Tensor:
+    """K1: out = row ⊙ (A_band @ (col ⊙ h) + Gᵀ·mir_sub), [pad_n, D] in h's
+    storage dtype.  The spill COO is not part of it
+    (ops/dense_band.spmm_dense_band adds it).  A launch counts under
+    launches[counter], by default the mode's own counter."""
+    _check(dbg, row, col, h, mir_sub, precise=precise)
     if h.device.type == "cpu":
-        return spmm_band_plain(dbg, row, col, h, mir_sub)
-    return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), counter)
+        return spmm_band_plain(dbg, row, col, h, mir_sub, precise)
+    name = counter or _counter("band_spmm", h, precise)
+    if precise:
+        return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), name)
+    return _launch(_load().mdc_band_spmm_bf16, dbg, row, col, h, mir_sub, (), name,
+                   bf16_act=h.dtype == torch.bfloat16)
 
 
-def sage_step(dbg, row, col, h, mir_sub, A_w, B_w) -> torch.Tensor:
+def sage_step(dbg, row, col, h, mir_sub, A_w, B_w, precise: bool = True) -> torch.Tensor:
     """K2: h' = l2n(relu(K1(h) @ A_w + h @ B_w)) in one pass, with
     A_w = W1 @ W3[:d] and B_w = W2 @ W3[d:] (concat-matmul algebra of the
     reference layer concat(pool @ W1, h @ W2) @ W3).  The l2n clamps Σz² at
-    1e-24.  The graph's spill must be empty: its edges would have to land
-    before the relu, and the kernel does not read them."""
-    _check(dbg, row, col, h, mir_sub, (A_w, B_w))
+    1e-24; the epilogue runs in f32 in every mode.  The graph's spill must be
+    empty: its edges would have to land before the relu, and the kernel does
+    not read them."""
+    _check(dbg, row, col, h, mir_sub, (A_w, B_w), precise)
     if dbg.spill.nnz:
         raise ValueError("sage_step needs an empty spill set")
     if h.device.type == "cpu":
-        return sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w)
-    return _launch(
-        _load().mdc_band_sage, dbg, row, col, h, mir_sub, (A_w, B_w), "band_sage"
-    )
+        return sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w, precise)
+    name = _counter("band_sage", h, precise)
+    if precise:
+        return _launch(_load().mdc_band_sage, dbg, row, col, h, mir_sub, (A_w, B_w), name)
+    return _launch(_load().mdc_band_sage_bf16, dbg, row, col, h, mir_sub, (A_w, B_w),
+                   name, bf16_act=h.dtype == torch.bfloat16)

@@ -28,7 +28,7 @@ with the scales swapped.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -236,21 +236,28 @@ def sever_edges(
     return dbg
 
 
-def mirror_sub(dbg: DenseBandGraph, col: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def mirror_sub(dbg: DenseBandGraph, col: torch.Tensor, h: torch.Tensor,
+               precise: bool = True) -> torch.Tensor:
     """The mirror-space half of the operator: compaction
     mir[b, c] = col[node(b, c)] · h[node(b, c)] (a gather over mirror_node),
-    then the overflow SpMM inside the mirror table.  Returns sub [nb·C, D],
-    which the band kernels expand back through slot_of_row.  The JAX
-    package computes the same outside its kernel (band_pallas.mirror_compact
-    and the spmm_sorted that follows it)."""
+    then the overflow SpMM inside the mirror table.  Returns sub [nb·C, D]
+    in the compute dtype (f32 for bf16 storage), which the band kernels
+    expand back through slot_of_row.  The JAX package computes the same
+    outside its kernel (band_pallas.mirror_compact and the spmm_sorted that
+    follows it).  precise=False gathers bf16(col ⊙ h), as the JAX package's
+    XLA engine (out_ext[:, S:] of the bf16 contraction); mirror_compact's
+    bf16(h)·col is the same for col in {0, 1}, the live mask of the eval."""
     D = h.shape[1]
+    dt = col.dtype  # the compute dtype: f32 for bf16 storage, else h's
     if not dbg.C:
-        return h.new_zeros((0, D))
+        return h.new_zeros((0, D), dtype=dt)
     node = dbg.mirror_node.reshape(-1)
     used = node >= 0
     safe = node.clamp(min=0)
-    mir = (h[safe] * col[safe, None]) * used[:, None].to(h.dtype)
-    return spmm_sorted(dbg.ccoo, dbg.w_cov, mir)
+    mir = h[safe].to(dt) * col[safe, None]
+    if not precise:
+        mir = mir.to(torch.bfloat16).to(dt)
+    return spmm_sorted(dbg.ccoo, dbg.w_cov, mir * used[:, None].to(dt))
 
 
 def spmm_dense_band(
@@ -258,24 +265,29 @@ def spmm_dense_band(
     row: torch.Tensor,
     col: torch.Tensor,
     h: torch.Tensor,
-    counter: str = "band_spmm",
+    counter: Optional[str] = None,
+    precise: bool = True,
 ) -> torch.Tensor:
     """out = (A ⊙ row⊗col) @ h for the full stored operator (band + mirror
-    overflow + spill), in f32.
+    overflow + spill).
 
     row : f32 [pad_n] destination-side scale (0 = dead node)
     col : f32 [pad_n] source-side scale
-    h   : f32 [pad_n, D]
+    h   : f32 [pad_n, D], or bf16 with precise=False
     The band and the mirror expansion run in kernel K1 (on the CPU its plain
-    version), whose launch counts under `counter`; the spill COO is added
-    after it, as the JAX package does.  Not differentiable: the training
-    loss aggregates through spmm_dense_band_grad."""
+    version), whose launch counts under `counter` (by default the mode's
+    own); the spill COO is added after it in f32, on the unrounded col ⊙ h,
+    as the JAX package does, and the result is in h's storage dtype.
+    precise=False is K1's bf16 mode (ops/band_kernels.py).  Not
+    differentiable: the training loss aggregates through
+    spmm_dense_band_grad."""
     from mdcommunity_tpu_torch.ops.band_kernels import spmm_band
 
-    out = spmm_band(dbg, row, col, h, mirror_sub(dbg, col, h), counter)
+    out = spmm_band(dbg, row, col, h, mirror_sub(dbg, col, h, precise), counter, precise)
     if dbg.spill.nnz:
-        sp = spmm_sorted(dbg.spill, dbg.w_spill, h * col[:, None])
-        out = out + sp * row[:, None]
+        hc = h.to(row.dtype) * col[:, None]
+        sp = spmm_sorted(dbg.spill, dbg.w_spill, hc)
+        out = (out.to(sp.dtype) + sp * row[:, None]).to(h.dtype)
     return out
 
 

@@ -8,10 +8,14 @@ torch.profiler.  With --fit it runs the training loop of train_1m
 (rl/big_trainer.py, k = 0.001·n) and profiles one iteration after the
 warm-up ones: selection, host cascade, severs, target forward and the fit
 (forward, backward, Adam).  Prints the device time by kernel, the host-clock
-time, the device's busy share and the kernel launches.
+time, the device's busy share and the kernel launches.  --fast times the
+model call of the fast eval (K1's and K2's bf16 modes, TF32 dense layers),
+with h stored in --act-dtype (the counterpart of the JAX package's
+scripts/bench_model_level.py act_dtype=bf16 runs).
 
     python -m mdcommunity_tpu_torch.profile_forward --sizes 18222 1048576
     python -m mdcommunity_tpu_torch.profile_forward --fit --sizes 1048576
+    python -m mdcommunity_tpu_torch.profile_forward --fast --act-dtype bfloat16
 """
 
 from __future__ import annotations
@@ -31,7 +35,15 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--fit", action="store_true",
                     help="profile one trainer iteration instead of model calls")
+    ap.add_argument("--fast", action="store_true",
+                    help="the fast eval's model call (precise=False)")
+    ap.add_argument("--act-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="storage of h in the fast eval")
     args = ap.parse_args(argv)
+    if args.fit and args.fast:
+        ap.error("--fit profiles the precise trainer; --fast is for model calls")
+    if args.act_dtype == "bfloat16" and not args.fast:
+        ap.error("--act-dtype bfloat16 needs --fast (the precise eval stores f32)")
     warm = 3  # calls or iterations before the profiled ones
 
     import torch
@@ -44,10 +56,10 @@ def main(argv=None):
     from mdcommunity_tpu_torch.models.checkpoint import load_model
     from mdcommunity_tpu_torch.models.net import banded_test_forward
     from mdcommunity_tpu_torch.rl.big_trainer import train_banded_loop
-    from mdcommunity_tpu_torch.utils.device import resolve_device, set_precise_matmul
+    from mdcommunity_tpu_torch.utils.device import matmul_precision, resolve_device
 
     device = resolve_device(None)
-    set_precise_matmul()
+    act_dtype = getattr(torch, args.act_dtype)
     net = load_model(args.model, device=device)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for n in args.sizes:
@@ -68,8 +80,10 @@ def main(argv=None):
             reps = 1
         else:
             def call():
-                return top_k_stable(banded_test_forward(net, banded, ~banded.node_mask,
-                                                        fuse), k)
+                with matmul_precision(not args.fast):
+                    q = banded_test_forward(net, banded, ~banded.node_mask, fuse,
+                                            precise=not args.fast, act_dtype=act_dtype)
+                return top_k_stable(q, k)
 
             for _ in range(warm):
                 call()
@@ -89,7 +103,8 @@ def main(argv=None):
                   and not e.is_user_annotation]
         busy_us = sum(e.self_device_time_total for e in events)
         print(json.dumps(dict(
-            n=n, pad_n=banded.pad_n, fuse_sage=fuse, fit=args.fit, **what,
+            n=n, pad_n=banded.pad_n, fuse_sage=fuse, fit=args.fit,
+            precise=not args.fast, act_dtype=args.act_dtype, **what,
             device_busy_ms=busy_us / 1e3 / reps,
             busy_share=busy_us / 1e6 / wall,
             kernel_launches=sum(e.count for e in events) / reps,

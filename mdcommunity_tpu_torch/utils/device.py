@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -31,3 +32,21 @@ def set_precise_matmul() -> None:
     18k-node graph in the JAX package's measurements)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def matmul_precision(precise: bool) -> Iterator[None]:
+    """The dense layers' precision for the span of a `with` block (the
+    counterpart of the JAX package's eval/metrics._prec_ctx): precise=True
+    turns TF32 off in matmuls and cuDNN (default_matmul_precision
+    ('highest')), precise=False turns it on (XLA's default f32 matmul
+    precision on an NVIDIA GPU is TF32, so this is the fast eval's dense
+    layers).  Both flags are restored on exit, after an exception too, so a
+    fast forward leaves a later precise one in the same process untouched."""
+    cuda_mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (cuda_mm.allow_tf32, cudnn.allow_tf32)
+    cuda_mm.allow_tf32 = cudnn.allow_tf32 = not precise
+    try:
+        yield
+    finally:
+        cuda_mm.allow_tf32, cudnn.allow_tf32 = saved

@@ -35,7 +35,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      just after, and one fit's peak memory with and without remat;
   7. check and time K4 and K5, run the small-graph validation and golden
      synthetic rows, and the 18,222-node blocked dismantling against the
-     segment engine with one blocked gradient.
+     segment engine with one blocked gradient;
+  8. the gp-sharded band engine, GP = 4 shards on the one card: K3 (the
+     halo-mode band kernel, band_halo) in its three modes against its plain
+     version on two 2^16-row graphs (interior and boundary launches, and
+     one launch a shard), the sharded operator and its backward against K1
+     and BandSpmm on the whole graph (max abs difference 0); K3's times at
+     18,432 and 2^20 rows beside K1's; the sharded model call at 2^20 nodes,
+     precise and fast, against the unsharded one; and 6 iterations of the
+     sharded trainer loop at 2^20 beside the unsharded loop (the same
+     removals), counts set to 0 just before and read just after.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -75,6 +84,11 @@ REL_TOL = 1e-4           # kernel vs plain: f32 sums in another order
 FAST_Q_TOL = 1e-2
 F32_Q_TOL, F32_Q_SHARE, FLIP_Q_TOL = 1e-5, 0.95, 2 ** -7
 TIE = 1e-5               # of max|Q|: a gap no f32 forward of this depth resolves
+# the sharded precise forward vs the unsharded one, of max|Q|: the same
+# kernels' bits, but cuBLAS picks another f32 GEMM kernel for a shard's rows
+# than for the whole graph's (sharded_forward_phase logs the dense layer's
+# difference), and those last-bit differences pass through three rounds
+SHARD_Q_TOL = 1e-5
 BLOCKED_STEPS = 720      # removals of the blocked path's run (step 18): about a minute
 GOLDEN_VC = 0.1194451824  # tests/test_golden_models.py, unit cost, 32 graphs
 GOLDEN_SYN = os.path.join(HERE, "results_tpu", "golden_synthetic", "golden.json")
@@ -132,16 +146,16 @@ def build_all():
 # ---------------------------------------------------------------- graphs
 
 
-def synth_banded(n, shuffle, seed, device, reorder=True, with_edges=False):
-    """A large_graph_demo graph's banded build; with_edges=True also returns
-    its ordered edge lists (for a host env)."""
+def synth_banded(n, shuffle, seed, device, reorder=True, with_edges=False, S=256):
+    """A large_graph_demo graph's banded build (block size S); with_edges=True
+    also returns its ordered edge lists (for a host env)."""
     import numpy as np
 
     from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
     from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
 
     e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(seed), shuffle=shuffle)
-    banded, _, edges = build_banded_duplex(n, e0, e1, reorder=reorder, max_rank=0,
+    banded, _, edges = build_banded_duplex(n, e0, e1, S=S, reorder=reorder, max_rank=0,
                                            device=device)
     return (banded, edges) if with_edges else banded
 
@@ -258,18 +272,19 @@ def time_ms(fn, reps=20, warm=3):
     return times[len(times) // 2]
 
 
-def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S):
+def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0):
     """Least time for the function on these inputs: each input read once,
     the output written once (h and the output at their storage width), over
     the card's memory rate; the operations this data needs: one multiply-add
     per band nonzero and column at `band_rate` (FP32, or the bf16 tensor
     cores for the bf16 modes), and the mirror add, the row scale (K2 also
-    its two D×D products and the normalisation) at the FP32 rate.  Returns
-    (ms, bound_by)."""
+    its two D×D products and the normalisation) at the FP32 rate.  halo:
+    rows of h (with their col scales) read besides the graph's own (K3: the
+    two B-row halos of a shard).  Returns (ms, bound_by)."""
     nb, S, C, pad_n = dbg.n_blocks, dbg.S, dbg.C, dbg.pad_n
     nnz = int((dbg.base[:, :S] != 0).sum().item())
     byts = (nb * S * dbg.W2 + 2 * pad_n * D * store_bytes + 2 * pad_n * 4
-            + nb * C * D * 4 + nb * S * 4)
+            + nb * C * D * 4 + nb * S * 4 + halo * (D * store_bytes + 4))
     f32_ops = 2 * pad_n * D
     if sage:
         byts += 2 * D * D * 4
@@ -642,6 +657,337 @@ def fit_memory(device, banded, k):
             pad_n=banded.pad_n, k=k, remat=remat, fit_ms=ms,
             peak_gib=peak / 2**30, above_resident_gib=(peak - base) / 2**30,
             resident_gib=base / 2**30)))
+
+
+# ---------------------------------------------------------------- K3: the gp-sharded band operator
+
+GP = 4  # gp shards, all on the one card
+# (counter, precise, storage) of K3's modes
+HALO_MODES = (("band_halo", True, "float32"), ("band_halo_bf16", False, "float32"),
+              ("band_halo_bf16_act", False, "bfloat16"))
+
+
+def halo_operands(mesh, sdbg, row, col, h, precise):
+    """Each shard's K3 operands (shard, row, col, h, lh, rh, lc, rc, sub) for
+    the whole-graph row, col and h: the sharded call's split, ring halos and
+    mirror slices."""
+    from mdcommunity_tpu_torch.parallel.band_partition import mirror_subs
+    from mdcommunity_tpu_torch.parallel.mesh import ring_halos, split_nodes
+
+    rows, cols, hs = (split_nodes(mesh, x) for x in (row, col, h))
+    lh, rh = ring_halos(mesh, hs, sdbg.B)
+    lc, rc = ring_halos(mesh, cols, sdbg.B)
+    subs = mirror_subs(sdbg, cols, hs, precise)
+    return list(zip(sdbg.shards, rows, cols, hs, lh, rh, lc, rc, subs))
+
+
+def check_halo_kernels(device, n, gp=GP):
+    """K3 in its three modes on two n-row graphs (the unshuffled check graph)
+    split over gp shards: blocks of S = 256 (nb_l >= 3: interior and boundary
+    launches) and of S = n / (2·gp) (nb_l = 2: one launch a shard).  Each
+    shard's launch against spmm_band_halo_plain on the card; the sharded
+    operator against K1 on the whole graph (spmm_dense_band) and its
+    backward (ShardedBandSpmm, K3 with swapped scales) against BandSpmm's:
+    max abs difference 0 on the card, or this raises.  Returns max abs errors by
+    counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band, spmm_dense_band_grad
+    from mdcommunity_tpu_torch.parallel.band_partition import (
+        shard_band_graph,
+        spmm_band_sharded,
+        spmm_band_sharded_grad,
+    )
+    from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, make_mesh, split_nodes
+
+    mesh = make_mesh(gp, device)
+    errs = dict.fromkeys([m[0] for m in HALO_MODES] + ["band_halo_bwd"], 0.0)
+    # bits on the card; the CPU rehearsal's plain einsums may sum a block in
+    # another order when their batch of blocks differs (2^-7: bf16 storage)
+    exact = 0.0 if device != "cpu" else 2.0 ** -7
+    for S in (min(256, n // (4 * gp)), n // (2 * gp)):
+        dbg = synth_banded(n, False, 1, device, S=S).dbg0
+        sdbg = shard_band_graph(mesh, dbg)
+        nb_l = sdbg.shards[0].n_blocks
+        log(f"K3 check graph: n={n} S={S} C={dbg.C} gp={gp} nb_l={nb_l}")
+        h, _ = operands(dbg, 64, 2, device)
+        row, col = scales(dbg, 7, device)
+        for name, precise, store in HALO_MODES:
+            hh = h.to(getattr(torch, store)).contiguous()
+            for i, op in enumerate(halo_operands(mesh, sdbg, row, col, hh, precise)):
+                got = bk.spmm_band_halo(*op, precise=precise)
+                ref = bk.spmm_band_halo_plain(*op, precise=precise)
+                cmp = compare_bf16 if store == "bfloat16" else compare
+                errs[name] = max(errs[name], cmp(f"K3 {name} S={S} shard {i}", got, ref))
+            out = gather_nodes(mesh, spmm_band_sharded(
+                mesh, sdbg, *(split_nodes(mesh, x) for x in (row, col, hh)), precise=precise))
+            k1 = spmm_dense_band(dbg, row, col, hh, precise=precise)
+            diff = (out.float() - k1.float()).abs().max().item()
+            log(f"check K3 {name} S={S}: sharded operator vs K1 on the whole graph, "
+                f"max abs difference {diff}")
+            if diff > exact * k1.float().abs().max().item():
+                raise AssertionError(f"{name}: the sharded operator is not K1's bits")
+        gen = torch.Generator().manual_seed(8)
+        g = torch.randn(dbg.pad_n, 64, generator=gen).to(device)
+        hs = [x.clone().requires_grad_() for x in split_nodes(mesh, h)]
+        dh = torch.autograd.grad(spmm_band_sharded_grad(
+            mesh, sdbg, split_nodes(mesh, row), split_nodes(mesh, col), hs), hs,
+            split_nodes(mesh, g))
+        dh = gather_nodes(mesh, list(dh))
+        hf = h.clone().requires_grad_()
+        (ref,) = torch.autograd.grad(spmm_dense_band_grad(dbg, row, col, hf), hf, g)
+        diff = (dh - ref).abs().max().item()
+        log(f"check K3 backward S={S}: ShardedBandSpmm vs BandSpmm, max abs difference {diff}")
+        if diff > exact * ref.abs().max().item():
+            raise AssertionError("the sharded backward is not BandSpmm's bits")
+        (plain,) = torch.autograd.grad(plain_operator(dbg, row, col, hf), hf, g)
+        errs["band_halo_bwd"] = max(errs["band_halo_bwd"], compare(
+            f"K3 backward S={S} vs autograd through the plain operator", dh, plain))
+    return errs
+
+
+def time_halo_kernels(device, banded, label, gp=GP):
+    """K3 in each mode, and as the backward (row and col swapped, on a
+    gradient), at D = 64 on layer 0 of `banded` split over gp shards: each
+    shard's interior and boundary launches, the K3 launches of one sharded
+    call (all shards) beside their plain versions, the library yardstick
+    (torch.bmm of each shard's widened base against its materialised linear
+    windows, bf16 for the bf16 modes) and the bound (each shard's base, h,
+    halos, scales, mirror slice and output once); the whole sharded call
+    (mirror glue and halos included) beside K1's whole-graph operator; and
+    the launches of one sharded call.  Returns the whole-call numbers by
+    counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band
+    from mdcommunity_tpu_torch.parallel.band_partition import (
+        block_split,
+        shard_band_graph,
+        spmm_band_sharded,
+    )
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh, split_nodes
+
+    mesh = make_mesh(gp, device)
+    dbg = banded.dbg0
+    sdbg = shard_band_graph(mesh, dbg)
+    nb_l = sdbg.shards[0].n_blocks
+    split = [b for ranges in block_split(nb_l) for b in ranges]  # a sharded call's order
+    h32 = torch.nn.functional.normalize(operands(dbg, 64, 5, device)[0], dim=-1)
+    g32 = torch.nn.functional.normalize(operands(dbg, 64, 10, device)[0], dim=-1)
+    row, col = scales(dbg, 9, device)
+    res = {}
+    for name, precise, store in HALO_MODES + (("band_halo_bwd", True, "float32"),):
+        dt = getattr(torch, store)
+        if name == "band_halo_bwd":  # the gradient's operator: col and row swapped
+            r, c, h = col, row, g32
+        else:
+            r, c, h = row, col, h32.to(dt).contiguous()
+        ops = halo_operands(mesh, sdbg, r, c, h, precise)
+        outs = [torch.empty_like(op[3]) for op in ops]
+
+        def launch(i, blocks, plain=False):
+            op = ops[i]
+            if plain:
+                return bk.spmm_band_halo_plain(*op, blocks=blocks, precise=precise)
+            halo = op[4:8] if blocks[0] == 0 or blocks[1] == nb_l else (None,) * 4
+            return bk.spmm_band_halo(*op[:4], *halo, op[8], blocks, outs[i], name, precise)
+
+        def kern():
+            for i in range(gp):
+                for blocks in split:
+                    launch(i, blocks)
+
+        def plain():
+            for i in range(gp):
+                for blocks in split:
+                    launch(i, blocks, plain=True)
+
+        kern()
+        cmp = compare_bf16 if store == "bfloat16" else compare
+        err = max(cmp(f"{label} K3 {name} shard {i}", outs[i],
+                      bk.spmm_band_halo_plain(*ops[i], precise=precise)) for i in range(gp))
+        per_shard = []
+        for i in range(gp):
+            t = {f"{b0}-{b1}": time_ms(lambda: launch(i, (b0, b1))) for b0, b1 in split}
+            per_shard.append(t)
+        wins, bases = [], []
+        for op in ops:
+            shard, _, cc, x, lh, rh, lc, rc, _ = op
+            lib_dt = torch.float32 if precise else torch.bfloat16
+            ext = torch.cat([lh.float() * lc[:, None], x.float() * cc[:, None],
+                             rh.float() * rc[:, None]]).to(lib_dt)
+            wins.append(ext.unfold(0, shard.W2, shard.S).transpose(1, 2).contiguous())
+            bases.append(shard.base.to(lib_dt))
+        lib_ms = time_ms(lambda: [torch.bmm(a, w) for a, w in zip(bases, wins)])
+        del wins, bases
+        sb = [bounds(s, 64, False, 2 if store == "bfloat16" else 4,
+                     PEAK_F32_S if precise else PEAK_BF16_S, halo=2 * sdbg.B)
+              for s in sdbg.shards]
+        bound_ms = sum(b[0] for b in sb)
+        rows_, cols_, hs_ = (split_nodes(mesh, x) for x in (r, c, h))
+        bk.reset_launches()
+        spmm_band_sharded(mesh, sdbg, rows_, cols_, hs_, precise, name)
+        per_call = bk.launches[name]
+        res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
+                         bound_by=sb[0][1], library_ms=lib_ms, max_abs_err=err)
+        whole = dict(
+            sharded_call_ms=time_ms(lambda: spmm_band_sharded(mesh, sdbg, rows_, cols_, hs_,
+                                                              precise, name)),
+            k1_whole_graph_ms=time_ms(lambda: spmm_dense_band(dbg, r, c, h, precise=precise)),
+            launches_per_call=per_call, shard_ms=per_shard,
+            shard_bound_ms=[b[0] for b in sb])
+        log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} gp={gp} nb_l={nb_l} "
+            + json.dumps(dict(res[name], **whole)))
+    return res
+
+
+def sharded_forward_phase(device, banded, gp=GP, calls=5):
+    """The gp-sharded model call on `banded` (unfused: the fused step is
+    single-device), precise and fast (h stored in f32 and in bf16), beside
+    the unsharded unfused call: Q against the unsharded forward's (max abs
+    difference over max|Q|: within SHARD_Q_TOL precise; fast, with TF32
+    dense layers, within FAST_Q_TOL), model-call ms (forward + stable top-k
+    + fetch, host clock) for both.  First one dense layer's product per
+    shard against the whole graph's (f32).  Counts set to 0 just before
+    the sharded calls and read just after; returns them summed."""
+    import torch
+
+    from mdcommunity_tpu_torch.eval.metrics import top_k_stable
+    from mdcommunity_tpu_torch.graphs.banded import shard_banded_duplex
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.models.net import banded_test_forward
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    net = load_model(CKPT, device=device)
+    sharded = shard_banded_duplex(make_mesh(gp, device), banded)
+    covered = ~banded.node_mask
+    x = torch.nn.functional.normalize(operands(banded.dbg0, 64, 12, device)[0], dim=-1)
+    with matmul_precision(True):
+        whole = x @ net.p_node_conv
+        pieces = torch.cat([p @ net.p_node_conv for p in torch.chunk(x, gp)])
+    log(f"dense layer [{banded.pad_n // gp}, 64] @ [64, 64] per shard vs [{banded.pad_n}, 64]"
+        f" whole (f32): max abs diff {(pieces - whole).abs().max().item():.3e}, bit-equal "
+        f"{torch.equal(pieces, whole)}")
+    k = max(int(0.001 * banded.n_nodes), 1)
+    total = dict.fromkeys(bk.launches, 0)
+    for precise, act in ((True, torch.float32), (False, torch.float32),
+                         (False, torch.bfloat16)):
+        def fwd(b):
+            with matmul_precision(precise):
+                return banded_test_forward(net, b, covered, precise=precise, act_dtype=act)
+
+        ref = fwd(banded)
+        bk.reset_launches()
+        q = fwd(sharded)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        counts = dict(bk.launches)
+        fin = torch.isfinite(ref)
+        if not torch.equal(torch.isfinite(q), fin) or not fin.any():
+            raise AssertionError("sharded forward: -inf masks differ")
+        scale = ref[fin].abs().max().item()
+        err = (q[fin] - ref[fin]).abs().max().item() / scale
+        ms = {}
+        for which, b in (("sharded", sharded), ("unsharded", banded)):
+            top_k_stable(fwd(b), k)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                top_k_stable(fwd(b), k)
+            ms[which] = 1e3 * (time.perf_counter() - t0) / calls
+        total = {c: total[c] + counts[c] for c in total}
+        log("sharded forward: " + json.dumps(dict(
+            pad_n=banded.pad_n, gp=gp, precise=precise, act_dtype=str(act).split(".")[1],
+            q_err_of_max=err, max_q=scale, model_call_ms=ms["sharded"],
+            unsharded_model_call_ms=ms["unsharded"],
+            launches={c: v for c, v in counts.items() if v})))
+        if err > (SHARD_Q_TOL if precise else FAST_Q_TOL):
+            raise AssertionError("the sharded forward's Q differs from the unsharded one's")
+        want = ("band_halo" if precise else
+                "band_halo_bf16_act" if act == torch.bfloat16 else "band_halo_bf16")
+        if device != "cpu" and counts[want] <= 0:
+            raise AssertionError(f"the sharded forward did not launch {want}")
+    return total
+
+
+class Recorder:
+    """A host env that records each step_many's actions."""
+
+    def __init__(self, env):
+        self._env = env
+        self.actions = []
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    def step_many(self, actions, *args, **kw):
+        self.actions.append(list(actions))
+        return self._env.step_many(actions, *args, **kw)
+
+
+def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4):
+    """train_banded_loop with mesh = gp shards beside the unsharded loop,
+    the same settings for both (unfused, eps_start = eps_end = 1: actions
+    from the seeded rng): identical removals at every iteration, first
+    losses within 1e-5 relative, final parameters within 2·lr per fit
+    (tests/test_torch_big_trainer.py's bound), iteration p50 and peak
+    memory for both.  Counts set to 0 just before the sharded loop and read
+    just after; band_halo and band_halo_bwd must be launched."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.env.host_env import make_host_env
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh
+    from mdcommunity_tpu_torch.rl.big_trainer import train_banded_loop
+
+    on_card = device != "cpu"
+    net = load_model(CKPT_FIT, device=device)
+    runs = {}
+    for which, mesh in (("unsharded", None), ("sharded", make_mesh(gp, device))):
+        env = Recorder(make_host_env(banded.n_nodes, *edges, engine="native"))
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        bk.reset_launches()
+        net2, hist = train_banded_loop(net, banded, env, iters=iters, k=k, target_update=3,
+                                       eps_start=1.0, eps_end=1.0, lr=lr, packed=False,
+                                       mesh=mesh, log=log, log_every=iters)
+        if on_card:
+            torch.cuda.synchronize()
+        counts = dict(bk.launches)
+        rows = [h for h in hist if "loss" in h]
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        runs[which] = dict(actions=env.actions, rows=rows, counts=counts, peak=peak,
+                           params={n: p.detach().double().cpu()
+                                   for n, p in net2.named_parameters()})
+        log(f"sharded trainer phase, {which}: " + json.dumps(dict(
+            pad_n=banded.pad_n, gp=gp if mesh else 1, k=k,
+            iter_p50_s=float(np.median([h["t_iter_s"] for h in rows])),
+            peak_mem_gib=peak, losses=[h["loss"] for h in rows],
+            removed=[h["removed"] for h in rows],
+            launches={c: v for c, v in counts.items() if v})))
+    u, s = runs["unsharded"], runs["sharded"]
+    if u["actions"] != s["actions"] or len(s["actions"]) != iters:
+        raise AssertionError("the sharded loop removed other nodes than the unsharded one")
+    lu, ls = (np.array([h["loss"] for h in r["rows"]]) for r in (u, s))
+    fits = int(np.isfinite(lu).sum())
+    if not fits or not np.array_equal(np.isfinite(lu), np.isfinite(ls)):
+        raise AssertionError("the loops fitted different iterations")
+    rel = abs(ls[0] - lu[0]) / abs(lu[0])
+    worst = max((s["params"][n] - p).abs().max().item() for n, p in u["params"].items())
+    log(f"sharded vs unsharded loop: first loss rel diff {rel:.3e}, final parameters "
+        f"max abs diff {worst:.3e} (bound {2 * lr * fits:.1e})")
+    if not rel <= 1e-5 or not worst <= 2 * lr * fits:
+        raise AssertionError("the sharded loop's fit differs from the unsharded one's")
+    for name in ("band_halo", "band_halo_bwd"):
+        if on_card and s["counts"][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in the sharded trainer phase")
+    return s["counts"]
 
 
 # ---------------------------------------------------------------- K4, K5
@@ -1302,6 +1648,11 @@ def main(argv=None):
         small_graph_phase("cpu")
         bd, net = blocked_phase("cpu", 2048, 4, 40)[:2]
         blocked_gradient_phase(bd, net)
+        for gp in (2, 4):
+            check_halo_kernels("cpu", 2048, gp)
+            time_halo_kernels("cpu", small, "rehearsal", gp)
+            sharded_forward_phase("cpu", small, gp)
+            sharded_trainer_phase("cpu", small, edges, 16, gp)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -1313,11 +1664,15 @@ def main(argv=None):
     errs = check_kernels(device, 1 << 16)
     errs.update(check_bf16_kernels(device, 1 << 16))
     errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
+    errs.update(check_halo_kernels(device, 1 << 16))
 
     main_graph = synth_banded(18222, True, 0, device)
     times = time_kernels(device, main_graph, "18,432 rows")
     times.update(time_bf16_kernels(device, main_graph, "18,432 rows"))
     del main_graph
+    # the sharded engine refuses spill: the unshuffled build
+    times.update(time_halo_kernels(device, synth_banded(18222, False, 0, device),
+                                   "18,432 rows"))
     big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
                                   with_edges=True)
     time_kernels(device, big, "2^20 rows")
@@ -1340,6 +1695,13 @@ def main(argv=None):
     fit_err = check_fit(device, 18222)
     train_counts = trainer_phase(device, big, big_edges, 1048)
     fit_memory(device, big, 1048)
+    time_halo_kernels(device, big, "2^20 rows")
+    halo_counts = sharded_forward_phase(device, big)
+    shard_train_counts = sharded_trainer_phase(device, big, big_edges, 1048)
+    halo_counts = {k: halo_counts[k] + shard_train_counts[k] for k in halo_counts}
+    for name in ("band_halo", "band_halo_bf16", "band_halo_bf16_act", "band_halo_bwd"):
+        if halo_counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the sharded path")
     del big
     torch.cuda.empty_cache()
 
@@ -1370,6 +1732,16 @@ def main(argv=None):
             name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
             replaces="mdcommunity_tpu/ops/band_pallas.py:259",
             mode=f"precise=False, {store} storage", launches=fast_counts[name], **t))
+    for name, precise, store in HALO_MODES + (("band_halo_bwd", True, "float32"),):
+        t = dict(times[name])
+        t["max_abs_err"] = max(errs[name], t["max_abs_err"])
+        mode = ("halo=True (:274-278)" + ("" if precise else f", precise=False, {store} storage")
+                + (", the VJP with row and col swapped (band_partition.py:312-327)"
+                   if name == "band_halo_bwd" else ""))
+        kernels.append(dict(
+            name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
+            replaces="mdcommunity_tpu/ops/band_pallas.py:259", mode=mode,
+            launches=halo_counts[name], **t))
     for name, launched, replaces in (
         ("spmm_block", blocked_counts, "184"), ("spmm_block_bwd", grad_counts, "184"),
         ("sddmm_block", grad_counts, "309"),

@@ -3,7 +3,10 @@
 //
 // K1  mdc_band_spmm : out = row ⊙ (A_band @ (col ⊙ h) + Gᵀ·sub)
 // K2  mdc_band_sage : h' = l2n(relu(out_K1 @ A_w + h @ B_w))
-// and their bf16 modes mdc_band_spmm_bf16 and mdc_band_sage_bf16.
+// K3  mdc_band_spmm_halo : K1 on one shard of a gp mesh, its windows linear
+//     over [left halo | local rows | right halo]
+// and their bf16 modes mdc_band_spmm_bf16, mdc_band_sage_bf16 and
+// mdc_band_spmm_halo_bf16.
 //
 // A_band is a DenseBandGraph's int8 base [nb, S+C, W2] (only its S band rows
 // are read): row s of destination block b holds the edges from source rows
@@ -27,6 +30,19 @@
 // TPU kernel's node-pair lane packing and 128-lane scale planes exist for
 // the TPU's vector tiles and have no counterpart here: h stays [pad_n, D]
 // and the scales are read per row.
+//
+// K3 replaces the same kernel's halo=True mode (band_pallas.py:274-278,
+// 394-478), the local engine of the gp-sharded band operator
+// (parallel/band_partition.py:189-291).  It is band_kernel with HALO set: a
+// shard passes its own base blocks, h, scales, slots and mirror sub, and
+// its ring neighbours' B-row strips lh, rh with their col scales lc, rc.
+// Window row j = b·S − B + w of local block b reads lh[j + B] for j < 0,
+// rh[j − local_n] for j >= local_n, and h[j] otherwise (B <= S keeps j in
+// [−B, local_n + B)).  A launch covers the block range [b0, b1), so the
+// caller can issue the interior blocks, whose windows never reach a halo,
+// before the halos arrive, and the two boundary blocks after.  It stages
+// the same values in the same order as K1, so a sharded operator gives K1's
+// bits on the whole graph.
 //
 // What bounds them on an H100.  The function itself is bound by bytes: it
 // must read the int8 band once (pad_n·W2 bytes, 0.54 GB at 2^20 nodes) and
@@ -93,6 +109,11 @@ struct BandArgs {
   int TR;            // destination rows per block (multiple of 4; of 16 in
                      // the bf16 modes)
   int DG;            // column groups of 4: ceil(D / 4) (bf16 modes: of 16)
+  const T* lh;       // K3 only: [B, D] left halo (the left shard's tail)
+  const T* rh;       // K3 only: [B, D] right halo (the right shard's head)
+  const float* lc;   // K3 only: [B] col scales of lh
+  const float* rc;   // K3 only: [B] col scales of rh
+  int b0;            // first block of the launch (grid y = blocks b0, b0+1, ...)
 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -107,25 +128,33 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// window row (b·S − B + w) mod pad_n; |b·S − B + w − wrap| < pad_n because
-// B <= S
-__device__ __forceinline__ int window_row(int b, int S, int B, int w, int pad_n) {
-  int j = b * S - B + w;
-  if (j < 0) j += pad_n;
-  if (j >= pad_n) j -= pad_n;
-  return j;
+// col ⊙ h at window row j = b·S − B + w of block b: K1 wraps it (mod
+// pad_n; |j − wrap| < pad_n because B <= S), K3 reads it from the halos
+// past either end of the shard
+template <bool HALO, typename T>
+__device__ __forceinline__ float window_val(const BandArgs<T>& a, int b, int w, int d,
+                                            int pad_n) {
+  int j = b * a.S - a.B + w;
+  if constexpr (HALO) {
+    if (j < 0) return a.lc[j + a.B] * ld(a.lh + (long long)(j + a.B) * a.D + d);
+    if (j >= pad_n) return a.rc[j - pad_n] * ld(a.rh + (long long)(j - pad_n) * a.D + d);
+  } else {
+    if (j < 0) j += pad_n;
+    if (j >= pad_n) j -= pad_n;
+  }
+  return a.col[j] * ld(a.h + (long long)j * a.D + d);
 }
 
 // bf16 modes: acc[i][j] (rows 4·rg+i, columns 4·dg+j of the tile) =
 // bf16(A_band) @ bf16(col ⊙ h) on the tensor cores, f32 accumulation.
-template <typename T>
+template <bool HALO, typename T>
 __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
                                               unsigned char* smem,
                                               float (&acc)[4][4]) {
   using namespace nvcuda;
   const int TR = a.TR, DP = 4 * a.DG, D = a.D, S = a.S, B = a.B;
   const int W2 = S + 2 * B, LDB = DP + 8;
-  const int b = blockIdx.y, tile0 = blockIdx.x * TR;
+  const int b = a.b0 + blockIdx.y, tile0 = blockIdx.x * TR;
   const int tid = threadIdx.x, nthr = blockDim.x, warp = tid / 32;
   const int pad_n = a.nb * S;
   const int nfc = DP / 16, ntile = (TR / 16) * nfc;   // ntile <= 2·NW
@@ -160,10 +189,7 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
     for (int e = tid; e < KC * DP; e += nthr) {
       const int k = e / DP, d = e - k * DP;
       float v = 0.f;
-      if (w0 + k < W2 && d < D) {
-        const int j = window_row(b, S, B, w0 + k, pad_n);
-        v = a.col[j] * ld(a.h + (long long)j * D + d);
-      }
+      if (w0 + k < W2 && d < D) v = window_val<HALO>(a, b, w0 + k, d, pad_n);
       bs[k * LDB + d] = __float2bfloat16_rn(v);
     }
     __syncthreads();
@@ -206,15 +232,16 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
   }
 }
 
-// BF: bf16 operands (precise=False).  T: storage of h and out (float, or
-// __nv_bfloat16 with BF).
-template <bool SAGE, bool BF, typename T>
+// BF: bf16 operands (precise=False).  HALO: K3's linear windows over the
+// halos.  T: storage of h and out (float, or __nv_bfloat16 with BF).
+template <bool SAGE, bool BF, bool HALO, typename T>
 __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
   static_assert(BF || std::is_same<T, float>::value, "bf16 storage needs BF");
+  static_assert(!(SAGE && HALO), "K2 has no halo mode");
   extern __shared__ __align__(128) unsigned char smem[];
   const int TR = a.TR, DG = a.DG, DP = 4 * DG, D = a.D, S = a.S, B = a.B;
   const int W2 = S + 2 * B;
-  const int b = blockIdx.y;
+  const int b = a.b0 + blockIdx.y;
   const int tile0 = blockIdx.x * TR;   // first local row of this tile
   const int tid = threadIdx.x, nthr = blockDim.x;
   // threads tid < DG·TR/4 own a 4×4 output tile; all of them stage
@@ -229,7 +256,7 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   if constexpr (BF) {
-    contract_bf16(a, smem, acc);
+    contract_bf16<HALO>(a, smem, acc);
   } else {
     float* bs = reinterpret_cast<float*>(smem);   // [KC][TR] base, transposed
     float* hs = bs + KC * TR;                     // [KC][DP] col ⊙ h window
@@ -257,10 +284,7 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
       for (int e = tid; e < KC * DP; e += nthr) {
         const int k = e / DP, d = e - k * DP;
         float v = 0.f;
-        if (w0 + k < W2 && d < D) {
-          const int j = window_row(b, S, B, w0 + k, pad_n);
-          v = a.col[j] * a.h[(long long)j * D + d];
-        }
+        if (w0 + k < W2 && d < D) v = window_val<HALO>(a, b, w0 + k, d, pad_n);
         hs[k * DP + d] = v;
       }
       __syncthreads();
@@ -377,13 +401,15 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
   }
 }
 
-template <bool BF, typename T>
-int launch(bool sage, BandArgs<T> a, cudaStream_t stream) {
+// launches blocks [a.b0, b1) of a.nb
+template <bool BF, bool HALO, typename T>
+int launch(bool sage, BandArgs<T> a, int b1, cudaStream_t stream) {
   // the bf16 modes pad D to whole 16-column fragments and take 16-row
   // fragments, with at most 2·NW fragments a block (TR·DP <= 16·NT)
   const int q = BF ? 16 : 4;
-  if (a.D < 1 || a.nb < 1 || a.nb > 65535 || a.S < 1 || a.B < 0 ||
-      a.B > a.S || a.C < 0 || (a.S + 2 * a.B) % 4 != 0)
+  if (a.D < 1 || a.nb < 1 || a.b0 < 0 || b1 <= a.b0 || b1 > a.nb ||
+      b1 - a.b0 > 65535 || a.S < 1 || a.B < 0 || a.B > a.S || a.C < 0 ||
+      (a.S + 2 * a.B) % 4 != 0 || (HALO && sage))
     return (int)cudaErrorInvalidValue;
   const int DP = (a.D + q - 1) / q * q;
   a.DG = DP / 4;
@@ -402,12 +428,15 @@ int launch(bool sage, BandArgs<T> a, cudaStream_t stream) {
                          (size_t)TR * a.DG);
     if (epi > shm) shm = epi;
   }
-  void (*kern)(BandArgs<T>) =
-      sage ? band_kernel<true, BF, T> : band_kernel<false, BF, T>;
+  void (*kern)(BandArgs<T>);
+  if constexpr (HALO)
+    kern = band_kernel<false, BF, true, T>;
+  else
+    kern = sage ? band_kernel<true, BF, false, T> : band_kernel<false, BF, false, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + TR - 1) / TR, a.nb);
+  dim3 grid((a.S + TR - 1) / TR, b1 - a.b0);
   kern<<<grid, NT, shm, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -419,7 +448,19 @@ int launch_bf16(bool sage, const int8_t* base, const void* h, const float* row,
                 int B, int C, int D, cudaStream_t stream) {
   BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, aw, bw,
                 static_cast<T*>(out), nb, S, B, C, D, 0, 0};
-  return launch<true, T>(sage, a, stream);
+  return launch<true, false, T>(sage, a, nb, stream);
+}
+
+template <typename T>
+int launch_halo_bf16(const int8_t* base, const void* h, const void* lh,
+                     const void* rh, const float* row, const float* col,
+                     const float* lc, const float* rc, const float* sub,
+                     const int32_t* slot, void* out, int nb, int S, int B,
+                     int C, int D, int b0, int b1, cudaStream_t stream) {
+  BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, nullptr,
+                nullptr, static_cast<T*>(out), nb, S, B, C, D, 0, 0,
+                static_cast<const T*>(lh), static_cast<const T*>(rh), lc, rc, b0};
+  return launch<true, true, T>(false, a, b1, stream);
 }
 
 }  // namespace
@@ -433,7 +474,7 @@ int mdc_band_spmm(const int8_t* base, const float* h, const float* row,
                   void* stream) {
   BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
                     nb, S, B, C, D, 0, 0};
-  return launch<false, float>(false, a, (cudaStream_t)stream);
+  return launch<false, false, float>(false, a, nb, (cudaStream_t)stream);
 }
 
 // K2.  aw, bw: f32 [D, D].  Returns the cudaError_t of the launch.
@@ -443,7 +484,7 @@ int mdc_band_sage(const int8_t* base, const float* h, const float* row,
                   int S, int B, int C, int D, void* stream) {
   BandArgs<float> a{base, h, row, col, sub, slot, aw, bw, out,
                     nb, S, B, C, D, 0, 0};
-  return launch<false, float>(true, a, (cudaStream_t)stream);
+  return launch<false, false, float>(true, a, nb, (cudaStream_t)stream);
 }
 
 // K1, bf16 operands.  h and out are f32 (bf16_act = 0) or bf16 (1); D <= 256.
@@ -468,6 +509,35 @@ int mdc_band_sage_bf16(const int8_t* base, const void* h, const float* row,
                                    out, nb, S, B, C, D, (cudaStream_t)stream)
       : launch_bf16<float>(true, base, h, row, col, sub, slot, aw, bw, out, nb,
                            S, B, C, D, (cudaStream_t)stream);
+}
+
+// K3: blocks [b0, b1) of one shard of nb blocks.  h, out: [nb·S, D];
+// lh, rh: [B, D] (null when no block of the range reads them: 1 <= b0,
+// b1 <= nb − 1); lc, rc: [B] likewise; row, col, slot: [nb·S];
+// sub: [nb·C, D].  Returns the cudaError_t of the launch.
+int mdc_band_spmm_halo(const int8_t* base, const float* h, const float* lh,
+                       const float* rh, const float* row, const float* col,
+                       const float* lc, const float* rc, const float* sub,
+                       const int32_t* slot, float* out, int nb, int S, int B,
+                       int C, int D, int b0, int b1, void* stream) {
+  BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
+                    nb, S, B, C, D, 0, 0, lh, rh, lc, rc, b0};
+  return launch<false, true, float>(false, a, b1, (cudaStream_t)stream);
+}
+
+// K3, bf16 operands; h, lh, rh and out f32 (bf16_act = 0) or bf16 (1).
+int mdc_band_spmm_halo_bf16(const int8_t* base, const void* h, const void* lh,
+                            const void* rh, const float* row, const float* col,
+                            const float* lc, const float* rc, const float* sub,
+                            const int32_t* slot, void* out, int nb, int S, int B,
+                            int C, int D, int b0, int b1, int bf16_act,
+                            void* stream) {
+  return bf16_act
+      ? launch_halo_bf16<__nv_bfloat16>(base, h, lh, rh, row, col, lc, rc, sub,
+                                        slot, out, nb, S, B, C, D, b0, b1,
+                                        (cudaStream_t)stream)
+      : launch_halo_bf16<float>(base, h, lh, rh, row, col, lc, rc, sub, slot,
+                                out, nb, S, B, C, D, b0, b1, (cudaStream_t)stream);
 }
 
 }  // extern "C"

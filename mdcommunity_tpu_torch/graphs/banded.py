@@ -7,13 +7,15 @@ environment runs on the host (env/host_env.py).  Liveness is rank-1
 (covered mask -> row/col scales) and cascade-severed edges are base edits
 (apply_severs), applied incrementally by the eval loop as the host env
 reports them.  Severs edit the band in place, so a BandedDuplex serves one
-rollout; fork_banded copies what they edit.
+rollout; fork_banded copies what they edit.  shard_banded_duplex splits a
+BandedDuplex over a gp mesh (parallel/); severs, fork_banded and
+restore_banded work on the sharded duplex too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +26,14 @@ from mdcommunity_tpu_torch.ops.dense_band import (
     build_dense_band,
     sever_edges,
 )
+from mdcommunity_tpu_torch.parallel.band_partition import (
+    ShardedBandGraph,
+    fork_sharded,
+    restore_sharded,
+    sever_sharded,
+    shard_band_graph,
+)
+from mdcommunity_tpu_torch.parallel.mesh import GpMesh, split_nodes
 from mdcommunity_tpu_torch.utils.device import resolve_device
 
 
@@ -61,6 +71,53 @@ class BandedDuplex:
         """True when neither layer has spill edges: the fused SAGE step
         (kernel K2) applies."""
         return self.dbg0.spill.nnz == 0 and self.dbg1.spill.nnz == 0
+
+
+@dataclasses.dataclass
+class ShardedBandedDuplex:
+    """A BandedDuplex split over a gp mesh (shard_banded_duplex): both
+    layers' operators as ShardedBandGraphs and node_mask as its shard
+    pieces.  It has no spill (the sharded operator refuses it)."""
+
+    mesh: GpMesh
+    dbg0: ShardedBandGraph
+    dbg1: ShardedBandGraph
+    node_mask: List[torch.Tensor]
+    n_nodes: int
+    n_edges: Tuple[int, int]
+    max_rank: int
+
+    @property
+    def pad_n(self) -> int:
+        return self.dbg0.pad_n
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device (where Q and the loss are gathered)."""
+        return self.mesh.devices[0]
+
+    def dbg(self, layer: int) -> ShardedBandGraph:
+        return self.dbg0 if layer == 0 else self.dbg1
+
+    @property
+    def spill_free(self) -> bool:
+        return True
+
+
+def shard_banded_duplex(mesh: GpMesh, banded: BandedDuplex) -> ShardedBandedDuplex:
+    """Split a BandedDuplex over the mesh's shards for the gp-sharded
+    forward, loss and trainer (the JAX package's shard_banded_duplex):
+    views of banded's tensors where a shard shares its device.  Raises
+    ValueError on spill edges or a block count the shards do not divide."""
+    return ShardedBandedDuplex(
+        mesh=mesh,
+        dbg0=shard_band_graph(mesh, banded.dbg0),
+        dbg1=shard_band_graph(mesh, banded.dbg1),
+        node_mask=split_nodes(mesh, banded.node_mask),
+        n_nodes=banded.n_nodes,
+        n_edges=banded.n_edges,
+        max_rank=banded.max_rank,
+    )
 
 
 def build_banded_duplex(
@@ -129,16 +186,19 @@ def build_banded_duplex(
 
 
 def apply_severs(
-    banded: BandedDuplex,
+    banded,
     layer: int,
     sev_src: torch.Tensor,
     sev_dst: torch.Tensor,
     valid: torch.Tensor,
 ) -> BandedDuplex:
     """Zero newly severed undirected edges in one layer's band (both
-    directed copies), in place.  sev_src/sev_dst: int [K], valid: bool [K]."""
-    sever_edges(
-        banded.dbg(layer),
+    directed copies), in place, on a BandedDuplex or a ShardedBandedDuplex.
+    sev_src/sev_dst: int [K], valid: bool [K]."""
+    dbg = banded.dbg(layer)
+    sever = sever_sharded if isinstance(dbg, ShardedBandGraph) else sever_edges
+    sever(
+        dbg,
         torch.cat([sev_src, sev_dst]),
         torch.cat([sev_dst, sev_src]),
         torch.cat([valid, valid]),
@@ -146,12 +206,15 @@ def apply_severs(
     return banded
 
 
-def fork_banded(banded: BandedDuplex) -> BandedDuplex:
+def fork_banded(banded):
     """A copy whose severs leave `banded` as it is: the tensors that
     sever_edges edits (base, w_cov, w_spill) are cloned, the graph
-    constants (index arrays, COOs, mask) shared."""
+    constants (index arrays, COOs, mask) shared.  Also for a
+    ShardedBandedDuplex."""
 
-    def fork(dbg: DenseBandGraph) -> DenseBandGraph:
+    def fork(dbg):
+        if isinstance(dbg, ShardedBandGraph):
+            return fork_sharded(dbg)
         return dataclasses.replace(
             dbg, base=dbg.base.clone(), w_cov=dbg.w_cov.clone(),
             w_spill=dbg.w_spill.clone(),
@@ -160,11 +223,15 @@ def fork_banded(banded: BandedDuplex) -> BandedDuplex:
     return dataclasses.replace(banded, dbg0=fork(banded.dbg0), dbg1=fork(banded.dbg1))
 
 
-def restore_banded(dst: BandedDuplex, src: BandedDuplex) -> BandedDuplex:
+def restore_banded(dst, src):
     """Copy the severable tensors of `src` (a build, or fork_banded of the
-    same build) into `dst`, in place: undoes every sever made on dst."""
+    same build) into `dst`, in place: undoes every sever made on dst.  Both
+    BandedDuplex, or both ShardedBandedDuplex of one mesh."""
     for layer in range(2):
         d, s = dst.dbg(layer), src.dbg(layer)
+        if isinstance(d, ShardedBandGraph):
+            restore_sharded(d, s)
+            continue
         d.base.copy_(s.base)
         d.w_cov.copy_(s.w_cov)
         d.w_spill.copy_(s.w_spill)

@@ -31,17 +31,22 @@ concat(pool@c1, H@c2)@c3 = pool@(c1@c3[:d]) + H@(c2@c3[d:]) lets the dense
 layer and the normalisation ride the pooled tile.  Dead nodes get -inf.
 `banded_train_loss` is the training loss, differentiable in the parameters
 through BandSpmm (kernel K1, and K1 with swapped scales for its backward).
+With mesh= both run gp-sharded (parallel/): node tensors live as shard
+pieces, the dense layers run per shard, aggregation is the sharded band
+operator (kernel K3), and graph-wide sums add per-shard f64 partials.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+import functools
+from typing import Dict, List, Mapping, Union
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from mdcommunity_tpu_torch.graphs.banded import ShardedBandedDuplex, shard_banded_duplex
 from mdcommunity_tpu_torch.models.fusion import fuse
 from mdcommunity_tpu_torch.ops.aggregate import l2_normalize, segment_spmm
 from mdcommunity_tpu_torch.ops.band_kernels import sage_step
@@ -52,6 +57,11 @@ from mdcommunity_tpu_torch.ops.dense_band import (
     spmm_dense_band,
     spmm_dense_band_grad,
 )
+from mdcommunity_tpu_torch.parallel.band_partition import (
+    spmm_band_sharded,
+    spmm_band_sharded_grad,
+)
+from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, gather_rows, split_nodes
 from mdcommunity_tpu_torch.utils.device import resolve_device
 
 _DENSE = (
@@ -154,8 +164,10 @@ def init_params(
     }
 
 
-def _graph_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """A sum over all nodes, accumulated in f64 and rounded to f32 once.
+def _graph_sum(x, dim: int = 0) -> torch.Tensor:
+    """A sum over all nodes, accumulated in f64 and rounded to f32 once; x
+    is a tensor or the list of its shards' row pieces, whose f64 partials
+    are added in shard order on the first shard's device.
 
     The result then does not depend on the order of the rows (to within
     the f64 error, 2^-29 of an f32 ulp per 2^20 rows).  That keeps exact
@@ -165,11 +177,35 @@ def _graph_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     bit-equal Q, so the lowest-index rule decides between them.  An f32
     sum rounds differently for the two layers' row orders and breaks such
     ties at random.  A bf16 x (stored activations) sums to f32."""
-    out_dt = torch.promote_types(x.dtype, torch.float32)
-    return torch.sum(x, dim=dim, dtype=torch.float64).to(out_dt)
+    parts = _pieces(x)
+    out_dt = torch.promote_types(parts[0].dtype, torch.float32)
+    dev = parts[0].device
+    return _add([torch.sum(p, dim=dim, dtype=torch.float64).to(dev) for p in parts]).to(out_dt)
 
 
-def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
+def _add(xs: List[torch.Tensor]) -> torch.Tensor:
+    """xs added in order, on the first one's device."""
+    return functools.reduce(lambda a, b: a + b.to(a.device), xs)
+
+
+def _pieces(x) -> List[torch.Tensor]:
+    """x's shard pieces: x itself if it is a list, else [x]."""
+    return x if isinstance(x, list) else [x]
+
+
+def _on_mesh(bdx, mesh):
+    """(duplex, mesh) of a run: with a mesh, bdx sharded over it (as it is
+    if it already is); a ShardedBandedDuplex brings its own mesh."""
+    if isinstance(bdx, ShardedBandedDuplex):
+        if mesh is not None and mesh != bdx.mesh:
+            raise ValueError("bdx is sharded over another mesh")
+        return bdx, bdx.mesh
+    if mesh is None:
+        return bdx, None
+    return shard_banded_duplex(mesh, bdx), mesh
+
+
+def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None):
     """Per-layer model inputs of a BandedDuplex + covered mask (unit cost):
     (node_input [2, pad_n, 2], aux [2, 4], active [pad_n], live [pad_n],
     deg [2, pad_n] live degrees).
@@ -178,44 +214,66 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor):
     right-hand side), gives both the live degree and the unsevered degree;
     the severed-edge record lives in the base itself, so the covered-edge
     aux counter is unsevered minus live edges.  The inputs are graph
-    constants: the loss computes them without grad."""
+    constants: the loss computes them without grad.
+
+    With a mesh, bdx is a ShardedBandedDuplex over it: the degree passes
+    run through the sharded operator, every node tensor comes back as the
+    list of its shard pieces (node_input [2, local_n, 2] each), and aux on
+    the first shard's device."""
     dt = net.w_n2l.dtype
-    live = (~covered) & bdx.node_mask
-    livef = live.to(dt)
-    maskf = bdx.node_mask.to(dt)
-    ones = torch.ones(bdx.pad_n, dtype=dt, device=bdx.device)
-    rhs = torch.stack([livef, maskf], dim=-1)
+    if mesh is None:
+        covered, masks = [covered], [bdx.node_mask]
+
+        def spmm(layer, r, c, h):
+            return [spmm_dense_band(bdx.dbg(layer), r[0], c[0], h[0])]
+    else:
+        covered, masks = split_nodes(mesh, covered), bdx.node_mask
+
+        def spmm(layer, r, c, h):
+            return spmm_band_sharded(mesh, bdx.dbg(layer), r, c, h)
+    dev = masks[0].device
+    live = [(~c) & m for c, m in zip(covered, masks)]
+    livef = [x.to(dt) for x in live]
+    maskf = [m.to(dt) for m in masks]
+    ones = [torch.ones(m.shape[0], dtype=dt, device=m.device) for m in masks]
+    rhs = [torch.stack([x, m], dim=-1) for x, m in zip(livef, maskf)]
     degs, counters = [], []
     for layer in range(2):
-        both = spmm_dense_band(bdx.dbg(layer), ones, ones, rhs)
-        deg = both[:, 0] * livef
-        deg_u = both[:, 1] * maskf
+        both = spmm(layer, ones, ones, rhs)
+        deg = [b[:, 0] * x for b, x in zip(both, livef)]
+        deg_u = [b[:, 1] * m for b, m in zip(both, maskf)]
         degs.append(deg)
         counters.append(_graph_sum(deg_u) / 2.0 - _graph_sum(deg) / 2.0)
-    deg = torch.stack(degs)  # [2, pad_n]
-    active = live & (deg[0] > 0)
+    deg = [torch.stack(d) for d in zip(*degs)]  # [2, n] a piece
+    active = [x & (d[0] > 0) for x, d in zip(live, deg)]
 
-    zero = torch.zeros((), dtype=dt, device=bdx.device)
-    maxdeg = torch.amax(torch.where(active[None, :], deg, zero), dim=1)
-    nd = deg / torch.clamp(maxdeg, min=1e-12)[:, None]
-    nd = torch.where(active[None, :], nd, zero)
-    node_input = torch.stack([nd, nd], dim=-1)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    maxdeg = functools.reduce(torch.maximum, [
+        torch.amax(torch.where(a[None, :], d, zero.to(d.device)), dim=1).to(dev)
+        for a, d in zip(active, deg)])
+    node_input = []
+    for a, d in zip(active, deg):
+        nd = d / torch.clamp(maxdeg.to(d.device), min=1e-12)[:, None]
+        nd = torch.where(a[None, :], nd, zero.to(d.device))
+        node_input.append(torch.stack([nd, nd], dim=-1))
 
     n_f = float(bdx.n_nodes)
-    cov_frac = torch.sum(covered & bdx.node_mask).to(dt) / n_f
+    cov_frac = _add([torch.sum(c & m) for c, m in zip(covered, masks)]).to(dt) / n_f
     e_cnt = torch.clamp(
-        torch.tensor(bdx.n_edges, dtype=dt, device=bdx.device), min=1.0
+        torch.tensor(bdx.n_edges, dtype=dt, device=dev), min=1.0
     )
-    wedges = _graph_sum(deg * (deg - 1.0) / 2.0, dim=1)
+    wedges = _graph_sum([d * (d - 1.0) / 2.0 for d in deg], dim=1)
     aux = torch.stack(
         [
             cov_frac.expand(2),
             torch.stack(counters) / e_cnt,
             wedges / (n_f * n_f),
-            torch.ones(2, dtype=dt, device=bdx.device),
+            torch.ones(2, dtype=dt, device=dev),
         ],
         dim=-1,
     )
+    if mesh is None:
+        return node_input[0], aux, active[0], livef[0], deg[0]
     return node_input, aux, active, livef, deg
 
 
@@ -230,22 +288,35 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
     `sage` is given, runs as `sage(layer, h)`, the fused SAGE step (kernel
     K2, no gradient), with h kept in the `store` dtype between the steps
     when one is given (bf16 activations; the pool and the fusion widen it).
-    The virtual-node pool is a graph-wide f64 sum (`_graph_sum`)."""
+    The virtual-node pool is a graph-wide f64 sum (`_graph_sum`).
+
+    node_input and active may be lists of row pieces (the shards of a gp
+    mesh); then aggregate maps a list of pieces to a list, the dense layers
+    and the fusion run per piece (the weights moved to its device), and
+    h_f0, h_f1 are lists; y_f lies on the first piece's device."""
+    sharded = isinstance(node_input, list)
+    if not sharded:
+        node_input, active = [node_input], [active]
+        aggregate = _one_piece(aggregate)
+        sage = None if sage is None else _one_piece(sage)
     d = net.embedding_size
     c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
-    dt, dev = net.w_n2l.dtype, node_input.device
+    dt, dev = net.w_n2l.dtype, node_input[0].device
     # virtual-node input: ones on the two degree channels, zero on any extra
     # prior channel (the JAX package's ones_feat)
-    f_dim = node_input.shape[-1]
+    f_dim = node_input[0].shape[-1]
     ones_feat = torch.cat([torch.ones(2, dtype=dt, device=dev),
                            torch.zeros(f_dim - 2, dtype=dt, device=dev)])
 
+    def dense(x, w):
+        return x @ w.to(x.device)
+
     node_embs, virt_embs = [], []
     for layer in range(2):
-        h = l2_normalize(torch.relu(node_input[layer] @ net.w_n2l))
-        y = l2_normalize(torch.relu(ones_feat @ net.w_n2l)).expand(h.shape[:-2] + (d,))
+        h = [l2_normalize(torch.relu(dense(x[layer], net.w_n2l))) for x in node_input]
+        y = l2_normalize(torch.relu(ones_feat @ net.w_n2l)).expand(h[0].shape[:-2] + (d,))
         if sage is not None and store is not None:
-            h = h.to(store)
+            h = [x.to(store) for x in h]
         for _ in range(max_bp_iter):
             ypool = _graph_sum(h, dim=-2)  # inactive rows are exactly 0
             y_new = torch.cat([ypool @ c1, y @ c2], -1)
@@ -253,33 +324,51 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
                 h = sage(layer, h)
             else:
                 pool = aggregate(layer, h)
-                h = l2_normalize(torch.relu(torch.cat([pool @ c1, h @ c2], -1) @ c3))
+                h = [l2_normalize(torch.relu(dense(torch.cat([dense(p, c1), dense(x, c2)], -1),
+                                                   c3)))
+                     for p, x in zip(pool, h)]
             y = l2_normalize(torch.relu(y_new @ c3))
-        node_embs.append(h.to(dt))
+        node_embs.append([x.to(dt) for x in h])
         virt_embs.append(y)
 
     fp = net.fusion_params()
-    h0, h1 = fuse(fp, node_embs[0], node_embs[1])
+    h0, h1 = [], []
+    for e0, e1, a in zip(*node_embs, active):
+        f0, f1 = fuse({k: v.to(e0.device) for k, v in fp.items()}, e0, e1)
+        actf = a.to(f0.dtype)[..., None]
+        h0.append(l2_normalize(f0) * actf)
+        h1.append(l2_normalize(f1) * actf)
     # the virtual rows fuse as a matrix [rows, D], one row per graph
     y_shape = virt_embs[0].shape
     y0, y1 = fuse(fp, virt_embs[0].reshape(-1, d), virt_embs[1].reshape(-1, d))
-    actf = active.to(h0.dtype)[..., None]
     y_f = torch.stack([l2_normalize(y0).reshape(y_shape),
                        l2_normalize(y1).reshape(y_shape)])
-    return l2_normalize(h0) * actf, l2_normalize(h1) * actf, y_f
+    if not sharded:
+        return h0[0], h1[0], y_f
+    return h0, h1, y_f
 
 
-def _q_values(net: DuplexQNet, rows, y_f, aux) -> torch.Tensor:
+def _one_piece(fn):
+    """fn(layer, h) on tensors as a function on one-piece lists."""
+    return lambda layer, hs: [fn(layer, hs[0])]
+
+
+def _q_values(net: DuplexQNet, rows, y_f, aux):
     """The gated Q head over per-layer embedding rows [..., M, D], with y_f
-    [2, ..., D] and aux [2, ..., 4]: q [..., M]."""
+    [2, ..., D] and aux [2, ..., 4]: q [..., M].  Rows given as lists of
+    shard pieces give the list of the pieces' q."""
+    if isinstance(rows[0], list):
+        return [_q_values(net, r, y_f, aux) for r in zip(*rows)]
+    dev = rows[0].device
+    y_f, aux = y_f.to(dev), aux.to(dev)
     q_layers = []
     for layer in range(2):
-        scal = y_f[layer] @ net.cross_product                      # [..., 1]
-        hidden = torch.relu((rows[layer] * scal[..., None, :]) @ net.h1_weight)
+        scal = y_f[layer] @ net.cross_product.to(dev)                   # [..., 1]
+        hidden = torch.relu((rows[layer] * scal[..., None, :]) @ net.h1_weight.to(dev))
         aux_l = aux[layer][..., None, :].expand(hidden.shape[:-1] + (aux.shape[-1],))
         last = torch.cat([hidden, aux_l], dim=-1)
-        q_layers.append((last @ net.h2_weight)[..., 0])
-    s = torch.relu(y_f @ net.w_layer1) @ net.w_layer2               # [2, ..., 1]
+        q_layers.append((last @ net.h2_weight.to(dev))[..., 0])
+    s = torch.relu(y_f @ net.w_layer1.to(dev)) @ net.w_layer2.to(dev)  # [2, ..., 1]
     w = torch.softmax(s[..., 0], dim=0)
     return w[0][..., None] * q_layers[0] + w[1][..., None] * q_layers[1]
 
@@ -293,6 +382,18 @@ def _banded_aggregate(bdx, live, spmm=spmm_dense_band, precise=True, store=None)
     return lambda layer, h: spmm(
         bdx.dbg(layer), live, live, h.to(store or h.dtype), precise=precise
     ).to(h.dtype)
+
+
+def _sharded_aggregate(mesh, bdx, live, precise=True, store=None):
+    """_banded_aggregate over a ShardedBandedDuplex, on lists of shard
+    pieces: the sharded band operator (kernel K3)."""
+
+    def agg(layer, hs):
+        pools = spmm_band_sharded(mesh, bdx.dbg(layer), live, live,
+                                  [x.to(store or x.dtype) for x in hs], precise=precise)
+        return [p.to(x.dtype) for p, x in zip(pools, hs)]
+
+    return agg
 
 
 def _banded_sage(net: DuplexQNet, bdx, live, precise=True):
@@ -319,6 +420,7 @@ def banded_test_forward(
     max_bp_iter: int = 3,
     precise: bool = True,
     act_dtype: torch.dtype = torch.float32,
+    mesh=None,
 ) -> torch.Tensor:
     """Q(s, ·) over all nodes of a BandedDuplex: [pad_n]; dead nodes -inf.
     `covered` is bool [pad_n] (padding rows True).  It computes in the
@@ -339,7 +441,20 @@ def banded_test_forward(
     back in f32).  The degree passes stay on the f32 K1: their operands are
     0/1 and their sums small integers, exact in either mode.  The dense
     layers run at the caller's matmul precision
-    (utils/device.matmul_precision)."""
+    (utils/device.matmul_precision).
+
+    mesh (parallel/mesh.GpMesh), or a bdx sharded by
+    graphs/banded.shard_banded_duplex, runs it gp-sharded, as
+    net_packed.banded_test_forward_packed(mesh=...): every aggregation is
+    the sharded operator (kernel K3 in the mode precise and act_dtype
+    select; the JAX package runs K3's bf16 mode whatever precise says), the
+    dense layers run per shard, and Q is gathered to the first shard's
+    device.  An unsharded bdx is sharded on the way in (views where the
+    shards share its device).  The fused step needs mesh=None.  The net
+    lies on the first shard's device."""
+    bdx, mesh = _on_mesh(bdx, mesh)
+    if fuse_sage and mesh is not None:
+        raise ValueError("fuse_sage needs mesh=None (the fused step is single-device)")
     if fuse_sage and not bdx.spill_free:
         raise ValueError("fuse_sage needs empty spill sets in both layers")
     if act_dtype not in (torch.float32, torch.bfloat16):
@@ -347,13 +462,16 @@ def banded_test_forward(
     if precise and act_dtype != torch.float32:
         raise ValueError("precise=True requires act_dtype=float32")
     store = None if act_dtype == torch.float32 else act_dtype
-    node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered)
+    node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered, mesh)
+    if mesh is None:
+        agg = _banded_aggregate(bdx, live, precise=precise, store=store)
+    else:
+        agg = _sharded_aggregate(mesh, bdx, live, precise, store)
     sage = _banded_sage(net, bdx, live, precise) if fuse_sage else None
-    h0, h1, y_f = _embed(net, node_input, active,
-                         _banded_aggregate(bdx, live, precise=precise, store=store),
-                         max_bp_iter, sage, store)
-    q = _q_values(net, (h0, h1), y_f, aux)
-    return torch.where(active, q, torch.full_like(q, -float("inf")))
+    h0, h1, y_f = _embed(net, node_input, active, agg, max_bp_iter, sage, store)
+    q = [torch.where(a, x, torch.full_like(x, -float("inf")))
+         for a, x in zip(_pieces(active), _pieces(_q_values(net, (h0, h1), y_f, aux)))]
+    return q[0] if mesh is None else gather_nodes(mesh, q)
 
 
 def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate) -> torch.Tensor:
@@ -363,13 +481,16 @@ def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate) -> torch.Tensor:
 
     tr(HᵀLH) = Σ_v deg_v·||H_v||² - Σ_{(u,v) directed} H_u·H_v.
     h_f: per-layer [pad_n, D]; deg [2, pad_n] live degrees;
-    aggregate(layer, h) = A_l @ h over the live subgraph."""
+    aggregate(layer, h) = A_l @ h over the live subgraph.  Sharded: h_f's
+    entries and deg are lists of shard pieces, whose f32 partial sums are
+    added in shard order."""
     total = 0.0
     for layer in range(2):
-        h = h_f[layer]
-        quad = torch.sum(deg[layer] * torch.sum(h * h, dim=-1))
-        cross = torch.sum(h * aggregate(layer, h))
-        denom = torch.clamp(torch.sum(deg[layer]), min=1.0)
+        hs, pools = _pieces(h_f[layer]), _pieces(aggregate(layer, h_f[layer]))
+        degs = [d[layer] for d in _pieces(deg)]
+        quad = _add([torch.sum(d * torch.sum(h * h, dim=-1)) for d, h in zip(degs, hs)])
+        cross = _add([torch.sum(h * p) for h, p in zip(hs, pools)])
+        denom = torch.clamp(_add([torch.sum(d) for d in degs]), min=1.0)
         total = total + 2.0 * (quad - cross) / denom
     return total
 
@@ -382,6 +503,7 @@ def banded_train_loss(
     targets: torch.Tensor,
     alpha: float = 1e-3,
     remat: bool = True,
+    mesh=None,
 ) -> torch.Tensor:
     """DQN loss on one large BandedDuplex: MSE(Q[actions], targets) +
     alpha·Laplacian embedding regularizer (the JAX package's
@@ -397,27 +519,43 @@ def banded_train_loss(
     its activations (torch.utils.checkpoint, as the JAX package's
     jax.checkpoint).  The recomputed forward reads the band operands again,
     so a guard makes the backward raise if they were edited after this
-    call; BandSpmm's own check covers remat=False."""
+    call; BandSpmm's own check covers remat=False.
+
+    mesh, or a sharded bdx, runs it gp-sharded as banded_test_forward does
+    (the JAX package's banded_train_loss(mesh=...)): every aggregation is
+    parallel/band_partition.ShardedBandSpmm (kernel K3, and K3 with swapped
+    scales for its gradient), the actions' rows are gathered from the
+    shards that own them, and the loss lies on the first shard's device."""
+    bdx, mesh = _on_mesh(bdx, mesh)
     with torch.no_grad():
-        node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered)
+        node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered, mesh)
+    if mesh is None:
+        agg = _banded_aggregate(bdx, live, spmm_dense_band_grad)
+    else:
+        def agg(layer, hs):
+            return spmm_band_sharded_grad(mesh, bdx.dbg(layer), live, live, hs)
 
     def embed():
-        return _embed(net, node_input, active,
-                      _banded_aggregate(bdx, live, spmm_dense_band_grad))
+        return _embed(net, node_input, active, agg)
 
     if remat:
         h0, h1, y_f = checkpoint(embed, use_reentrant=False)
-        h0, h1, y_f = guard_band_operands((bdx.dbg0, bdx.dbg1), h0, h1, y_f)
+        n = len(_pieces(h0))
+        flat = guard_band_operands((bdx.dbg0, bdx.dbg1), *_pieces(h0), *_pieces(h1), y_f)
+        h0, h1, y_f = list(flat[:n]), list(flat[n:2 * n]), flat[-1]
+        if mesh is None:
+            h0, h1 = h0[0], h1[0]
     else:
         h0, h1, y_f = embed()
     actions = torch.as_tensor(actions, device=bdx.device).long()
-    targets = torch.as_tensor(targets, device=bdx.device, dtype=h0.dtype)
-    q = _q_values(net, (h0[actions], h1[actions]), y_f, aux)
+    targets = torch.as_tensor(targets, device=bdx.device, dtype=y_f.dtype)
+    if mesh is None:
+        rows = (h0[actions], h1[actions])
+    else:
+        rows = (gather_rows(mesh, h0, actions), gather_rows(mesh, h1, actions))
+    q = _q_values(net, rows, y_f, aux)
     mse = torch.mean(torch.square(q - targets))
-    reg = laplacian_regularizer(
-        (h0, h1), deg,
-        lambda layer, h: spmm_dense_band_grad(bdx.dbg(layer), live, live, h),
-    )
+    reg = laplacian_regularizer((h0, h1), deg, agg)
     return mse + alpha * reg
 
 

@@ -202,6 +202,18 @@ def build_dense_band(
     )
 
 
+def sever_cells(S: int, B: int, pad_n: int, src: torch.Tensor, dst: torch.Tensor):
+    """(blk, lr, lc, in_band) of directed edges src -> dst: the base cell
+    [blk, lr, lc] of each, and whether it lies in the band, by the same
+    symmetric test as band_slots (keeps Aᵀ = A)."""
+    W2 = S + 2 * B
+    blk = torch.div(dst, S, rounding_mode="floor")
+    lr = dst - blk * S
+    lc = torch.remainder(src - (blk * S - B), pad_n)
+    lc_t = torch.remainder(dst - (torch.div(src, S, rounding_mode="floor") * S - B), pad_n)
+    return blk, lr, lc, (lc < W2) & (lc_t < W2)
+
+
 def sever_edges(
     dbg: DenseBandGraph, src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor
 ) -> DenseBandGraph:
@@ -213,16 +225,11 @@ def sever_edges(
     duplicated indices give one defined result (the JAX package instead
     redirects invalid entries to cell (0, 0, 0) and writes back the value it
     read there, which can undo a real sever of that cell)."""
-    S, B, pad_n, W2 = dbg.S, dbg.B, dbg.pad_n, dbg.W2
+    pad_n = dbg.pad_n
     src = src.to(dbg.device, torch.int64)
     dst = dst.to(dbg.device, torch.int64)
     valid = valid.to(dbg.device, torch.bool)
-    blk = torch.div(dst, S, rounding_mode="floor")
-    lr = dst - blk * S
-    lc = torch.remainder(src - (blk * S - B), pad_n)
-    # the same symmetric in-band test as band_slots (keeps Aᵀ = A)
-    lc_t = torch.remainder(dst - (torch.div(src, S, rounding_mode="floor") * S - B), pad_n)
-    in_band = (lc < W2) & (lc_t < W2)
+    blk, lr, lc, in_band = sever_cells(dbg.S, dbg.B, pad_n, src, dst)
     ib = in_band & valid
     dbg.base[blk[ib], lr[ib], lc[ib]] = 0
 
@@ -236,10 +243,25 @@ def sever_edges(
     return dbg
 
 
+def mirror_compact(dbg: DenseBandGraph, col: torch.Tensor, h: torch.Tensor,
+                   precise: bool = True) -> torch.Tensor:
+    """The mirror table's rows [nb·C, D] before the overflow SpMM:
+    mir[b, c] = col[node(b, c)] · h[node(b, c)] (a gather over mirror_node),
+    0 for an unused slot, in the compute dtype (col's); precise=False rounds
+    it to bf16 (see mirror_sub)."""
+    dt = col.dtype
+    node = dbg.mirror_node.reshape(-1)
+    used = node >= 0
+    safe = node.clamp(min=0)
+    mir = h[safe].to(dt) * col[safe, None]
+    if not precise:
+        mir = mir.to(torch.bfloat16).to(dt)
+    return mir * used[:, None].to(dt)
+
+
 def mirror_sub(dbg: DenseBandGraph, col: torch.Tensor, h: torch.Tensor,
                precise: bool = True) -> torch.Tensor:
-    """The mirror-space half of the operator: compaction
-    mir[b, c] = col[node(b, c)] · h[node(b, c)] (a gather over mirror_node),
+    """The mirror-space half of the operator: compaction (mirror_compact),
     then the overflow SpMM inside the mirror table.  Returns sub [nb·C, D]
     in the compute dtype (f32 for bf16 storage), which the band kernels
     expand back through slot_of_row.  The JAX package computes the same
@@ -247,17 +269,9 @@ def mirror_sub(dbg: DenseBandGraph, col: torch.Tensor, h: torch.Tensor,
     follows it).  precise=False gathers bf16(col ⊙ h), as the JAX package's
     XLA engine (out_ext[:, S:] of the bf16 contraction); mirror_compact's
     bf16(h)·col is the same for col in {0, 1}, the live mask of the eval."""
-    D = h.shape[1]
-    dt = col.dtype  # the compute dtype: f32 for bf16 storage, else h's
     if not dbg.C:
-        return h.new_zeros((0, D), dtype=dt)
-    node = dbg.mirror_node.reshape(-1)
-    used = node >= 0
-    safe = node.clamp(min=0)
-    mir = h[safe].to(dt) * col[safe, None]
-    if not precise:
-        mir = mir.to(torch.bfloat16).to(dt)
-    return spmm_sorted(dbg.ccoo, dbg.w_cov, mir * used[:, None].to(dt))
+        return h.new_zeros((0, h.shape[1]), dtype=col.dtype)
+    return spmm_sorted(dbg.ccoo, dbg.w_cov, mirror_compact(dbg, col, h, precise))
 
 
 def spmm_dense_band(
@@ -291,12 +305,16 @@ def spmm_dense_band(
     return out
 
 
-def band_versions(dbg: DenseBandGraph) -> Tuple[int, int, int]:
-    """The in-place edit counters of the tensors sever_edges writes."""
+def band_versions(dbg) -> Tuple:
+    """The in-place edit counters of the tensors sever_edges writes; of
+    every shard's for a ShardedBandGraph (parallel/band_partition.py), where
+    a shard base that is a view shares its storage's counter."""
+    if hasattr(dbg, "shards"):
+        return tuple(band_versions(s) for s in dbg.shards)
     return dbg.base._version, dbg.w_cov._version, dbg.w_spill._version
 
 
-def check_band_versions(dbg: DenseBandGraph, versions: Tuple[int, int, int]) -> None:
+def check_band_versions(dbg, versions: Tuple) -> None:
     """Raise if the band operands were edited since `versions` was taken: a
     gradient would then mix two graph states."""
     if band_versions(dbg) != versions:

@@ -24,6 +24,12 @@ the band in place, so the loop keeps two operand sets, `cur` and `prev`,
 equal at every episode reset: it selects on cur, severs cur, runs the
 target forward on cur, fits on prev, then severs prev the same way.  The
 covered mask of s_{t+1} is a new tensor.
+
+With a gp mesh (parallel/mesh.py) the loop runs gp-sharded, as the JAX
+package's train_banded_loop(mesh=...): the operand sets are
+ShardedBandedDuplexes, selection and targets run the unfused forward through
+the sharded band operator (kernel K3) with a global top-k of the gathered
+Q, and the fit differentiates through ShardedBandSpmm.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from mdcommunity_tpu_torch.graphs.banded import (
     apply_severs,
     fork_banded,
     restore_banded,
+    shard_banded_duplex,
 )
 from mdcommunity_tpu_torch.models.net import (
     DuplexQNet,
@@ -50,18 +57,18 @@ from mdcommunity_tpu_torch.models.net import (
 from mdcommunity_tpu_torch.utils.device import set_precise_matmul
 
 
-def _apply_severs(banded: BandedDuplex, layer: int, ns: np.ndarray) -> None:
+def _apply_severs(banded, layer: int, ns: np.ndarray) -> None:
     """Sever the undirected edges `ns` [K, 2] of one layer, in place.  The
     counterpart of the JAX package's _apply_severs_chunked: the port matches
     mirror and spill edges by sorted keys, not by a [E_ov, K] comparison, so
-    a cascade report of any size is one call."""
+    a cascade report of any size is one call.  banded may be sharded."""
     if len(ns):
         e = torch.from_numpy(np.asarray(ns, np.int64)).to(banded.device)
         ok = torch.ones(len(e), dtype=torch.bool, device=banded.device)
         apply_severs(banded, layer, e[:, 0], e[:, 1], ok)
 
 
-def sync_env_severs(banded: BandedDuplex, env) -> BandedDuplex:
+def sync_env_severs(banded, env):
     """Replay the env's current persistent sever masks into the band (at
     episode start: the t=0 cascade usually severs some edges)."""
     for layer in range(2):
@@ -121,19 +128,28 @@ def train_banded_loop(
     on_iter, when given, is called with each iteration's history row as the
     iteration ends (profile_forward --fit steps its profiler with it).
 
-    The JAX package's mesh (multi-GPU) and pack_G (a TPU layout) are not
-    ported; precise=False (bf16) neither."""
+    mesh (parallel/mesh.GpMesh): run gp-sharded.  The caller passes the
+    unsharded pristine build, on the first shard's device, and the loop
+    shards it (views on a device the shards share); a build with spill
+    edges, or whose block count the shards do not divide, raises
+    ValueError.  Selection and targets then run the unfused forward (the
+    fused step is single-device), precise as asked; actions and targets
+    stay on the first shard's device; the host env is unchanged and its
+    severs are routed to the shards that own them.
+
+    The JAX package's pack_G (a TPU layout) is not ported; precise=False
+    (the bf16 fit) neither."""
     if variant != "unit_cost":
         raise NotImplementedError(f"variant {variant!r}: only unit_cost is ported")
-    if mesh is not None:
-        raise NotImplementedError("sharded (multi-GPU) training is not ported")
     if not precise:
         raise NotImplementedError("the bf16 (precise=False) fit is not ported")
+    if mesh is not None:
+        banded0 = shard_banded_duplex(mesh, banded0)
     set_precise_matmul()
     device = banded0.device
     rng = np.random.default_rng(seed)
     n, pad_n = env.n, banded0.pad_n
-    fuse = packed and banded0.spill_free
+    fuse = packed and banded0.spill_free and mesh is None
 
     net = copy.deepcopy(net).to(device).requires_grad_(True)
     target = copy.deepcopy(net).requires_grad_(False)
@@ -160,7 +176,7 @@ def train_banded_loop(
 
         # --- action selection: device top-k, host eps mixing ------------
         vals, order = top_k_stable(
-            banded_test_forward(net, cur, covered, fuse_sage=fuse), k)
+            banded_test_forward(net, cur, covered, fuse_sage=fuse, precise=precise), k)
         ok = np.isfinite(vals) & ~env.covered[order]
         cut = int(np.argmin(ok)) if not ok.all() else len(ok)
         acts = order[:cut].astype(np.int64)
@@ -203,7 +219,8 @@ def train_banded_loop(
             targets = rewards
             maxq = 0.0
         else:
-            q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse)
+            q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse,
+                                         precise=precise)
             maxq = float(q_next.max())
             targets = rewards + gamma * maxq
         t4 = time.perf_counter()

@@ -5,6 +5,8 @@ removals and losses), that every fit reads the pre-step state s_t, that a
 sever between a loss and its backward raises, and the de-duplication of the
 eps-mixed batch where the JAX package keeps a duplicate."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,8 @@ from mdcommunity_tpu_torch.env.host_env import make_host_env  # noqa: E402
 from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex, fork_banded  # noqa: E402
 from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges  # noqa: E402
 from mdcommunity_tpu_torch.models.net import banded_test_forward, from_jax_params, to_jax_params  # noqa: E402
+from mdcommunity_tpu_torch.ops.dense_band import build_dense_band  # noqa: E402
+from mdcommunity_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mdcommunity_tpu_torch.rl import big_trainer  # noqa: E402
 from mdcommunity_tpu_torch.rl.big_trainer import sync_env_severs, train_banded_loop  # noqa: E402
 
@@ -238,11 +242,22 @@ def test_eps_mix_dedup_differs_from_jax(setup):
 
 
 def test_loop_refuses_what_is_not_ported(setup):
-    _, banded, o0, o1, params = setup
+    """The degree-cost variant and the bf16 fit are not ported; the sharded
+    loop (mesh=) refuses a build with spill edges and one whose band blocks
+    its shards do not divide, as the JAX package's does."""
+    (e0, _), banded, o0, o1, params = setup
     net = from_jax_params(params, device="cpu")
-    for kw in (dict(variant="degree_cost"), dict(mesh=object()), dict(precise=False)):
+    for kw in (dict(variant="degree_cost"), dict(precise=False)):
         with pytest.raises(NotImplementedError):
             train_banded_loop(net, banded, _env(o0, o1), iters=1, **kw, **QUIET)
+    ss, dd = np.concatenate([o0[:, 0], o0[:, 1]]), np.concatenate([o0[:, 1], o0[:, 0]])
+    spilled = dataclasses.replace(banded, dbg0=build_dense_band(
+        ss, dd, N, S=64, B=32, max_mirror=1, device="cpu"))
+    assert spilled.dbg0.spill.nnz and banded.dbg0.n_blocks == 2
+    for b, gp, what in ((spilled, 2, "spill"), (banded, 3, "divisible")):
+        with pytest.raises(ValueError, match=what):
+            train_banded_loop(net, b, _env(o0, o1), iters=1, mesh=make_mesh(gp, "cpu"),
+                              **QUIET)
 
 
 def main(argv=None):

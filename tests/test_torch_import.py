@@ -28,7 +28,8 @@ def test_import_leaves_jax_out():
     mods = _submodules()
     for m in ("ops.band_kernels", "rl.big_trainer", "train_1m", "ops.blocked_kernels",
               "graphs.duplex", "graphs.gmm", "graphs.blocked", "env.cascade", "env.env",
-              "env.batch", "rl.dqn", "eval.synthetic"):
+              "env.batch", "rl.dqn", "eval.synthetic", "parallel.mesh",
+              "parallel.band_partition"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -30,6 +30,7 @@ from mdcommunity_tpu_torch.parallel.band_partition import (  # noqa: E402
     spmm_band_sharded_grad,
 )
 from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, make_mesh, split_nodes  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 N, E, S, B, D = 4096, 8192, 256, 128, 64
 TOL = 1e-5  # of max|ref|: f32 on both sides, sums in another order

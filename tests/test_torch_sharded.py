@@ -20,6 +20,7 @@ from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges  # noqa: E
 from mdcommunity_tpu_torch.models.checkpoint import load_model  # noqa: E402
 from mdcommunity_tpu_torch.models.net import banded_test_forward  # noqa: E402
 from mdcommunity_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 CKPT = "models_tpu/unit_cost_full_r4/best_model.ckpt"
 ATOL = 1e-5  # f32 on both sides; Q values are O(0.1) (tests/test_torch_forward.py)

@@ -12,6 +12,8 @@ from mdcommunity_tpu_torch.models.net import from_jax_params
 from mdcommunity_tpu_torch.parallel.mesh import make_mesh
 from mdcommunity_tpu_torch.rl import big_trainer
 
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 CKPT = "models_tpu/unit_cost_full_r4/best_model.ckpt"
 QUIET = dict(log_every=100, log=lambda *a, **k: None)
 

@@ -25,6 +25,7 @@ from mdcommunity_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 from test_torch_fast import assert_fast_q_close  # noqa: E402
 from test_torch_sharded import CKPT, _graph  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

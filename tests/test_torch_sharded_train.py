@@ -23,6 +23,7 @@ from mdcommunity_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 from test_torch_sharded import CKPT  # noqa: E402
 from test_torch_train import _grads  # noqa: E402
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 
 def _loss_graph(n=2048):

@@ -44,7 +44,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      18,432 and 2^20 rows beside K1's; the sharded model call at 2^20 nodes,
      precise and fast, against the unsharded one; and 6 iterations of the
      sharded trainer loop at 2^20 beside the unsharded loop (the same
-     removals), counts set to 0 just before and read just after.
+     removals), counts set to 0 just before and read just after;
+  9. the band kernel's last TPU modes and the stream probe: nibble storage
+     against int8 (max abs difference 0) in K1, K1's backward, K2 with
+     either epilogue and K3 in the three modes after a batch of severs with
+     duplicates and both cells of one byte, and against the plain versions;
+     K2's bf16 epilogue (f32_epi=False) within EPI_TOL of its plain version;
+     K1's diag variants (noscale, nodot, noh, hlin; f32 and bf16) against
+     their references; the stream probe (probe.cu) exactly; their times at
+     18,432 and 2^20 rows beside bound, plain and library; then the slice's
+     path, the four probe entry points through their mains (probe_f32_epi at
+     18,222 nodes, bench_nibble, tune_band --diag and probe_hbm_roof at
+     2^20), counts set to 0 just before and read just after.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -57,7 +68,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -98,19 +108,12 @@ def log(*a):
     print(*a, flush=True)
 
 
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip()
-
-
 # ---------------------------------------------------------------- build
 
 
 def build_all():
     from mdcommunity_tpu_torch.native import build as native_build
-    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels
+    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels, probe_kernels
 
     errs, times = {}, {}
 
@@ -125,6 +128,7 @@ def build_all():
     threads = [
         threading.Thread(target=run, args=("band.cu (nvcc)", band_kernels.build)),
         threading.Thread(target=run, args=("blocked.cu (nvcc)", blocked_kernels.build)),
+        threading.Thread(target=run, args=("probe.cu (nvcc)", probe_kernels.build)),
         threading.Thread(target=run, args=("mdc_native.cpp (g++)", native_build.build)),
     ]
     t0 = time.perf_counter()
@@ -136,7 +140,7 @@ def build_all():
         raise RuntimeError(f"build of {name} failed") from exc
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    for name in ("band", "blocked"):
+    for name in ("band", "blocked", "probe"):
         with open(os.path.join(os.path.dirname(band_kernels.LIB), f"{name}_ptxas.log")) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -146,17 +150,23 @@ def build_all():
 # ---------------------------------------------------------------- graphs
 
 
-def synth_banded(n, shuffle, seed, device, reorder=True, with_edges=False, S=256):
-    """A large_graph_demo graph's banded build (block size S); with_edges=True
-    also returns its ordered edge lists (for a host env)."""
+def synth_banded(n, shuffle, seed, device, reorder=True, with_edges=False, S=256,
+                 nibble=False, simple=False):
+    """A large_graph_demo graph's banded build (block size S, nibble storage
+    with nibble=True); simple=True keeps each undirected edge once (the
+    generator repeats some, and at 2^20 nodes a band cell then exceeds a
+    nibble's 7); with_edges=True also returns its ordered edge lists (for a
+    host env)."""
     import numpy as np
 
     from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
     from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
 
     e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(seed), shuffle=shuffle)
+    if simple:
+        e0, e1 = (np.unique(np.sort(e, axis=1), axis=0) for e in (e0, e1))
     banded, _, edges = build_banded_duplex(n, e0, e1, S=S, reorder=reorder, max_rank=0,
-                                           device=device)
+                                           device=device, nibble=nibble)
     return (banded, edges) if with_edges else banded
 
 
@@ -272,6 +282,14 @@ def time_ms(fn, reps=20, warm=3):
     return times[len(times) // 2]
 
 
+def widened(dbg, dtype):
+    """The stored base [nb, S+C, W2] in `dtype` (a nibble base unpacked),
+    the left operand of the library yardstick torch.bmm."""
+    from mdcommunity_tpu_torch.ops.dense_band import unpack_nibbles
+
+    return (unpack_nibbles(dbg.base) if dbg.nibble else dbg.base).to(dtype)
+
+
 def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0):
     """Least time for the function on these inputs: each input read once,
     the output written once (h and the output at their storage width), over
@@ -280,10 +298,14 @@ def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0):
     cores for the bf16 modes), and the mirror add, the row scale (K2 also
     its two D×D products and the normalisation) at the FP32 rate.  halo:
     rows of h (with their col scales) read besides the graph's own (K3: the
-    two B-row halos of a shard).  Returns (ms, bound_by)."""
+    two B-row halos of a shard).  A nibble base counts at its stored half
+    of the bytes.  Returns (ms, bound_by)."""
+    from mdcommunity_tpu_torch.ops.dense_band import band_rows
+
     nb, S, C, pad_n = dbg.n_blocks, dbg.S, dbg.C, dbg.pad_n
-    nnz = int((dbg.base[:, :S] != 0).sum().item())
-    byts = (nb * S * dbg.W2 + 2 * pad_n * D * store_bytes + 2 * pad_n * 4
+    nnz = int((band_rows(dbg) != 0).sum().item())
+    base_w = dbg.W2 // 2 if dbg.nibble else dbg.W2   # nibbles: half the bytes
+    byts = (nb * S * base_w + 2 * pad_n * D * store_bytes + 2 * pad_n * 4
             + nb * C * D * 4 + nb * S * 4 + halo * (D * store_bytes + 4))
     f32_ops = 2 * pad_n * D
     if sage:
@@ -306,7 +328,7 @@ def time_kernels(device, banded, label):
     h = torch.nn.functional.normalize(h, dim=-1)
     sub = mirror_sub(dbg, live, h)
     aw, bw = sage_weights(device)
-    base_f = dbg.base.to(torch.float32)
+    base_f = widened(dbg, torch.float32)
     win = _windows(h * live[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
     lib_ms = time_ms(lambda: torch.bmm(base_f, win))
     del base_f, win
@@ -330,11 +352,11 @@ def time_kernels(device, banded, label):
     errs["band_spmm_bwd"] = compare(
         f"{label} K1 backward", bk.spmm_band(dbg, col, row, g, sub_g, "band_spmm_bwd"),
         bk.spmm_band_plain(dbg, col, row, g, sub_g))
-    base_f = dbg.base.to(torch.float32)
+    base_f = widened(dbg, torch.float32)
     win = _windows(g * row[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
     lib_bwd_ms = time_ms(lambda: torch.bmm(base_f, win))
     del base_f, win
-    res = {}
+    res, nib = {}, "_nib" if dbg.nibble else ""
     for name, kern, plain, sage, lib in (
         ("band_spmm", lambda: bk.spmm_band(dbg, live, live, h, sub),
          lambda: bk.spmm_band_plain(dbg, live, live, h, sub), False, lib_ms),
@@ -344,11 +366,11 @@ def time_kernels(device, banded, label):
          lambda: bk.spmm_band_plain(dbg, col, row, g, sub_g), False, lib_bwd_ms),
     ):
         bound_ms, bound_by = bounds(dbg, 64, sage)
-        res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-                         max_abs_err=errs[name])
-        log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} "
-            + json.dumps(res[name]))
+        res[name + nib] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+                               max_abs_err=errs[name])
+        log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} "
+            + json.dumps(res[name + nib]))
     return res
 
 
@@ -451,22 +473,23 @@ def time_bf16_kernels(device, banded, label):
     h, live = operands(dbg, 64, 5, device)
     h = torch.nn.functional.normalize(h, dim=-1)
     aw, bw = sage_weights(device)
-    base_b = dbg.base.to(torch.bfloat16)
+    base_b = widened(dbg, torch.bfloat16)
     win = _windows((h * live[:, None]).to(torch.bfloat16), dbg.n_blocks, dbg.S,
                    dbg.B).contiguous()
     lib_ms = time_ms(lambda: torch.bmm(base_b, win))
     del base_b, win
-    res = {}
+    res, nib = {}, "_nib" if dbg.nibble else ""
     for name, kernel, store in BF16_MODES:
         kern, plain = bf16_mode_fns(dbg, live, h, aw, bw, kernel, store)
         err = check_bf16_mode(label, name, kern, plain)
         bound_ms, bound_by = bounds(dbg, 64, kernel == "sage",
                                     2 if store == "bfloat16" else 4, PEAK_BF16_S)
-        res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms, max_abs_err=err)
+        res[name + nib] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                               max_abs_err=err)
         dense_ms = 1e3 * 2 * dbg.pad_n * dbg.W2 * 64 / PEAK_BF16_S
-        log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} "
-            + json.dumps(dict(res[name], dense_formulation_ms=dense_ms)))
+        log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} "
+            + json.dumps(dict(res[name + nib], dense_formulation_ms=dense_ms)))
     return res
 
 
@@ -777,7 +800,7 @@ def time_halo_kernels(device, banded, label, gp=GP):
     h32 = torch.nn.functional.normalize(operands(dbg, 64, 5, device)[0], dim=-1)
     g32 = torch.nn.functional.normalize(operands(dbg, 64, 10, device)[0], dim=-1)
     row, col = scales(dbg, 9, device)
-    res = {}
+    res, nib = {}, "_nib" if dbg.nibble else ""
     for name, precise, store in HALO_MODES + (("band_halo_bwd", True, "float32"),):
         dt = getattr(torch, store)
         if name == "band_halo_bwd":  # the gradient's operator: col and row swapped
@@ -819,7 +842,7 @@ def time_halo_kernels(device, banded, label, gp=GP):
             ext = torch.cat([lh.float() * lc[:, None], x.float() * cc[:, None],
                              rh.float() * rc[:, None]]).to(lib_dt)
             wins.append(ext.unfold(0, shard.W2, shard.S).transpose(1, 2).contiguous())
-            bases.append(shard.base.to(lib_dt))
+            bases.append(widened(shard, lib_dt))
         lib_ms = time_ms(lambda: [torch.bmm(a, w) for a, w in zip(bases, wins)])
         del wins, bases
         sb = [bounds(s, 64, False, 2 if store == "bfloat16" else 4,
@@ -829,17 +852,18 @@ def time_halo_kernels(device, banded, label, gp=GP):
         rows_, cols_, hs_ = (split_nodes(mesh, x) for x in (r, c, h))
         bk.reset_launches()
         spmm_band_sharded(mesh, sdbg, rows_, cols_, hs_, precise, name)
-        per_call = bk.launches[name]
-        res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
-                         bound_by=sb[0][1], library_ms=lib_ms, max_abs_err=err)
+        per_call = bk.launches[name + nib]
+        res[name + nib] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
+                               bound_ms=bound_ms, bound_by=sb[0][1], library_ms=lib_ms,
+                               max_abs_err=err)
         whole = dict(
             sharded_call_ms=time_ms(lambda: spmm_band_sharded(mesh, sdbg, rows_, cols_, hs_,
                                                               precise, name)),
             k1_whole_graph_ms=time_ms(lambda: spmm_dense_band(dbg, r, c, h, precise=precise)),
             launches_per_call=per_call, shard_ms=per_shard,
             shard_bound_ms=[b[0] for b in sb])
-        log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} gp={gp} nb_l={nb_l} "
-            + json.dumps(dict(res[name], **whole)))
+        log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} gp={gp} nb_l={nb_l} "
+            + json.dumps(dict(res[name + nib], **whole)))
     return res
 
 
@@ -1165,16 +1189,17 @@ def check_blocked_backward(device, bd):
 
 
 def reset_all_launches():
-    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels
+    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels, probe_kernels
 
     band_kernels.reset_launches()
     blocked_kernels.reset_launches()
+    probe_kernels.reset_launches()
 
 
 def all_launches():
-    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels
+    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels, probe_kernels
 
-    return {**band_kernels.launches, **blocked_kernels.launches}
+    return {**band_kernels.launches, **blocked_kernels.launches, **probe_kernels.launches}
 
 
 def small_graph_phase(device, n_valid=32, sizes=(32, 64, 128), n_graphs=5):
@@ -1607,6 +1632,428 @@ def fast_forward_phase(device, n):
     return total
 
 
+# ---------------------------------------------------------------- slice 6
+
+# (counter, precise, storage) of K2's bf16 epilogue (f32_epi=False)
+EPI_MODES = (("band_sage_bf16epi", True, "float32"),
+             ("band_sage_bf16epi_bf16", False, "float32"),
+             ("band_sage_bf16epi_bf16_act", False, "bfloat16"))
+PREC_MODES = ((True, "float32"), (False, "float32"), (False, "bfloat16"))
+DIAG_NAMES = ("noscale", "nodot", "noh", "hlin")
+# K2's bf16 epilogue vs its plain version.  Both round the same operands at
+# the same points, but the pooled f32 sums run in another order, so an
+# operand within that noise of a bf16 rounding boundary rounds the other way
+# in one of them and moves its row's products by one bf16 ulp (2^-8 of it).
+# The outputs are l2-normalised (|h'| <= 1): every element within EPI_TOL
+# (four bf16 ulps at 1.0) and EPI_SHARE of them within REL_TOL of max (plus
+# one bf16 ulp with bf16 storage), since such flips are rare.
+EPI_TOL, EPI_SHARE = 2 ** -6, 0.999
+
+
+def mode_suffix(precise, store):
+    return "" if precise else ("_bf16" if store == "float32" else "_bf16_act")
+
+
+def nibble_twin(banded):
+    """`banded` with both layers' bases re-stored in nibbles on the device:
+    the same band values (pack_nibbles' layout; values above 7 raise)."""
+    import dataclasses
+
+    def pack(dbg):
+        b = dbg.base
+        if int(b.min()) < 0 or int(b.max()) > 7:
+            raise AssertionError("band values outside [0, 7]: no nibble twin")
+        return dataclasses.replace(dbg, base=(b[..., 0::2] + 16 * b[..., 1::2]).contiguous(),
+                                   nibble=True)
+
+    return dataclasses.replace(banded, dbg0=pack(banded.dbg0), dbg1=pack(banded.dbg1))
+
+
+def compare_epi(name, got, ref):
+    """K2's bf16 epilogue against its plain version (EPI_TOL, EPI_SHARE)."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    scale = ref.abs().max().item()
+    ulp = (torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+           if got.dtype == torch.bfloat16 else 0.0)
+    share = (err <= REL_TOL * scale + ulp).float().mean().item()
+    worst = err.max().item()
+    log(f"check {name}: max_abs_err {worst:.3e}  max|ref| {scale:.3e}  share within "
+        f"REL_TOL {share:.6f}")
+    if not torch.isfinite(got).all() or worst > EPI_TOL or share < EPI_SHARE:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def diag_reference(dbg, row, col, h, sub, diag, precise):
+    """What K1's timing variant writes: noscale and nodot their plain
+    versions; noh (no h staging, no multiply-adds) row ⊙ Gᵀ·sub, K1's plain
+    version on h = 0; hlin (each block stages only its own S window rows)
+    K1's plain version on a band masked to the window columns [B, B + S).
+    noh and hlin define no operator: these are the port kernel's own
+    outputs, held so that a launch is seen to do what it says."""
+    import dataclasses
+
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import band_rows
+
+    if diag in ("noscale", "nodot"):
+        return bk.spmm_band_diag_plain(dbg, row, col, h, sub, diag, precise)
+    if diag == "noh":
+        return bk.spmm_band_plain(dbg, row, col, torch.zeros_like(h), sub, precise)
+    base = band_rows(dbg).clone()
+    base[:, :, : dbg.B] = 0
+    base[:, :, dbg.B + dbg.S:] = 0
+    own = dataclasses.replace(dbg, base=base, nibble=False)
+    return bk.spmm_band_plain(own, row, col, h, sub, precise)
+
+
+def check_slice6_kernels(device, n):
+    """The modes of this slice against their plain versions, and nibble
+    storage against int8, on 2^16-node check graphs.
+
+    Nibble: the unshuffled check graph (mirror lanes, no spill) built with
+    int8 and with nibble storage, after one batch of severs with duplicated
+    edges, both cells of one base byte and a padding entry
+    (bench_nibble.sever_batch): K1, K1's backward (row != col), K2 with
+    either epilogue and K3 (GP shards) in the three modes give the int8
+    launches' bits (max abs difference 0), and each nibble launch is held to
+    its plain version.  K2's bf16 epilogue on the int8 graph (compare_epi).
+    K1's diag variants on check graph A (mirror lanes and spill) in the f32
+    and bf16 modes against diag_reference.  The stream probe, with and
+    without the masked reductions, exactly.  Returns max abs errors by
+    counter."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.bench_nibble import sever_batch
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import (
+        band_rows, mirror_sub, sever_edges, spmm_dense_band_grad)
+    from mdcommunity_tpu_torch.ops.probe_kernels import stream_sum, stream_sum_plain
+    from mdcommunity_tpu_torch.parallel.band_partition import (
+        shard_band_graph, spmm_band_sharded, spmm_band_sharded_grad)
+    from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, make_mesh, split_nodes
+
+    errs = {}
+
+    def keep(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    g8 = synth_banded(n, False, 1, device).dbg0
+    g4 = synth_banded(n, False, 1, device, nibble=True).dbg0
+    batch = sever_batch(g8, np.random.default_rng(4))
+    for g in (g8, g4):
+        sever_edges(g, *batch)
+    if not torch.equal(band_rows(g4), g8.base[:, : g8.S]):
+        raise AssertionError("the nibble sever does not decode to the int8 sever")
+    log(f"nibble check graph: n={n} C={g8.C} spill={g8.spill.nnz}, "
+        f"{batch[0].numel()} severs")
+    h = torch.nn.functional.normalize(operands(g8, 64, 2, device)[0], dim=-1)
+    gg = torch.nn.functional.normalize(operands(g8, 64, 3, device)[0], dim=-1)
+    row, col = scales(g8, 7, device)
+    aw, bw = sage_weights(device)
+    mesh = make_mesh(GP, device)
+    split = lambda x: split_nodes(mesh, x)  # noqa: E731
+    for precise, store in PREC_MODES:
+        m = mode_suffix(precise, store)
+        hh, gh = (x.to(getattr(torch, store)).contiguous() for x in (h, gg))
+        cmp = compare_bf16 if store == "bfloat16" else compare
+        outs = []
+        for g in (g8, g4):
+            sub, sub_g = mirror_sub(g, col, hh, precise), mirror_sub(g, row, gh, precise)
+            o = {
+                f"band_spmm{m}": bk.spmm_band(g, row, col, hh, sub, precise=precise),
+                "band_spmm_bwd": bk.spmm_band(g, col, row, gh, sub_g, "band_spmm_bwd",
+                                              precise),
+                f"band_sage{m}": bk.sage_step(g, row, col, hh, sub, aw, bw, precise),
+                f"band_sage_bf16epi{m}": bk.sage_step(g, row, col, hh, sub, aw, bw, precise,
+                                                      f32_epi=False),
+                f"band_halo{m}": gather_nodes(mesh, spmm_band_sharded(
+                    mesh, shard_band_graph(mesh, g), split(row), split(col), split(hh),
+                    precise)),
+            }
+            if precise:   # the autograd backwards: BandSpmm and ShardedBandSpmm
+                x = h.clone().requires_grad_()
+                (o["band_spmm_bwd_autograd"],) = torch.autograd.grad(
+                    spmm_dense_band_grad(g, row, col, x), x, gg)
+                xs = [p.clone().requires_grad_() for p in split(h)]
+                o["band_halo_bwd"] = gather_nodes(mesh, list(torch.autograd.grad(
+                    spmm_band_sharded_grad(mesh, shard_band_graph(mesh, g), split(row),
+                                           split(col), xs), xs, split(gg))))
+            outs.append(o)
+        for name in outs[0]:
+            diff = (outs[0][name].float() - outs[1][name].float()).abs().max().item()
+            log(f"check nibble {name}{' (' + store + ')' if not precise else ''}: "
+                f"max abs difference against int8 {diff}")
+            if not torch.equal(outs[0][name], outs[1][name]):
+                raise AssertionError(f"nibble {name}: not the int8 launch's bits")
+        o, sub = outs[1], mirror_sub(g4, col, hh, precise)
+        keep(f"band_spmm{m}_nib", cmp(f"nibble K1{m}", o[f"band_spmm{m}"],
+                                      bk.spmm_band_plain(g4, row, col, hh, sub, precise)))
+        keep(f"band_sage{m}_nib", cmp(f"nibble K2{m}", o[f"band_sage{m}"],
+                                      bk.sage_step_plain(g4, row, col, hh, sub, aw, bw,
+                                                         precise)))
+        keep(f"band_halo{m}_nib", cmp(f"nibble K3{m}", o[f"band_halo{m}"],
+                                      bk.spmm_band_plain(g4, row, col, hh, sub, precise)))
+        keep(f"band_sage_bf16epi{m}_nib", compare_epi(
+            f"nibble K2 bf16 epilogue{m}", o[f"band_sage_bf16epi{m}"],
+            bk.sage_step_plain(g4, row, col, hh, sub, aw, bw, precise, f32_epi=False)))
+        if precise:
+            ref = bk.spmm_band_plain(g4, col, row, gh, mirror_sub(g4, row, gh))
+            keep("band_spmm_bwd_nib", compare("nibble K1 backward", o["band_spmm_bwd"], ref))
+            keep("band_spmm_bwd_nib", compare("nibble BandSpmm backward",
+                                              o["band_spmm_bwd_autograd"], ref))
+            keep("band_halo_bwd_nib", compare("nibble K3 backward", o["band_halo_bwd"], ref))
+        sub8 = mirror_sub(g8, col, hh, precise)
+        keep(f"band_sage_bf16epi{m}", compare_epi(
+            f"K2 bf16 epilogue{m}", bk.sage_step(g8, row, col, hh, sub8, aw, bw, precise,
+                                                 f32_epi=False),
+            bk.sage_step_plain(g8, row, col, hh, sub8, aw, bw, precise, f32_epi=False)))
+
+    dbg = synth_banded(n, True, 1, device).dbg0
+    h, live = operands(dbg, 64, 2, device)
+    row, col = scales(dbg, 7, device)
+    for precise in (True, False):
+        sub = mirror_sub(dbg, col, h, precise)
+        for d in DIAG_NAMES:
+            if device == "cpu" and d in ("noh", "hlin"):
+                continue   # no plain version: the wrapper refuses them on the CPU
+            got = bk.spmm_band(dbg, row, col, h, sub, precise=precise, diag=d)
+            keep(f"band_spmm{'' if precise else '_bf16'}_diag_{d}", compare(
+                f"K1 diag={d} precise={precise}", got,
+                diag_reference(dbg, row, col, h, sub, d, precise)))
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randint(0, 3, (64, 256, 512), generator=gen, device=device, dtype=torch.int8)
+    for extra in (False, True):
+        name = "stream_sum_extra" if extra else "stream_sum"
+        err = (stream_sum(x, 8, extra) - stream_sum_plain(x, 8, extra)).abs().max().item()
+        log(f"check {name}: max abs difference {err}")
+        if err != 0:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        keep(name, err)
+    return errs
+
+
+def yardstick(dbg, h, col, dtype):
+    """ms of the library yardstick: torch.bmm of the widened base against
+    the materialised col ⊙ h windows, in `dtype`."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops.band_kernels import _windows
+
+    base = widened(dbg, dtype)
+    win = _windows((h.float() * col[:, None]).to(dtype), dbg.n_blocks, dbg.S,
+                   dbg.B).contiguous()
+    ms = time_ms(lambda: torch.bmm(base, win))
+    del base, win
+    return ms
+
+
+def time_epi_kernels(device, banded, label):
+    """K2's bf16 epilogue in its three modes at D = 64 on layer 0 of `banded`
+    (spill-free) beside its bound (K2's), its plain version and the library
+    yardstick, after a check at these shapes.  Returns numbers by counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+
+    dbg = banded.dbg0
+    h, live = operands(dbg, 64, 5, device)
+    h = torch.nn.functional.normalize(h, dim=-1)
+    aw, bw = sage_weights(device)
+    lib = {dt: yardstick(dbg, h, live, dt) for dt in (torch.float32, torch.bfloat16)}
+    res, nib = {}, "_nib" if dbg.nibble else ""
+    for name, precise, store in EPI_MODES:
+        hh = h.to(getattr(torch, store)).contiguous()
+        sub = mirror_sub(dbg, live, hh, precise)
+
+        def kern():
+            return bk.sage_step(dbg, live, live, hh, sub, aw, bw, precise, f32_epi=False)
+
+        def plain():
+            return bk.sage_step_plain(dbg, live, live, hh, sub, aw, bw, precise, False)
+
+        err = compare_epi(f"{label} {name + nib}", kern(), plain())
+        bound_ms, bound_by = bounds(dbg, 64, True, 2 if store == "bfloat16" else 4,
+                                    PEAK_F32_S if precise else PEAK_BF16_S)
+        res[name + nib] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
+                               bound_by=bound_by, max_abs_err=err,
+                               library_ms=lib[torch.float32 if precise else torch.bfloat16])
+        log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} "
+            + json.dumps(res[name + nib]))
+    return res
+
+
+def diag_bounds(dbg, D, diag, precise):
+    """Least time of K1's timing variant on these inputs: the bytes it must
+    move (the band; h, the scales, the mirror table and slot map as far as
+    it reads them; the output) over the memory rate, and the band's
+    multiply-adds it does (hlin: those of the window columns it stages) at
+    the FP32 or bf16 tensor-core rate.  Returns (ms, bound_by)."""
+    from mdcommunity_tpu_torch.ops.dense_band import band_rows
+
+    nb, S, B, pad_n, C = dbg.n_blocks, dbg.S, dbg.B, dbg.pad_n, dbg.C
+    band = band_rows(dbg)
+    hb, vec, mir = pad_n * D * 4, pad_n * 4, nb * C * D * 4 + pad_n * 4
+    byts = nb * S * dbg.W2 + hb   # the band and the output
+    byts += {"noscale": hb + mir, "nodot": hb + 2 * vec, "noh": vec + mir,
+             "hlin": hb + 2 * vec + mir}[diag]
+    nnz = 0 if diag in ("nodot", "noh") else int(
+        (band[:, :, B:B + S] if diag == "hlin" else band).ne(0).sum().item())
+    t_b = byts / PEAK_BYTES_S
+    t_o = 2 * nnz * D / (PEAK_F32_S if precise else PEAK_BF16_S)
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def time_diag_kernels(device, banded, label):
+    """K1's four timing variants in the f32 and bf16 modes at D = 64 on
+    layer 0 of `banded`, beside their bounds (diag_bounds), their references
+    (diag_reference) and, for noscale (the unscaled operator), the library
+    yardstick.  noh and hlin need the card.  Returns numbers by counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+
+    dbg = banded.dbg0
+    h, live = operands(dbg, 64, 5, device)
+    ones = torch.ones_like(live)
+    res = {}
+    for precise in (True, False):
+        sub = mirror_sub(dbg, live, h, precise)
+        lib = yardstick(dbg, h, ones, torch.float32 if precise else torch.bfloat16)
+        for d in DIAG_NAMES:
+            if device == "cpu" and d in ("noh", "hlin"):
+                continue
+
+            def kern(d=d):
+                return bk.spmm_band(dbg, live, live, h, sub, precise=precise, diag=d)
+
+            def plain(d=d):
+                return diag_reference(dbg, live, live, h, sub, d, precise)
+
+            name = f"band_spmm{'' if precise else '_bf16'}_diag_{d}"
+            err = compare(f"{label} {name}", kern(), plain())
+            bound_ms, bound_by = diag_bounds(dbg, 64, d, precise)
+            res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
+                             bound_by=bound_by, max_abs_err=err,
+                             library_ms=lib if d == "noscale" else None)
+            log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} " + json.dumps(res[name]))
+    return res
+
+
+def time_stream(device, banded, label, G=8):
+    """The stream probe over layer 0's stored base [nb, S+C, W2] in groups
+    of G blocks, with and without the masked reductions, beside its bound
+    (the base read once), its plain version and, without them, the library
+    call torch.sum(..., dtype=float32) of the same groups.  Returns numbers
+    by counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops.probe_kernels import stream_sum, stream_sum_plain
+
+    x = banded.dbg0.base
+    x = x[: x.shape[0] // G * G]
+    flat = x.view(x.shape[0] // G, -1)
+    res = {}
+    for extra in (False, True):
+        name = "stream_sum_extra" if extra else "stream_sum"
+        err = (stream_sum(x, G, extra) - stream_sum_plain(x, G, extra)).abs().max().item()
+        if err != 0:
+            raise AssertionError(f"{label} {name}: kernel disagrees with its plain version")
+        res[name] = dict(
+            ms=time_ms(lambda: stream_sum(x, G, extra)),
+            plain_ms=time_ms(lambda: stream_sum_plain(x, G, extra)),
+            bound_ms=1e3 * x.numel() / PEAK_BYTES_S, bound_by="bytes", max_abs_err=err,
+            library_ms=None if extra else time_ms(
+                lambda: torch.sum(flat, dim=1, dtype=torch.float32)))
+        log(f"time {label} {name}: shape={list(x.shape)} G={G} " + json.dumps(res[name]))
+    return res
+
+
+def time_slice6(device, banded, simple, clean, label):
+    """This slice's modes at `banded`'s shapes: K2's bf16 epilogue, K1's diag
+    variants and the stream probe on `banded`; nibble twins of K1, K1's
+    backward, K2 with either epilogue and their bf16 modes on `simple` (a
+    build whose band values fit a nibble), and of K3 on the spill-free
+    `clean` one.  Returns numbers by counter."""
+    import torch
+
+    res = time_epi_kernels(device, banded, label)
+    res.update(time_diag_kernels(device, banded, label))
+    res.update(time_stream(device, banded, label))
+    twin = nibble_twin(simple)
+    res.update(time_kernels(device, twin, label))
+    res.update(time_bf16_kernels(device, twin, label))
+    res.update(time_epi_kernels(device, twin, label))
+    del twin
+    res.update(time_halo_kernels(device, nibble_twin(clean), label))
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return res
+
+
+def probe_phase(device, small=False):
+    """The slice's path: the four probe entry points through their mains,
+    probe_f32_epi at 18,222 nodes and bench_nibble, tune_band --diag and
+    probe_hbm_roof at 2^20 (few repetitions), every launch count set to 0
+    just before and read just after.  small: the CPU rehearsal's sizes.
+    Returns the counts."""
+    from mdcommunity_tpu_torch import bench_nibble, probe_f32_epi, probe_hbm_roof, tune_band
+
+    import torch
+
+    quick = ["--reps", "3", "--warm", "1"]
+    if small:
+        quick += ["--device", "cpu"]
+    runs = [
+        (probe_f32_epi, ["--n", "2048"] if small else []),
+        (bench_nibble, ["--n-check", "4096", "--n", "4096"] if small else []),
+        (tune_band, ["--diag"] + (["--n", "4096"] if small else [])),
+        (probe_hbm_roof, ["--n", "4096"] if small else []),
+    ]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for probe, argv in runs:
+        t1 = time.perf_counter()
+        probe.main(argv + quick)
+        log(f"probe {probe.__name__.rsplit('.', 1)[1]}: {time.perf_counter() - t1:.1f} s")
+    counts = all_launches()
+    log(f"probe phase: {time.perf_counter() - t0:.1f} s, launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return counts
+
+
+# (counter, file:line of the TPU kernel code it replaces, mode) of this
+# slice's modes on the kernels line
+SLICE6 = [(f"{k}{mode_suffix(p, s)}_nib", "mdcommunity_tpu/ops/band_pallas.py:584",
+           f"nibble=True (:584-602){'' if p else ', precise=False, ' + s + ' storage'}"
+           + extra)
+          for k, extra in (("band_spmm", ""), ("band_sage", ", sage=True"),
+                           ("band_sage_bf16epi", ", sage=True, f32_epi=False"),
+                           ("band_halo", ", halo=True"))
+          for p, s in PREC_MODES]
+SLICE6 += [(name, "mdcommunity_tpu/ops/band_pallas.py:584", mode) for name, mode in (
+    ("band_spmm_bwd_nib", "nibble=True, the VJP with row and col swapped (:811-829)"),
+    ("band_halo_bwd_nib", "nibble=True, halo=True, the VJP (band_partition.py:312-327)"))]
+SLICE6 += [(name, "mdcommunity_tpu/ops/band_pallas.py:653",
+            "sage=True, f32_epi=False (:653-668)" + ("" if p else f", precise=False, {s} storage"))
+           for name, p, s in EPI_MODES]
+SLICE6 += [(f"band_spmm{'' if p else '_bf16'}_diag_{d}", "mdcommunity_tpu/ops/band_pallas.py:280",
+            f"diag={d!r} (:280-286){'' if p else ', precise=False'}")
+           for p in (True, False) for d in DIAG_NAMES]
+SLICE6 += [("stream_sum", "scripts/probe_pallas_stream.py:20", "make_stream"),
+           ("stream_sum_extra", "scripts/probe_overlap.py:51", "make(extra_compute=True)")]
+
+
 # ---------------------------------------------------------------- driver
 
 
@@ -1623,6 +2070,7 @@ def main(argv=None):
     import torch
 
     from mdcommunity_tpu_torch.utils.device import set_precise_matmul
+    from mdcommunity_tpu_torch.utils.timing import gpu_line
 
     set_precise_matmul()
     if args.rehearse:
@@ -1653,6 +2101,10 @@ def main(argv=None):
             time_halo_kernels("cpu", small, "rehearsal", gp)
             sharded_forward_phase("cpu", small, gp)
             sharded_trainer_phase("cpu", small, edges, 16, gp)
+        check_slice6_kernels("cpu", 2048)
+        shuffled = synth_banded(2048, True, 0, "cpu")
+        time_slice6("cpu", shuffled, shuffled, small, "rehearsal")
+        probe_phase("cpu", small=True)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -1665,18 +2117,23 @@ def main(argv=None):
     errs.update(check_bf16_kernels(device, 1 << 16))
     errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
     errs.update(check_halo_kernels(device, 1 << 16))
+    errs.update(check_slice6_kernels(device, 1 << 16))
 
     main_graph = synth_banded(18222, True, 0, device)
     times = time_kernels(device, main_graph, "18,432 rows")
     times.update(time_bf16_kernels(device, main_graph, "18,432 rows"))
-    del main_graph
     # the sharded engine refuses spill: the unshuffled build
-    times.update(time_halo_kernels(device, synth_banded(18222, False, 0, device),
-                                   "18,432 rows"))
+    clean18 = synth_banded(18222, False, 0, device)
+    times.update(time_halo_kernels(device, clean18, "18,432 rows"))
+    times.update(time_slice6(device, main_graph, main_graph, clean18, "18,432 rows"))
+    del main_graph, clean18
     big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
                                   with_edges=True)
     time_kernels(device, big, "2^20 rows")
     time_bf16_kernels(device, big, "2^20 rows")
+    big_simple = synth_banded(1 << 20, False, 0, device, reorder=False, simple=True)
+    time_slice6(device, big, big_simple, big_simple, "2^20 rows")
+    del big_simple
     torch.cuda.empty_cache()
     blocked_errs, blocked_times = blocked_kernel_phases(device)
 
@@ -1704,6 +2161,11 @@ def main(argv=None):
             raise AssertionError(f"kernel {name} was not launched on the sharded path")
     del big
     torch.cuda.empty_cache()
+
+    probe_counts = probe_phase(device)
+    for name, _, _ in SLICE6:
+        if probe_counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the probes' path")
 
     small_graph_phase(device)
     bd, net, blocked_counts = blocked_phase(device, 18222, 18, BLOCKED_STEPS)
@@ -1742,6 +2204,14 @@ def main(argv=None):
             name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
             replaces="mdcommunity_tpu/ops/band_pallas.py:259", mode=mode,
             launches=halo_counts[name], **t))
+    for name, replaces, mode in SLICE6:
+        t = dict(times[name])
+        t["max_abs_err"] = max(errs.get(name, 0.0), t["max_abs_err"])
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mdcommunity_tpu_torch/csrc/"
+                   + ("probe.cu" if name.startswith("stream") else "band.cu"),
+            replaces=replaces, mode=mode, launches=probe_counts[name], **t))
     for name, launched, replaces in (
         ("spmm_block", blocked_counts, "184"), ("spmm_block_bwd", grad_counts, "184"),
         ("sddmm_block", grad_counts, "309"),

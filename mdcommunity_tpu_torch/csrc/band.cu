@@ -31,6 +31,26 @@
 // the TPU's vector tiles and have no counterpart here: h stays [pad_n, D]
 // and the scales are read per row.
 //
+// The TPU kernel's remaining modes are template parameters of band_kernel:
+//   NIB (nibble=True, band_pallas.py:584-602): the base rows hold two window
+//     columns a byte, byte = a[w] + 16·a[w+1] for even w, each in [0, 7]
+//     (the row pitch is W2/2 bytes, the mirror-lane rows included).  The
+//     staging unpacks them where it widens int8, 8 columns a 32-bit word;
+//     the staged values and the sum order are the int8 path's, so a nibble
+//     launch gives the int8 launch's bits in every mode (K1, K2, K3).
+//   EPI (f32_epi=False, :653-668): K2's epilogue rounds its dot operands
+//     (the pooled block after the row scale, the own rows' h, A_w and B_w)
+//     to bf16 and accumulates in f32 (FP32 FMA on bf16 values: each product
+//     is exact), in either precise mode; relu, Σz² and rsqrt stay f32.
+//   DIAG (diag=, :280-286, 480-498, 623-633), K1 only, timing variants
+//     whose output is wrong by design: 1 noscale (no col scale in the
+//     window staging, no row scale: out = A_band @ h + Gᵀ·sub), 2 nodot
+//     (staging and scales, no multiply-adds: out[i] = row[i]·col[j]·h[j],
+//     j = i − B mod pad_n, bf16(col[j]·h[j]) in the bf16 mode, re-read from
+//     global memory in the epilogue), 3 noh (nodot without the h-window
+//     staging: out = row ⊙ Gᵀ·sub), 4 hlin (a block stages only its own S
+//     window rows, no B-row overlap and no wrap; the rest are zeros).
+//
 // K3 replaces the same kernel's halo=True mode (band_pallas.py:274-278,
 // 394-478), the local engine of the gp-sharded band operator
 // (parallel/band_partition.py:189-291).  It is band_kernel with HALO set: a
@@ -93,6 +113,8 @@ constexpr int KC = 64;    // window columns staged per step
 constexpr int NT = 256;   // threads per block
 constexpr int NW = NT / 32;
 constexpr int LDA = KC + 8;   // bf16 modes: staged band row pitch (elements)
+// DIAG values (band_pallas.py's diag names)
+constexpr int FULL = 0, NOSCALE = 1, NODOT = 2, NOH = 3, HLIN = 4;
 
 template <typename T>
 struct BandArgs {
@@ -130,24 +152,45 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // col ⊙ h at window row j = b·S − B + w of block b: K1 wraps it (mod
 // pad_n; |j − wrap| < pad_n because B <= S), K3 reads it from the halos
-// past either end of the shard
-template <bool HALO, typename T>
+// past either end of the shard.  DIAG noscale stages h unscaled; hlin
+// stages only the block's own rows (B <= w < B + S) and zeros elsewhere.
+template <bool HALO, int DIAG, typename T>
 __device__ __forceinline__ float window_val(const BandArgs<T>& a, int b, int w, int d,
                                             int pad_n) {
   int j = b * a.S - a.B + w;
-  if constexpr (HALO) {
+  if constexpr (DIAG == HLIN) {
+    if (w < a.B || w >= a.B + a.S) return 0.f;
+  } else if constexpr (HALO) {
     if (j < 0) return a.lc[j + a.B] * ld(a.lh + (long long)(j + a.B) * a.D + d);
     if (j >= pad_n) return a.rc[j - pad_n] * ld(a.rh + (long long)(j - pad_n) * a.D + d);
   } else {
     if (j < 0) j += pad_n;
     if (j >= pad_n) j -= pad_n;
   }
-  return a.col[j] * ld(a.h + (long long)j * a.D + d);
+  const float v = ld(a.h + (long long)j * a.D + d);
+  return DIAG == NOSCALE ? v : a.col[j] * v;
+}
+
+// window column t of a 32-bit base word: int8 storage holds 4 columns a
+// word, nibble storage 8 (column w + t in bits 4t..4t+3)
+template <bool NIB>
+__device__ __forceinline__ float base_col(uint32_t word, int t) {
+  if constexpr (NIB) return (float)((word >> (4 * t)) & 15u);
+  return (float)(int8_t)(word >> (8 * t));
+}
+
+// the 32-bit base word holding window columns [w, w + CPW) of local row r
+template <bool NIB>
+__device__ __forceinline__ uint32_t base_word(const int8_t* base_blk, int r, int w,
+                                              int W2) {
+  const int pitch = NIB ? W2 / 2 : W2;
+  return *reinterpret_cast<const uint32_t*>(base_blk + (long long)r * pitch +
+                                            (NIB ? w / 2 : w));
 }
 
 // bf16 modes: acc[i][j] (rows 4·rg+i, columns 4·dg+j of the tile) =
 // bf16(A_band) @ bf16(col ⊙ h) on the tensor cores, f32 accumulation.
-template <bool HALO, typename T>
+template <bool HALO, bool NIB, int DIAG, typename T>
 __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
                                               unsigned char* smem,
                                               float (&acc)[4][4]) {
@@ -160,7 +203,8 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
   const int nfc = DP / 16, ntile = (TR / 16) * nfc;   // ntile <= 2·NW
   __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [TR][LDA]
   __nv_bfloat16* bs = as + TR * LDA;                            // [KC][LDB]
-  const int8_t* base_blk = a.base + (long long)b * (S + a.C) * W2;
+  constexpr int CPW = NIB ? 8 : 4;   // window columns a 32-bit word
+  const int8_t* base_blk = a.base + (long long)b * (S + a.C) * (NIB ? W2 / 2 : W2);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[2];
   wmma::fill_fragment(fc[0], 0.f);
@@ -168,35 +212,35 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
 
   for (int w0 = 0; w0 < W2; w0 += KC) {
     int nz = 0;
-    // 4 window columns per 32-bit load; 16 consecutive threads read one
-    // row's 64 bytes.  int8 -> bf16 is exact.
-    for (int e = tid; e < TR * (KC / 4); e += nthr) {
-      const int q = e % (KC / 4), r = e / (KC / 4);
-      const int w = w0 + 4 * q;
+    // CPW window columns per 32-bit load; consecutive threads read one
+    // row's bytes.  int8 (or a nibble) -> bf16 is exact.
+    for (int e = tid; e < TR * (KC / CPW); e += nthr) {
+      const int q = e % (KC / CPW), r = e / (KC / CPW);
+      const int w = w0 + CPW * q;
       uint32_t word = 0;
-      if (w < W2 && tile0 + r < S)
-        word = *reinterpret_cast<const uint32_t*>(
-            base_blk + (long long)(tile0 + r) * W2 + w);
+      if (w < W2 && tile0 + r < S) word = base_word<NIB>(base_blk, tile0 + r, w, W2);
       nz |= word != 0u;
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(as + r * LDA + 4 * q);
-      dst[0] = __floats2bfloat162_rn((float)(int8_t)word, (float)(int8_t)(word >> 8));
-      dst[1] = __floats2bfloat162_rn((float)(int8_t)(word >> 16),
-                                     (float)(int8_t)(word >> 24));
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(as + r * LDA + CPW * q);
+#pragma unroll
+      for (int t = 0; t < CPW / 2; ++t)
+        dst[t] = __floats2bfloat162_rn(base_col<NIB>(word, 2 * t),
+                                       base_col<NIB>(word, 2 * t + 1));
     }
     // all-zero base chunk: nothing to add (the barrier also orders the
     // previous chunk's fragment loads before this chunk's writes)
     if (!__syncthreads_or(nz)) continue;
+    if constexpr (DIAG == NOH) continue;   // the barrier above was the last
     for (int e = tid; e < KC * DP; e += nthr) {
       const int k = e / DP, d = e - k * DP;
       float v = 0.f;
-      if (w0 + k < W2 && d < D) v = window_val<HALO>(a, b, w0 + k, d, pad_n);
+      if (w0 + k < W2 && d < D) v = window_val<HALO, DIAG>(a, b, w0 + k, d, pad_n);
       bs[k * LDB + d] = __float2bfloat16_rn(v);
     }
     __syncthreads();
 #pragma unroll
     for (int t = 0; t < 2; ++t) {
       const int tile = warp + NW * t;
-      if (tile < ntile) {
+      if (DIAG != NODOT && tile < ntile) {
         const int rt = tile / nfc, ct = tile - rt * nfc;
 #pragma unroll
         for (int kk = 0; kk < KC; kk += 16) {
@@ -233,11 +277,15 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a,
 }
 
 // BF: bf16 operands (precise=False).  HALO: K3's linear windows over the
-// halos.  T: storage of h and out (float, or __nv_bfloat16 with BF).
-template <bool SAGE, bool BF, bool HALO, typename T>
+// halos.  T: storage of h and out (float, or __nv_bfloat16 with BF).  NIB:
+// nibble base storage.  EPI: K2's bf16 epilogue (f32_epi=False).  DIAG:
+// K1's timing variants (FULL for the real operator).
+template <bool SAGE, bool BF, bool HALO, typename T, bool NIB, bool EPI, int DIAG>
 __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
   static_assert(BF || std::is_same<T, float>::value, "bf16 storage needs BF");
   static_assert(!(SAGE && HALO), "K2 has no halo mode");
+  static_assert(SAGE || !EPI, "the bf16 epilogue is K2's");
+  static_assert(DIAG == FULL || !(SAGE || HALO || NIB), "diag variants are K1's");
   extern __shared__ __align__(128) unsigned char smem[];
   const int TR = a.TR, DG = a.DG, DP = 4 * DG, D = a.D, S = a.S, B = a.B;
   const int W2 = S + 2 * B;
@@ -256,39 +304,38 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   if constexpr (BF) {
-    contract_bf16<HALO>(a, smem, acc);
+    contract_bf16<HALO, NIB, DIAG>(a, smem, acc);
   } else {
     float* bs = reinterpret_cast<float*>(smem);   // [KC][TR] base, transposed
     float* hs = bs + KC * TR;                     // [KC][DP] col ⊙ h window
-    const int8_t* base_blk = a.base + (long long)b * (S + a.C) * W2;
+    constexpr int CPW = NIB ? 8 : 4;              // window columns a 32-bit word
+    const int8_t* base_blk = a.base + (long long)b * (S + a.C) * (NIB ? W2 / 2 : W2);
     for (int w0 = 0; w0 < W2; w0 += KC) {
       int nz = 0;
-      // 4 window columns per 32-bit load (W2 and w0 are multiples of 4);
-      // consecutive threads take consecutive rows, so the shared stores of
-      // a warp hit 32 banks
-      for (int e = tid; e < TR * (KC / 4); e += nthr) {
+      // CPW window columns per 32-bit load (W2 and w0 are multiples of
+      // CPW); consecutive threads take consecutive rows, so the shared
+      // stores of a warp hit 32 banks
+      for (int e = tid; e < TR * (KC / CPW); e += nthr) {
         const int r = e % TR, q = e / TR;
-        const int w = w0 + 4 * q;
+        const int w = w0 + CPW * q;
         uint32_t word = 0;
-        if (w < W2 && tile0 + r < S)
-          word = *reinterpret_cast<const uint32_t*>(
-              base_blk + (long long)(tile0 + r) * W2 + w);
+        if (w < W2 && tile0 + r < S) word = base_word<NIB>(base_blk, tile0 + r, w, W2);
         nz |= word != 0u;
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          bs[(4 * q + t) * TR + r] = (float)(int8_t)(word >> (8 * t));
+        for (int t = 0; t < CPW; ++t) bs[(CPW * q + t) * TR + r] = base_col<NIB>(word, t);
       }
       // all-zero base chunk: nothing to add (the barrier also orders the
       // previous chunk's reads of hs before this chunk's writes)
       if (!__syncthreads_or(nz)) continue;
+      if constexpr (DIAG == NOH) continue;   // the barrier above was the last
       for (int e = tid; e < KC * DP; e += nthr) {
         const int k = e / DP, d = e - k * DP;
         float v = 0.f;
-        if (w0 + k < W2 && d < D) v = window_val<HALO>(a, b, w0 + k, d, pad_n);
+        if (w0 + k < W2 && d < D) v = window_val<HALO, DIAG>(a, b, w0 + k, d, pad_n);
         hs[k * DP + d] = v;
       }
       __syncthreads();
-      if (owner) {
+      if (DIAG != NODOT && owner) {
 #pragma unroll 4
         for (int k = 0; k < KC; ++k) {
           const float4 bv = *reinterpret_cast<const float4*>(bs + k * TR + 4 * rg);
@@ -320,21 +367,25 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
       const int d = 4 * dg + j;
       float v = acc[i][j];
       if (rv && d < D) {
-        if (sl >= 0) {
+        if constexpr (DIAG == NODOT) {   // the window value of row i − B
+          const float c = window_val<HALO, FULL>(a, b, r, d, pad_n);
+          v = BF ? round_bf16(c) : c;
+        } else if (sl >= 0) {
           const float s = a.sub[((long long)b * a.C + sl) * D + d];
           v += BF ? round_bf16(s) : s;
         }
-        v *= rs;
+        if (DIAG != NOSCALE) v *= rs;
         if (!SAGE) st(a.out + node * D + d, v);
       } else {
         v = 0.f;
       }
-      if (SAGE) pool[(4 * rg + i) * DP + d] = v;
+      if (SAGE) pool[(4 * rg + i) * DP + d] = EPI ? round_bf16(v) : v;
     }
   }
   if (!SAGE) return;
 
   // K2 epilogue: z = relu(pool @ A_w + h_own @ B_w); h' = z · rsqrt(Σz²)
+  // (EPI: the four dot operands rounded to bf16, f32 sums)
   float* hown = pool + TR * DP;   // [TR][DP] unscaled h of the tile's rows
   float* as = hown + TR * DP;     // [D][DP]
   float* bws = as + D * DP;       // [D][DP]
@@ -343,12 +394,14 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
     const int r = e / DP, d = e - r * DP;
     float v = 0.f;
     if (tile0 + r < S && d < D) v = ld(a.h + ((long long)b * S + tile0 + r) * D + d);
-    hown[e] = v;
+    hown[e] = EPI ? round_bf16(v) : v;
   }
   for (int e = tid; e < D * DP; e += nthr) {
     const int k = e / DP, c = e - k * DP;
-    as[e] = c < D ? a.aw[k * D + c] : 0.f;
-    bws[e] = c < D ? a.bw[k * D + c] : 0.f;
+    const float av = c < D ? a.aw[k * D + c] : 0.f;
+    const float bv = c < D ? a.bw[k * D + c] : 0.f;
+    as[e] = EPI ? round_bf16(av) : av;
+    bws[e] = EPI ? round_bf16(bv) : bv;
   }
   __syncthreads();
 
@@ -402,14 +455,14 @@ __global__ void __launch_bounds__(NT) band_kernel(BandArgs<T> a) {
 }
 
 // launches blocks [a.b0, b1) of a.nb
-template <bool BF, bool HALO, typename T>
-int launch(bool sage, BandArgs<T> a, int b1, cudaStream_t stream) {
+template <bool SAGE, bool BF, bool HALO, typename T, bool NIB, bool EPI, int DIAG>
+int launch(BandArgs<T> a, int b1, cudaStream_t stream) {
   // the bf16 modes pad D to whole 16-column fragments and take 16-row
   // fragments, with at most 2·NW fragments a block (TR·DP <= 16·NT)
   const int q = BF ? 16 : 4;
   if (a.D < 1 || a.nb < 1 || a.b0 < 0 || b1 <= a.b0 || b1 > a.nb ||
       b1 - a.b0 > 65535 || a.S < 1 || a.B < 0 || a.B > a.S || a.C < 0 ||
-      (a.S + 2 * a.B) % 4 != 0 || (HALO && sage))
+      (a.S + 2 * a.B) % (NIB ? 8 : 4) != 0)
     return (int)cudaErrorInvalidValue;
   const int DP = (a.D + q - 1) / q * q;
   a.DG = DP / 4;
@@ -422,17 +475,13 @@ int launch(bool sage, BandArgs<T> a, int b1, cudaStream_t stream) {
   size_t shm = BF ? sizeof(__nv_bfloat16) * ((size_t)TR * LDA + (size_t)KC * (DP + 8))
                   : sizeof(float) * (size_t)KC * (TR + DP);
   if (BF && sizeof(float) * (size_t)TR * DP > shm) shm = sizeof(float) * (size_t)TR * DP;
-  if (sage) {
+  if (SAGE) {
     const size_t epi =
         sizeof(float) * ((size_t)2 * TR * DP + (size_t)2 * a.D * DP +
                          (size_t)TR * a.DG);
     if (epi > shm) shm = epi;
   }
-  void (*kern)(BandArgs<T>);
-  if constexpr (HALO)
-    kern = band_kernel<false, BF, true, T>;
-  else
-    kern = sage ? band_kernel<true, BF, false, T> : band_kernel<false, BF, false, T>;
+  void (*kern)(BandArgs<T>) = band_kernel<SAGE, BF, HALO, T, NIB, EPI, DIAG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   if (err != cudaSuccess) return (int)err;
@@ -441,14 +490,47 @@ int launch(bool sage, BandArgs<T> a, int b1, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the runtime flags to the kernel's template parameters: nib (nibble
+// storage) in every mode, epi (K2's bf16 epilogue) only with sage, diag
+// (K1's timing variants) only for K1 with f32 storage
+template <bool SAGE, bool BF, bool HALO, typename T>
+int dispatch(BandArgs<T> a, int b1, int nib, int epi, int diag, cudaStream_t stream) {
+  if constexpr (SAGE) {
+    if (diag) return (int)cudaErrorInvalidValue;
+    if (nib)
+      return epi ? launch<SAGE, BF, HALO, T, true, true, FULL>(a, b1, stream)
+                 : launch<SAGE, BF, HALO, T, true, false, FULL>(a, b1, stream);
+    return epi ? launch<SAGE, BF, HALO, T, false, true, FULL>(a, b1, stream)
+               : launch<SAGE, BF, HALO, T, false, false, FULL>(a, b1, stream);
+  } else {
+    if (epi) return (int)cudaErrorInvalidValue;
+    if (diag) {
+      if constexpr (!HALO && std::is_same<T, float>::value) {
+        if (nib) return (int)cudaErrorInvalidValue;
+        switch (diag) {
+          case NOSCALE: return launch<false, BF, false, T, false, false, NOSCALE>(a, b1, stream);
+          case NODOT: return launch<false, BF, false, T, false, false, NODOT>(a, b1, stream);
+          case NOH: return launch<false, BF, false, T, false, false, NOH>(a, b1, stream);
+          case HLIN: return launch<false, BF, false, T, false, false, HLIN>(a, b1, stream);
+        }
+      }
+      return (int)cudaErrorInvalidValue;
+    }
+    return nib ? launch<false, BF, HALO, T, true, false, FULL>(a, b1, stream)
+               : launch<false, BF, HALO, T, false, false, FULL>(a, b1, stream);
+  }
+}
+
 template <typename T>
 int launch_bf16(bool sage, const int8_t* base, const void* h, const float* row,
                 const float* col, const float* sub, const int32_t* slot,
                 const float* aw, const float* bw, void* out, int nb, int S,
-                int B, int C, int D, cudaStream_t stream) {
+                int B, int C, int D, int nib, int epi, int diag,
+                cudaStream_t stream) {
   BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, aw, bw,
                 static_cast<T*>(out), nb, S, B, C, D, 0, 0};
-  return launch<true, false, T>(sage, a, nb, stream);
+  return sage ? dispatch<true, true, false, T>(a, nb, nib, epi, diag, stream)
+              : dispatch<false, true, false, T>(a, nb, nib, epi, diag, stream);
 }
 
 template <typename T>
@@ -456,73 +538,81 @@ int launch_halo_bf16(const int8_t* base, const void* h, const void* lh,
                      const void* rh, const float* row, const float* col,
                      const float* lc, const float* rc, const float* sub,
                      const int32_t* slot, void* out, int nb, int S, int B,
-                     int C, int D, int b0, int b1, cudaStream_t stream) {
+                     int C, int D, int b0, int b1, int nib, cudaStream_t stream) {
   BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, nullptr,
                 nullptr, static_cast<T*>(out), nb, S, B, C, D, 0, 0,
                 static_cast<const T*>(lh), static_cast<const T*>(rh), lc, rc, b0};
-  return launch<true, true, T>(false, a, b1, stream);
+  return dispatch<false, true, true, T>(a, b1, nib, 0, 0, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1.  Returns the cudaError_t of the launch (0 = launched).
+// Every entry point returns the cudaError_t of the launch (0 = launched).
+// nib = 1: the base is nibble storage [nb, S+C, W2/2].  diag: 0 (the
+// operator) or a K1 timing variant (1 noscale, 2 nodot, 3 noh, 4 hlin).
+// epi_bf16 = 1: K2's bf16 epilogue (f32_epi=False).
+
+// K1.
 int mdc_band_spmm(const int8_t* base, const float* h, const float* row,
                   const float* col, const float* sub, const int32_t* slot,
-                  float* out, int nb, int S, int B, int C, int D,
-                  void* stream) {
+                  float* out, int nb, int S, int B, int C, int D, int nib,
+                  int diag, void* stream) {
   BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
                     nb, S, B, C, D, 0, 0};
-  return launch<false, false, float>(false, a, nb, (cudaStream_t)stream);
+  return dispatch<false, false, false, float>(a, nb, nib, 0, diag, (cudaStream_t)stream);
 }
 
-// K2.  aw, bw: f32 [D, D].  Returns the cudaError_t of the launch.
+// K2.  aw, bw: f32 [D, D].
 int mdc_band_sage(const int8_t* base, const float* h, const float* row,
                   const float* col, const float* sub, const int32_t* slot,
                   const float* aw, const float* bw, float* out, int nb,
-                  int S, int B, int C, int D, void* stream) {
+                  int S, int B, int C, int D, int nib, int epi_bf16, void* stream) {
   BandArgs<float> a{base, h, row, col, sub, slot, aw, bw, out,
                     nb, S, B, C, D, 0, 0};
-  return launch<false, false, float>(true, a, nb, (cudaStream_t)stream);
+  return dispatch<true, false, false, float>(a, nb, nib, epi_bf16, 0, (cudaStream_t)stream);
 }
 
 // K1, bf16 operands.  h and out are f32 (bf16_act = 0) or bf16 (1); D <= 256.
 int mdc_band_spmm_bf16(const int8_t* base, const void* h, const float* row,
                        const float* col, const float* sub, const int32_t* slot,
                        void* out, int nb, int S, int B, int C, int D,
-                       int bf16_act, void* stream) {
+                       int bf16_act, int nib, int diag, void* stream) {
   return bf16_act
       ? launch_bf16<__nv_bfloat16>(false, base, h, row, col, sub, slot, nullptr,
-                                   nullptr, out, nb, S, B, C, D, (cudaStream_t)stream)
+                                   nullptr, out, nb, S, B, C, D, nib, 0, diag,
+                                   (cudaStream_t)stream)
       : launch_bf16<float>(false, base, h, row, col, sub, slot, nullptr, nullptr,
-                           out, nb, S, B, C, D, (cudaStream_t)stream);
+                           out, nb, S, B, C, D, nib, 0, diag, (cudaStream_t)stream);
 }
 
-// K2, bf16 operands, f32 epilogue.  aw, bw: f32 [D, D].
+// K2, bf16 operands, f32 epilogue (or bf16 with epi_bf16).  aw, bw: f32 [D, D].
 int mdc_band_sage_bf16(const int8_t* base, const void* h, const float* row,
                        const float* col, const float* sub, const int32_t* slot,
                        const float* aw, const float* bw, void* out, int nb,
-                       int S, int B, int C, int D, int bf16_act, void* stream) {
+                       int S, int B, int C, int D, int bf16_act, int nib,
+                       int epi_bf16, void* stream) {
   return bf16_act
       ? launch_bf16<__nv_bfloat16>(true, base, h, row, col, sub, slot, aw, bw,
-                                   out, nb, S, B, C, D, (cudaStream_t)stream)
+                                   out, nb, S, B, C, D, nib, epi_bf16, 0,
+                                   (cudaStream_t)stream)
       : launch_bf16<float>(true, base, h, row, col, sub, slot, aw, bw, out, nb,
-                           S, B, C, D, (cudaStream_t)stream);
+                           S, B, C, D, nib, epi_bf16, 0, (cudaStream_t)stream);
 }
 
 // K3: blocks [b0, b1) of one shard of nb blocks.  h, out: [nb·S, D];
 // lh, rh: [B, D] (null when no block of the range reads them: 1 <= b0,
 // b1 <= nb − 1); lc, rc: [B] likewise; row, col, slot: [nb·S];
-// sub: [nb·C, D].  Returns the cudaError_t of the launch.
+// sub: [nb·C, D].
 int mdc_band_spmm_halo(const int8_t* base, const float* h, const float* lh,
                        const float* rh, const float* row, const float* col,
                        const float* lc, const float* rc, const float* sub,
                        const int32_t* slot, float* out, int nb, int S, int B,
-                       int C, int D, int b0, int b1, void* stream) {
+                       int C, int D, int b0, int b1, int nib, void* stream) {
   BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
                     nb, S, B, C, D, 0, 0, lh, rh, lc, rc, b0};
-  return launch<false, true, float>(false, a, b1, (cudaStream_t)stream);
+  return dispatch<false, false, true, float>(a, b1, nib, 0, 0, (cudaStream_t)stream);
 }
 
 // K3, bf16 operands; h, lh, rh and out f32 (bf16_act = 0) or bf16 (1).
@@ -530,14 +620,14 @@ int mdc_band_spmm_halo_bf16(const int8_t* base, const void* h, const void* lh,
                             const void* rh, const float* row, const float* col,
                             const float* lc, const float* rc, const float* sub,
                             const int32_t* slot, void* out, int nb, int S, int B,
-                            int C, int D, int b0, int b1, int bf16_act,
+                            int C, int D, int b0, int b1, int bf16_act, int nib,
                             void* stream) {
   return bf16_act
       ? launch_halo_bf16<__nv_bfloat16>(base, h, lh, rh, row, col, lc, rc, sub,
-                                        slot, out, nb, S, B, C, D, b0, b1,
+                                        slot, out, nb, S, B, C, D, b0, b1, nib,
                                         (cudaStream_t)stream)
       : launch_halo_bf16<float>(base, h, lh, rh, row, col, lc, rc, sub, slot,
-                                out, nb, S, B, C, D, b0, b1, (cudaStream_t)stream);
+                                out, nb, S, B, C, D, b0, b1, nib, (cudaStream_t)stream);
 }
 
 }  // extern "C"

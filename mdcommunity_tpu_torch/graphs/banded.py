@@ -129,13 +129,18 @@ def build_banded_duplex(
     reorder: bool = True,
     max_rank: Optional[int] = None,
     device=None,
+    nibble: bool = False,
 ) -> Tuple[BandedDuplex, np.ndarray, Tuple[np.ndarray, np.ndarray]]:
     """Build from undirected edge arrays [M, 2] (original node ids).
 
     Returns (banded, perm, (ordered_edges0, ordered_edges1)): perm maps new
     position -> original id, and the ordered edge arrays (new ids) feed the
     host environment.  The ordering, the mirror capacity and the spill are
-    chosen exactly as the JAX package's build_banded_duplex chooses them."""
+    chosen exactly as the JAX package's build_banded_duplex chooses them.
+    nibble=True stores both layers' bases in nibbles (ops/dense_band.py; the
+    counterpart of the JAX package's pack_duplex(nibble=True), the port
+    having no pack step): a band value above 7 raises ValueError.  Severs,
+    shard_banded_duplex, fork_banded and restore_banded carry it."""
     device = resolve_device(device)
     edges0 = np.asarray(edges0, np.int64).reshape(-1, 2)
     edges1 = np.asarray(edges1, np.int64).reshape(-1, 2)
@@ -158,7 +163,8 @@ def build_banded_duplex(
     # spill is < 0.2% of edges or the cap is reached
     for mm in (64, 128, 256):
         dbgs = [
-            build_dense_band(ss, dd, n_nodes, S=S, B=B, max_mirror=mm, device=device)
+            build_dense_band(ss, dd, n_nodes, S=S, B=B, max_mirror=mm, device=device,
+                             nibble=nibble)
             for ss, dd in sym
         ]
         n_spill = sum(g.spill.nnz for g in dbgs)

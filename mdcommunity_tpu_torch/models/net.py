@@ -396,9 +396,10 @@ def _sharded_aggregate(mesh, bdx, live, precise=True, store=None):
     return agg
 
 
-def _banded_sage(net: DuplexQNet, bdx, live, precise=True):
+def _banded_sage(net: DuplexQNet, bdx, live, precise=True, f32_epi=True):
     """The fused SAGE step over a BandedDuplex (kernel K2, precise=False its
-    bf16 mode), with the concat-matmul algebra's two D×D weights."""
+    bf16 mode, f32_epi=False its bf16 epilogue), with the concat-matmul
+    algebra's two D×D weights."""
     d = net.embedding_size
     c1, c2, c3 = net.p_node_conv, net.p_node_conv2, net.p_node_conv3
     sage_a, sage_b = c1 @ c3[:d], c2 @ c3[d:]
@@ -406,7 +407,7 @@ def _banded_sage(net: DuplexQNet, bdx, live, precise=True):
     def step(layer, h):
         dbg = bdx.dbg(layer)
         return sage_step(dbg, live, live, h, mirror_sub(dbg, live, h, precise),
-                         sage_a, sage_b, precise)
+                         sage_a, sage_b, precise, f32_epi)
 
     return step
 
@@ -421,6 +422,7 @@ def banded_test_forward(
     precise: bool = True,
     act_dtype: torch.dtype = torch.float32,
     mesh=None,
+    f32_epi: bool = True,
 ) -> torch.Tensor:
     """Q(s, ·) over all nodes of a BandedDuplex: [pad_n]; dead nodes -inf.
     `covered` is bool [pad_n] (padding rows True).  It computes in the
@@ -432,7 +434,10 @@ def banded_test_forward(
     net_packed.banded_test_forward_packed(fuse_sage=True) does; it needs
     both layers' spill sets to be empty.  Otherwise each round aggregates
     with kernel K1 and runs the dense layer in torch.matmul.  Both compute
-    the JAX package's net.banded_test_forward in f32.
+    the JAX package's net.banded_test_forward in f32.  f32_epi=False (only
+    with fuse_sage) rounds the fused step's dense-layer operands to bf16
+    (K2's bf16 epilogue, banded_test_forward_packed(f32_epi=False)), with
+    either precise and act_dtype.
 
     precise=False is the fast eval (the JAX package's precise=False, and
     net_packed.banded_test_forward_packed's act_dtype): the aggregations run
@@ -457,6 +462,8 @@ def banded_test_forward(
         raise ValueError("fuse_sage needs mesh=None (the fused step is single-device)")
     if fuse_sage and not bdx.spill_free:
         raise ValueError("fuse_sage needs empty spill sets in both layers")
+    if not (f32_epi or fuse_sage):
+        raise ValueError("f32_epi=False is the fused step's epilogue: it needs fuse_sage=True")
     if act_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"act_dtype must be float32 or bfloat16, got {act_dtype}")
     if precise and act_dtype != torch.float32:
@@ -467,7 +474,7 @@ def banded_test_forward(
         agg = _banded_aggregate(bdx, live, precise=precise, store=store)
     else:
         agg = _sharded_aggregate(mesh, bdx, live, precise, store)
-    sage = _banded_sage(net, bdx, live, precise) if fuse_sage else None
+    sage = _banded_sage(net, bdx, live, precise, f32_epi) if fuse_sage else None
     h0, h1, y_f = _embed(net, node_input, active, agg, max_bp_iter, sage, store)
     q = [torch.where(a, x, torch.full_like(x, -float("inf")))
          for a, x in zip(_pieces(active), _pieces(_q_values(net, (h0, h1), y_f, aux)))]

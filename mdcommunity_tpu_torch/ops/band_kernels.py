@@ -22,11 +22,24 @@ sums and the epilogue run in f32.  Its storage follows h: f32, or bf16 (the
 JAX package's act_dtype=bf16), and then the output is rounded to bf16 too.
 bf16 storage needs precise=False, as net_packed.py:142-143 enforces.
 
+The TPU kernel's other modes: a graph built with nibble=True
+(ops/dense_band.py) stores two window columns a byte, and every kernel reads
+it (the same values in the same order: the int8 build's bits).  f32_epi=False
+on sage_step rounds K2's epilogue operands to bf16 (band_pallas.py:653-668),
+in either precise mode.  diag= on spmm_band selects one of K1's timing
+variants (band_pallas.py:280-286), whose output is wrong by design: noscale
+(A_band @ h + Gᵀ·mir_sub, no scales) and nodot (out[i] = row[i]·col[j]·h[j],
+j = i − B mod pad_n) have plain versions; noh and hlin have no defined
+output and run only on the card.
+
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches its kernel or raises.  Nothing falls back.  The kernels build with
 nvcc for sm_90a at first use into the package's _build/ directory.  Each
 wrapper adds one to `launches[name]` where it launches its kernel: the bf16
-modes count under `<kernel>_bf16`, or `<kernel>_bf16_act` with bf16 storage.
+modes count under `<kernel>_bf16`, or `<kernel>_bf16_act` with bf16 storage;
+K2's bf16 epilogue under band_sage_bf16epi[_bf16[_act]]; a nibble graph's
+launches add `_nib`; the diag variants count under
+band_spmm[_bf16]_diag_<name>.
 """
 
 from __future__ import annotations
@@ -38,19 +51,25 @@ from typing import Optional
 import torch
 
 from mdcommunity_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC, build_library
+from mdcommunity_tpu_torch.ops.dense_band import band_rows
 
 SRC = os.path.join(CSRC, "band.cu")
 LIB = os.path.join(BUILD_DIR, "libmdc_band.so")
+
+# K1's timing variants (diag=), by their code in csrc/band.cu
+DIAGS = {"noscale": 1, "nodot": 2, "noh": 3, "hlin": 4}
+_MODES = ("", "_bf16", "_bf16_act")
+_NIB = ("", "_nib")
 
 # kernel launches on CUDA tensors, by kernel name; band_spmm_bwd counts the
 # launches of K1 that compute a gradient (ops/dense_band.BandSpmm.backward),
 # band_halo_bwd those of K3 (parallel/band_partition.ShardedBandSpmm)
 launches = {
-    "band_spmm": 0, "band_sage": 0, "band_spmm_bwd": 0,
-    "band_spmm_bf16": 0, "band_sage_bf16": 0,
-    "band_spmm_bf16_act": 0, "band_sage_bf16_act": 0,
-    "band_halo": 0, "band_halo_bwd": 0, "band_halo_bf16": 0, "band_halo_bf16_act": 0,
+    f"{k}{m}{n}": 0 for k in ("band_spmm", "band_sage", "band_sage_bf16epi", "band_halo")
+    for m in _MODES for n in _NIB
 }
+launches.update({f"{k}{n}": 0 for k in ("band_spmm_bwd", "band_halo_bwd") for n in _NIB})
+launches.update({f"band_spmm{m}_diag_{d}": 0 for m in _MODES[:2] for d in DIAGS})
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -72,18 +91,20 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
+        # the trailing ints: nb, S, B, C, D, then [bf16_act,] nib and
+        # diag (K1), epi_bf16 (K2) or b0, b1 before them (K3)
         lib.mdc_band_spmm.restype = i
-        lib.mdc_band_spmm.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.mdc_band_spmm.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.mdc_band_sage.restype = i
-        lib.mdc_band_sage.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.mdc_band_sage.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.mdc_band_spmm_bf16.restype = i
-        lib.mdc_band_spmm_bf16.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.mdc_band_spmm_bf16.argtypes = [p] * 7 + [i] * 8 + [p]
         lib.mdc_band_sage_bf16.restype = i
-        lib.mdc_band_sage_bf16.argtypes = [p] * 9 + [i] * 6 + [p]
+        lib.mdc_band_sage_bf16.argtypes = [p] * 9 + [i] * 8 + [p]
         lib.mdc_band_spmm_halo.restype = i
-        lib.mdc_band_spmm_halo.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.mdc_band_spmm_halo.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.mdc_band_spmm_halo_bf16.restype = i
-        lib.mdc_band_spmm_halo_bf16.argtypes = [p] * 11 + [i] * 8 + [p]
+        lib.mdc_band_spmm_halo_bf16.argtypes = [p] * 11 + [i] * 9 + [p]
         _lib = lib
     return _lib
 
@@ -109,6 +130,10 @@ def _check(dbg, row, col, h, mir_sub, ab=(), precise=True) -> None:
         )
     if dbg.base.dtype != torch.int8 or dbg.slot_of_row.dtype != torch.int32:
         raise NotImplementedError("band kernels take an int8 base and int32 slots")
+    pitch = dbg.W2 // 2 if dbg.nibble else dbg.W2
+    if tuple(dbg.base.shape) != (dbg.n_blocks, dbg.S + dbg.C, pitch):
+        raise ValueError(f"base must be [{dbg.n_blocks}, {dbg.S + dbg.C}, {pitch}] "
+                         f"(nibble={dbg.nibble}), got {tuple(dbg.base.shape)}")
     if h.dim() != 2 or h.shape[0] != dbg.pad_n:
         raise ValueError(f"h must be [pad_n={dbg.pad_n}, D], got {tuple(h.shape)}")
     D = h.shape[1]
@@ -132,23 +157,25 @@ def _check(dbg, row, col, h, mir_sub, ab=(), precise=True) -> None:
         raise ValueError(f"unsupported device {h.device}")
 
 
-def _counter(kernel: str, h: torch.Tensor, precise: bool) -> str:
-    if precise:
-        return kernel
-    return f"{kernel}_bf16_act" if h.dtype == torch.bfloat16 else f"{kernel}_bf16"
+def _counter(kernel: str, h: torch.Tensor, precise: bool, nibble: bool = False,
+             diag: str = "full") -> str:
+    mode = "" if precise else ("_bf16_act" if h.dtype == torch.bfloat16 else "_bf16")
+    return (f"{kernel}{mode}{'_nib' if nibble else ''}"
+            + ("" if diag == "full" else f"_diag_{diag}"))
 
 
-def _launch(fn, dbg, row, col, h, mir_sub, extra, name, bf16_act=None) -> torch.Tensor:
+def _launch(fn, dbg, row, col, h, mir_sub, extra, name, flags) -> torch.Tensor:
+    """Launch `fn` with the operands, the shape ints and the mode ints
+    `flags` ([bf16_act,] nib, diag or epi_bf16)."""
     tensors = [dbg.base, h, row, col, mir_sub, dbg.slot_of_row, *extra]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    flag = () if bf16_act is None else (int(bf16_act),)
     with torch.cuda.device(h.device):
         rc = fn(
             *[t.data_ptr() for t in tensors], out.data_ptr(),
-            dbg.n_blocks, dbg.S, dbg.B, dbg.C, h.shape[1], *flag, stream,
+            dbg.n_blocks, dbg.S, dbg.B, dbg.C, h.shape[1], *map(int, flags), stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
@@ -176,7 +203,8 @@ def _to_bf16(x: torch.Tensor) -> torch.Tensor:
 def _band_plain(dbg, row, col, h, mir_sub, precise, halo=None, blocks=None) -> torch.Tensor:
     """K1 in the compute dtype, before any storage rounding; with halo =
     (lh, rh, lc, rc) K3, whose windows run linearly over [lh | h | rh].
-    Rows of the blocks [b0, b1) (all by default)."""
+    Rows of the blocks [b0, b1) (all by default).  A nibble base is
+    unpacked first (the same values)."""
     nb, S, B, C = dbg.n_blocks, dbg.S, dbg.B, dbg.C
     b0, b1 = blocks or (0, nb)
     D = h.shape[1]
@@ -191,7 +219,7 @@ def _band_plain(dbg, row, col, h, mir_sub, precise, halo=None, blocks=None) -> t
         hw = _windows(hc, nb, S, B)[b0:b1]
     else:  # block b's window is rows [b·S, b·S + W2) of [lh | h | rh]
         hw = hc[b0 * S: b1 * S + 2 * B].unfold(0, dbg.W2, S).transpose(1, 2).contiguous()
-    out = torch.einsum("bsw,bwd->bsd", dbg.base[b0:b1, :S].to(hc.dtype), hw)
+    out = torch.einsum("bsw,bwd->bsd", band_rows(dbg, b0, b1).to(hc.dtype), hw)
     if C:
         slot = dbg.slot_of_row[b0:b1].to(torch.int64)
         flat = torch.arange(b0, b1, device=h.device)[:, None] * C + slot
@@ -208,12 +236,36 @@ def spmm_band_plain(dbg, row, col, h, mir_sub, precise: bool = True) -> torch.Te
     return _band_plain(dbg, row, col, h, mir_sub, precise).to(h.dtype)
 
 
+def spmm_band_diag_plain(dbg, row, col, h, mir_sub, diag: str,
+                         precise: bool = True) -> torch.Tensor:
+    """The plain versions of K1's two timing variants that have a defined
+    output: noscale, A_band @ h + Gᵀ·mir_sub (K1 at unit scales), and nodot,
+    out[i] = row[i]·col[j]·h[j] with j = i − B (mod pad_n), col[j]·h[j]
+    rounded to bf16 in the bf16 mode (the staged window value)."""
+    if diag == "noscale":
+        ones = torch.ones_like(row)
+        return spmm_band_plain(dbg, ones, ones, h, mir_sub, precise)
+    if diag == "nodot":
+        dt = _compute_dtype(h)
+        cw = torch.roll(h.to(dt) * col[:, None], dbg.B, dims=0)
+        if not precise:
+            cw = _to_bf16(cw)
+        return (cw * row[:, None]).to(h.dtype)
+    raise NotImplementedError(f"diag={diag!r} has no defined output and no plain "
+                              "version: it runs only on a CUDA tensor")
+
+
 def sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w,
-                    precise: bool = True) -> torch.Tensor:
+                    precise: bool = True, f32_epi: bool = True) -> torch.Tensor:
     """K2's plain version: the fused GraphSAGE step of sage_step_packed, its
-    epilogue in the compute dtype (f32_epi=True) on the unrounded pool."""
+    epilogue in the compute dtype (f32_epi=True) on the unrounded pool, or
+    with f32_epi=False on the pool, own rows, A_w and B_w rounded to bf16
+    (f32 sums), as the kernel's bf16 epilogue."""
     pool = _band_plain(dbg, row, col, h, mir_sub, precise)
-    z = torch.relu(pool @ A_w + h.to(pool.dtype) @ B_w)
+    hown = h.to(pool.dtype)
+    if not f32_epi:
+        pool, hown, A_w, B_w = map(_to_bf16, (pool, hown, A_w, B_w))
+    z = torch.relu(pool @ A_w + hown @ B_w)
     z = z * torch.rsqrt(torch.clamp(torch.sum(z * z, -1, keepdim=True), min=1e-24))
     return z.to(h.dtype)
 
@@ -236,38 +288,55 @@ def spmm_band_halo_plain(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=Non
 
 
 def spmm_band(dbg, row, col, h, mir_sub, counter: Optional[str] = None,
-              precise: bool = True) -> torch.Tensor:
+              precise: bool = True, diag: str = "full") -> torch.Tensor:
     """K1: out = row ⊙ (A_band @ (col ⊙ h) + Gᵀ·mir_sub), [pad_n, D] in h's
     storage dtype.  The spill COO is not part of it
     (ops/dense_band.spmm_dense_band adds it).  A launch counts under
-    launches[counter], by default the mode's own counter."""
+    launches[counter] (with `_nib` for a nibble graph), by default the
+    mode's own counter.  diag selects a timing variant (module doc; int8
+    base, f32 storage): noscale and nodot run their plain versions on a CPU
+    tensor, noh and hlin raise there."""
     _check(dbg, row, col, h, mir_sub, precise=precise)
-    if h.device.type == "cpu":
+    if diag != "full":
+        if diag not in DIAGS:
+            raise ValueError(f"diag must be 'full' or one of {sorted(DIAGS)}, got {diag!r}")
+        if dbg.nibble or h.dtype != torch.float32 or counter is not None:
+            raise ValueError("the diag variants take an int8 base, f32 storage and "
+                             "their own counter")
+        if h.device.type == "cpu":
+            return spmm_band_diag_plain(dbg, row, col, h, mir_sub, diag, precise)
+    elif h.device.type == "cpu":
         return spmm_band_plain(dbg, row, col, h, mir_sub, precise)
-    name = counter or _counter("band_spmm", h, precise)
+    name = (f"{counter}{'_nib' if dbg.nibble else ''}" if counter
+            else _counter("band_spmm", h, precise, dbg.nibble, diag))
+    code = DIAGS.get(diag, 0)
     if precise:
-        return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), name)
+        return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), name,
+                       (dbg.nibble, code))
     return _launch(_load().mdc_band_spmm_bf16, dbg, row, col, h, mir_sub, (), name,
-                   bf16_act=h.dtype == torch.bfloat16)
+                   (h.dtype == torch.bfloat16, dbg.nibble, code))
 
 
-def sage_step(dbg, row, col, h, mir_sub, A_w, B_w, precise: bool = True) -> torch.Tensor:
+def sage_step(dbg, row, col, h, mir_sub, A_w, B_w, precise: bool = True,
+              f32_epi: bool = True) -> torch.Tensor:
     """K2: h' = l2n(relu(K1(h) @ A_w + h @ B_w)) in one pass, with
     A_w = W1 @ W3[:d] and B_w = W2 @ W3[d:] (concat-matmul algebra of the
     reference layer concat(pool @ W1, h @ W2) @ W3).  The l2n clamps Σz² at
-    1e-24; the epilogue runs in f32 in every mode.  The graph's spill must be
-    empty: its edges would have to land before the relu, and the kernel does
-    not read them."""
+    1e-24.  The epilogue runs in f32, or with f32_epi=False on bf16-rounded
+    dot operands with f32 sums (sage_step_packed(f32_epi=False)), in either
+    precise mode.  The graph's spill must be empty: its edges would have to
+    land before the relu, and the kernel does not read them."""
     _check(dbg, row, col, h, mir_sub, (A_w, B_w), precise)
     if dbg.spill.nnz:
         raise ValueError("sage_step needs an empty spill set")
     if h.device.type == "cpu":
-        return sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w, precise)
-    name = _counter("band_sage", h, precise)
+        return sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w, precise, f32_epi)
+    name = _counter("band_sage" if f32_epi else "band_sage_bf16epi", h, precise, dbg.nibble)
     if precise:
-        return _launch(_load().mdc_band_sage, dbg, row, col, h, mir_sub, (A_w, B_w), name)
+        return _launch(_load().mdc_band_sage, dbg, row, col, h, mir_sub, (A_w, B_w), name,
+                       (dbg.nibble, not f32_epi))
     return _launch(_load().mdc_band_sage_bf16, dbg, row, col, h, mir_sub, (A_w, B_w),
-                   name, bf16_act=h.dtype == torch.bfloat16)
+                   name, (h.dtype == torch.bfloat16, dbg.nibble, not f32_epi))
 
 
 def spmm_band_halo(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=None,
@@ -312,7 +381,9 @@ def spmm_band_halo(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=None,
         t for _, t, _, _ in halos if t is not None]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spmm_band_halo: all operands must be contiguous")
-    name = counter or _counter("band_halo", h, precise)
+    nib = shard.nibble
+    name = (f"{counter}{'_nib' if nib else ''}" if counter
+            else _counter("band_halo", h, precise, nib))
     ptr = [0 if t is None else t.data_ptr()
            for t in (shard.base, h, lh, rh, row, col, lc, rc, mir_sub, shard.slot_of_row, out)]
     args = [*ptr, nb, S, B, shard.C, h.shape[1], b0, b1]
@@ -320,9 +391,10 @@ def spmm_band_halo(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=None,
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         if precise:
-            rc_ = lib.mdc_band_spmm_halo(*args, stream)
+            rc_ = lib.mdc_band_spmm_halo(*args, int(nib), stream)
         else:
-            rc_ = lib.mdc_band_spmm_halo_bf16(*args, int(h.dtype == torch.bfloat16), stream)
+            rc_ = lib.mdc_band_spmm_halo_bf16(*args, int(h.dtype == torch.bfloat16), int(nib),
+                                              stream)
     if rc_ != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc_}")
     launches[name] += 1

@@ -15,6 +15,12 @@ Adjacency values are graph constants: all per-step dynamics ride two per-node
 scale vectors (w[u, v] = base[u, v] · row[dst] · col[src]), and
 cascade-severed edges are edits of the base (sever_edges).
 
+nibble=True stores the base at half its bytes, two window columns a byte
+(byte = a[w] + 16·a[w+1] for even w, each value in [0, 7]: simple graphs),
+as the JAX package's pack_band(nibble=True) does for its kernel; the port
+keeps its own row layout (no column or row parity split).  Every band
+kernel reads it, and gives the int8 build's bits.
+
 The host build (numpy) gives the same arrays as the JAX package's
 build_dense_band, moved to a torch device.  On top it keeps two index arrays
 that the CUDA kernels and the wrapper use instead of the one-hot lanes:
@@ -44,7 +50,8 @@ class DenseBandGraph:
     base        : int8 [nb, S+C, W2]; rows 0..S the band values (window
                   columns cover source rows [i·S − B, i·S + S + B) mod
                   pad_n), rows S..S+C the one-hot mirror lanes, hot at column
-                  B + local_row
+                  B + local_row; with nibble, [nb, S+C, W2/2], columns w and
+                  w + 1 (w even) in one byte (pack_nibbles)
     mirror_node : int64 [nb, C] node of each mirror slot, -1 if unused
     slot_of_row : int32 [nb, S] mirror slot each row owns, -1 if none
     ccoo        : SortedCOO over the nb·C mirror space (overflow edges)
@@ -70,6 +77,7 @@ class DenseBandGraph:
     S: int
     B: int
     C: int
+    nibble: bool = False
 
     @property
     def W2(self) -> int:
@@ -86,6 +94,29 @@ class DenseBandGraph:
     @property
     def device(self) -> torch.device:
         return self.base.device
+
+
+def pack_nibbles(base: np.ndarray) -> np.ndarray:
+    """int8 [..., W2] with values in [0, 7] -> [..., W2/2], byte = column w
+    + 16·column w+1 (w even).  Refuses other values, as the JAX package's
+    pack_band(nibble=True) does."""
+    if base.min(initial=0) < 0 or base.max(initial=0) > 7:
+        raise ValueError("nibble storage needs band values in [0, 7] (a simple graph); "
+                         "build with nibble=False for heavier multi-edges")
+    return (base[..., 0::2] + 16 * base[..., 1::2]).astype(np.int8)
+
+
+def unpack_nibbles(base: torch.Tensor) -> torch.Tensor:
+    """The inverse of pack_nibbles: [..., W2/2] -> int8 [..., W2]."""
+    b = base.to(torch.int16)
+    return torch.stack([b % 16, b // 16], dim=-1).flatten(-2).to(torch.int8)
+
+
+def band_rows(dbg: DenseBandGraph, b0: int = 0, b1: Optional[int] = None) -> torch.Tensor:
+    """The band rows of blocks [b0, b1) (all by default) as int8 [·, S, W2],
+    unpacked from a nibble base."""
+    band = dbg.base[b0:b1, : dbg.S]
+    return unpack_nibbles(band) if dbg.nibble else band
 
 
 def band_slots(
@@ -126,11 +157,14 @@ def build_dense_band(
     B: int = 128,
     max_mirror: int = 64,
     device=None,
+    nibble: bool = False,
 ) -> DenseBandGraph:
     """Host build from directed unit-weight edges (out[dst] += h[src]);
     duplicate edges accumulate.  The edge set must be symmetric.  The arrays
     equal the JAX package's build_dense_band(w=None, dtype=int8).  The
-    result lies on `device`: CUDA unless the caller names one."""
+    result lies on `device`: CUDA unless the caller names one.  nibble=True
+    stores the base in nibbles (pack_nibbles; a band value above 7 raises
+    ValueError)."""
     assert B <= S and S % 8 == 0 and B % 8 == 0
     device = resolve_device(device)
     src = np.asarray(src, np.int64)
@@ -181,6 +215,8 @@ def build_dense_band(
     lanes = np.zeros((nb, C, W2), np.int8)
     lanes[tblk[slotted], rank[slotted], B + touched[slotted] - tblk[slotted] * S] = 1
     base = np.concatenate([band.astype(np.int8), lanes], axis=1)
+    if nibble:
+        base = pack_nibbles(base)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -199,6 +235,7 @@ def build_dense_band(
         S=S,
         B=B,
         C=C,
+        nibble=nibble,
     )
 
 
@@ -214,13 +251,34 @@ def sever_cells(S: int, B: int, pad_n: int, src: torch.Tensor, dst: torch.Tensor
     return blk, lr, lc, (lc < W2) & (lc_t < W2)
 
 
+def clear_cells(base: torch.Tensor, nibble: bool, blk: torch.Tensor, lr: torch.Tensor,
+                lc: torch.Tensor) -> None:
+    """Zero the band cells [blk, lr, lc] of `base`, in place.  Every write
+    is a set, so duplicated cells give one result.  A nibble base clears the
+    cell's nibble in two parity passes, each a gather then a set
+    (band_pallas.py:221-245): within a pass the entries that hit one byte
+    are one cell and write one value, and the odd pass gathers the even
+    pass's result, so two cells of one byte both clear.  A subtraction would
+    count a duplicated sever twice."""
+    if not nibble:
+        base[blk, lr, lc] = 0
+        return
+    for parity in (0, 1):
+        m = (lc % 2) == parity
+        b, r, c = blk[m], lr[m], lc[m] // 2
+        old = base[b, r, c].to(torch.int16)
+        kept = (old // 16) * 16 if parity == 0 else old % 16
+        base[b, r, c] = kept.to(torch.int8)
+
+
 def sever_edges(
     dbg: DenseBandGraph, src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor
 ) -> DenseBandGraph:
     """Zero individual directed edges (cascade-severed), in place.
 
-    src/dst: int [K], valid: bool [K].  In-band slots are set to zero;
-    mirror and spill edges zero their matching weights.  Invalid entries are
+    src/dst: int [K], valid: bool [K].  In-band slots are set to zero (a
+    nibble base's nibble, clear_cells); mirror and spill edges zero their
+    matching weights.  Invalid entries are
     dropped with the mask before any write, and every write is a zero, so
     duplicated indices give one defined result (the JAX package instead
     redirects invalid entries to cell (0, 0, 0) and writes back the value it
@@ -231,7 +289,7 @@ def sever_edges(
     valid = valid.to(dbg.device, torch.bool)
     blk, lr, lc, in_band = sever_cells(dbg.S, dbg.B, pad_n, src, dst)
     ib = in_band & valid
-    dbg.base[blk[ib], lr[ib], lc[ib]] = 0
+    clear_cells(dbg.base, dbg.nibble, blk[ib], lr[ib], lc[ib])
 
     sev = valid & ~in_band
     if bool(sev.any()):
@@ -332,7 +390,8 @@ class BandSpmm(torch.autograd.Function):
     The stored operator is symmetric (band, mirror COO and spill COO all
     hold both directions of every edge, and a sever zeroes both), so with
     (R·A·C)ᵀ = C·A·R the backward is the same operator with row and col
-    swapped: kernel K1 again, counted under launches["band_spmm_bwd"].  Its
+    swapped: kernel K1 again (its nibble mode on a nibble graph), counted
+    under launches["band_spmm_bwd"] (band_spmm_bwd_nib).  Its
     mirror and spill parts reuse the sorted segment sums, so the gradient is
     deterministic.  dbg, row and col are graph constants; the backward
     raises if the band operands or the scales were edited since the

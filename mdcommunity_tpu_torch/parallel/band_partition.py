@@ -42,6 +42,7 @@ from mdcommunity_tpu_torch.ops.dense_band import (
     DenseBandGraph,
     band_versions,
     check_band_versions,
+    clear_cells,
     mirror_compact,
     sever_cells,
 )
@@ -56,7 +57,8 @@ class ShardedBandGraph:
     """One layer's band operator split over a gp mesh.
 
     shards : a DenseBandGraph for each shard (n = local_n): its own base
-             blocks [nb_l, S+C, W2] and slot_of_row [nb_l, S], its mirror
+             blocks [nb_l, S+C, W2] (W2/2 with nibble: K3's nibble mode
+             reads them) and slot_of_row [nb_l, S], its mirror
              slots' nodes in local ids; the whole graph's mirror COO, w_cov
              and c_key (one copy a device); no spill.
     n      : the whole graph's node count
@@ -113,7 +115,7 @@ def shard_band_graph(mesh: GpMesh, dbg: DenseBandGraph) -> ShardedBandGraph:
             base=dbg.base[blocks].to(dev),
             mirror_node=torch.where(node >= 0, node - i * local_n, node).to(dev),
             slot_of_row=dbg.slot_of_row[blocks].to(dev),
-            n=local_n, S=dbg.S, B=dbg.B, C=dbg.C, **rep,
+            n=local_n, S=dbg.S, B=dbg.B, C=dbg.C, nibble=dbg.nibble, **rep,
         ))
     return ShardedBandGraph(mesh, shards, dbg.n, dbg.S, dbg.B, dbg.C)
 
@@ -227,8 +229,9 @@ def spmm_band_sharded_grad(mesh: GpMesh, sdbg: ShardedBandGraph, row: Parts, col
 def sever_sharded(sdbg: ShardedBandGraph, src: torch.Tensor, dst: torch.Tensor,
                   valid: torch.Tensor) -> ShardedBandGraph:
     """ops/dense_band.sever_edges on the sharded operator, in place: each
-    in-band cell is zeroed in the shard that owns its destination block,
-    each mirror edge's weight in every device's copy."""
+    in-band cell is zeroed (a nibble base's nibble set, clear_cells) in the
+    shard that owns its destination block, each mirror edge's weight in
+    every device's copy."""
     dev0 = sdbg.mesh.devices[0]
     src, dst = src.to(dev0, torch.int64), dst.to(dev0, torch.int64)
     valid = valid.to(dev0, torch.bool)
@@ -238,7 +241,8 @@ def sever_sharded(sdbg: ShardedBandGraph, src: torch.Tensor, dst: torch.Tensor,
     for i, s in enumerate(sdbg.shards):
         m = ib & (torch.div(blk, nb_l, rounding_mode="floor") == i)
         dev = s.base.device
-        s.base[(blk[m] - i * nb_l).to(dev), lr[m].to(dev), lc[m].to(dev)] = 0
+        clear_cells(s.base, s.nibble, (blk[m] - i * nb_l).to(dev), lr[m].to(dev),
+                    lc[m].to(dev))
     sev = valid & ~in_band
     if sdbg.shards[0].c_key.numel() and bool(sev.any()):
         keys = src[sev] * sdbg.pad_n + dst[sev]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 from mdcommunity_tpu.env.host_env import make_host_env as jax_make_env  # noqa: E402
 from mdcommunity_tpu.graphs.banded import build_banded_duplex as jax_build  # noqa: E402

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from mdcommunity_tpu.env.batch import make_batch_inputs as jax_inputs  # noqa: E402

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from mdcommunity_tpu.env.host_env import make_host_env as jax_make_env  # noqa: E402
@@ -64,16 +65,17 @@ def _jax_fast(params, jb, covered):
     return np.asarray(_JAX_FAST(params, jb, jnp.asarray(covered)))
 
 
-def assert_fast_q_close(q, ref):
-    """Same -inf masks; every live node within FLIP of max|Q|, at least 99%
-    within F32.  Returns the max disagreement in units of max|Q|."""
+def assert_fast_q_close(q, ref, share=0.99):
+    """Same -inf masks; every live node within FLIP of max|Q|, at least a
+    `share` of them within F32.  Returns the max disagreement in units of
+    max|Q|."""
     q, ref = np.asarray(q, np.float64), np.asarray(ref, np.float64)
     fin = np.isfinite(ref)
     np.testing.assert_array_equal(np.isfinite(q), fin)
     scale = np.abs(ref[fin]).max()
     err = np.abs(q[fin] - ref[fin]) / scale
     assert err.max() <= FLIP, err.max()
-    assert np.mean(err <= F32) >= 0.99, np.sort(err)[-20:]
+    assert np.mean(err <= F32) >= share, np.sort(err)[-20:]
     return err.max()
 
 

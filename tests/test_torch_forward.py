@@ -6,6 +6,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from mdcommunity_tpu.graphs.banded import build_banded_duplex as jax_build  # noqa: E402

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from mdcommunity_tpu.env.host_env import make_host_env as jax_make_env  # noqa: E402

@@ -29,7 +29,9 @@ def test_import_leaves_jax_out():
     for m in ("ops.band_kernels", "rl.big_trainer", "train_1m", "ops.blocked_kernels",
               "graphs.duplex", "graphs.gmm", "graphs.blocked", "env.cascade", "env.env",
               "env.batch", "rl.dqn", "eval.synthetic", "parallel.mesh",
-              "parallel.band_partition"):
+              "parallel.band_partition", "ops.probe_kernels", "graphs.synth",
+              "utils.timing", "probe_f32_epi", "bench_nibble", "tune_band",
+              "probe_hbm_roof"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 
 from mdcommunity_tpu.eval import metrics as jax_metrics  # noqa: E402
 from mdcommunity_tpu.eval import writers as jax_writers  # noqa: E402

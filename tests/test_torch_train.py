@@ -12,6 +12,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+from torch_one_thread import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from mdcommunity_tpu.cli import _load_params as jax_load_params  # noqa: E402

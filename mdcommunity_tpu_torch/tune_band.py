@@ -21,9 +21,10 @@ and scripts/proto_band_v4.py, on kernel K1 (ops/band_kernels.spmm_band):
 
 Each variant with a defined output (full, noscale, nodot, the prototypes)
 is first held to its plain version, to 1e-4 of max|ref| (f32 sums in
-another order); noh and hlin are launched and counted.  Times are CUDA
-events, median of --reps after warm-ups, with the card's name and power
-limit.  Prints one JSON line.  On the CPU (--device cpu, a small --n) it
+another order); noh and hlin are launched and counted.  The prototypes'
+rows also carry their bound, plain and library times and K1's launches.
+Times are CUDA events, median of --reps after warm-ups, with the card's
+name and power limit.  Prints one JSON line.  On the CPU (--device cpu, a small --n) it
 runs the checks at n nodes and times nothing; noh and hlin need the card.
 
     python -m mdcommunity_tpu_torch.tune_band --diag --sweep --proto
@@ -36,6 +37,7 @@ import argparse
 import json
 
 TOL = 1e-4
+PEAK_BF16_S = 989e12   # H100 SXM bf16 tensor cores, dense (data sheet)
 DIAG_ORDER = ("full", "noscale", "nodot", "noh", "hlin")
 SWEEP = ((128, 128), (256, 128), (512, 128))
 PROTO_V4 = ((512, 256), (256, 128), (256, 256), (128, 128))
@@ -60,9 +62,9 @@ def main(argv=None):
 
     from mdcommunity_tpu_torch.graphs.synth import band_operands, ring_band_graph
     from mdcommunity_tpu_torch.ops import band_kernels as bk
-    from mdcommunity_tpu_torch.ops.dense_band import mirror_compact, mirror_sub
+    from mdcommunity_tpu_torch.ops.dense_band import band_rows, mirror_compact, mirror_sub
     from mdcommunity_tpu_torch.utils.device import resolve_device
-    from mdcommunity_tpu_torch.utils.timing import cuda_ms, gpu_line
+    from mdcommunity_tpu_torch.utils.timing import PEAK_BYTES_S, cuda_ms, gpu_line
 
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
@@ -124,21 +126,43 @@ def main(argv=None):
         protos = []
 
         def proto(label, dbg, h, with_mirror):
+            """The prototype's function on dbg: K1's bf16 mode at unit scales
+            with a zero mirror table (and, with_mirror, the mirror
+            compaction at col = 1), held to its plain version and timed
+            beside its bound (the band rows and h read once, the output and
+            mirror rows written once; the band's multiply-adds at the bf16
+            tensor-core rate), its plain version and the library yardstick
+            (torch.bmm of the bf16 band against the bf16 windows)."""
             ones = torch.ones(dbg.pad_n, device=device)
             zero = torch.zeros(dbg.n_blocks * dbg.C, D, device=device)
 
-            def call():
-                o = bk.spmm_band(dbg, ones, ones, h, zero, precise=False)
+            def call(kern=True):
+                k1 = bk.spmm_band if kern else bk.spmm_band_plain
+                o = k1(dbg, ones, ones, h, zero, precise=False)
                 if with_mirror:
                     return o, mirror_compact(dbg, ones, h, precise=False)
                 return o, None
 
+            before = bk.launches["band_spmm_bf16"]
             got, mir = call()
-            err = check(f"{label} S={dbg.S} B={dbg.B}", got,
-                        bk.spmm_band_plain(dbg, ones, ones, h, zero, precise=False))
+            err = check(f"{label} S={dbg.S} B={dbg.B}", got, call(kern=False)[0])
+            band = band_rows(dbg)
+            out_rows = dbg.pad_n + (dbg.n_blocks * dbg.C if with_mirror else 0)
+            t_b = (band.numel() + dbg.pad_n * D * 4 + out_rows * D * 4) / PEAK_BYTES_S
+            t_o = 2 * int(band.ne(0).sum().item()) * D / PEAK_BF16_S
+            lib = None
+            if on_card:
+                base = band.to(torch.bfloat16)
+                win = bk._windows(h.to(torch.bfloat16), dbg.n_blocks, dbg.S,
+                                  dbg.B).contiguous()
+                lib = ms(lambda: torch.bmm(base, win))
+                del base, win
             row = dict(label=label, n=dbg.n, S=dbg.S, B=dbg.B, C=dbg.C, max_abs_err=err,
                        ms=ms(call), k1_ms=ms(lambda: bk.spmm_band(dbg, ones, ones, h, zero,
-                                                                  precise=False)))
+                                                                  precise=False)),
+                       plain_ms=ms(lambda: call(kern=False)), bound_ms=1e3 * max(t_b, t_o),
+                       bound_by="bytes" if t_b >= t_o else "operations", library_ms=lib)
+            row["launches"] = bk.launches["band_spmm_bf16"] - before
             if with_mirror:
                 row["mirror_rows"] = list(mir.shape)
             protos.append(row)

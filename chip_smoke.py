@@ -256,30 +256,17 @@ def check_kernels(device, n):
 # ---------------------------------------------------------------- timing
 
 
-def time_ms(fn, reps=20, warm=3):
-    """Median ms of `reps` calls after `warm` (CUDA events; the rehearsal on
-    the CPU times with the host clock)."""
+def time_ms(fn):
+    """Median device ms of fn (utils/timing.cuda_ms).  The CPU rehearsal has
+    no device clock: it calls fn once and times nothing (NaN)."""
     import torch
 
-    for _ in range(warm):
-        fn()
-    times = []
-    if not torch.cuda.is_available():
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(1e3 * (time.perf_counter() - t0))
-        return sorted(times)[reps // 2]
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    from mdcommunity_tpu_torch.utils.timing import cuda_ms
+
+    if torch.cuda.is_available():
+        return cuda_ms(fn)
+    fn()
+    return float("nan")
 
 
 def widened(dbg, dtype):
@@ -290,16 +277,18 @@ def widened(dbg, dtype):
     return (unpack_nibbles(dbg.base) if dbg.nibble else dbg.base).to(dtype)
 
 
-def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0):
+def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0, epi_rate=PEAK_F32_S):
     """Least time for the function on these inputs: each input read once,
     the output written once (h and the output at their storage width), over
     the card's memory rate; the operations this data needs: one multiply-add
     per band nonzero and column at `band_rate` (FP32, or the bf16 tensor
-    cores for the bf16 modes), and the mirror add, the row scale (K2 also
-    its two D×D products and the normalisation) at the FP32 rate.  halo:
-    rows of h (with their col scales) read besides the graph's own (K3: the
-    two B-row halos of a shard).  A nibble base counts at its stored half
-    of the bytes.  Returns (ms, bound_by)."""
+    cores for the bf16 modes), K2's two D×D products at `epi_rate` (FP32, or
+    the bf16 tensor cores for the bf16 epilogue, whose operands are bf16
+    with f32 sums), and the mirror add, the row scale (K2 also the
+    normalisation) at the FP32 rate.  halo: rows of h (with their col
+    scales) read besides the graph's own (K3: the two B-row halos of a
+    shard).  A nibble base counts at its stored half of the bytes.  Returns
+    (ms, bound_by)."""
     from mdcommunity_tpu_torch.ops.dense_band import band_rows
 
     nb, S, C, pad_n = dbg.n_blocks, dbg.S, dbg.C, dbg.pad_n
@@ -307,12 +296,13 @@ def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0):
     base_w = dbg.W2 // 2 if dbg.nibble else dbg.W2   # nibbles: half the bytes
     byts = (nb * S * base_w + 2 * pad_n * D * store_bytes + 2 * pad_n * 4
             + nb * C * D * 4 + nb * S * 4 + halo * (D * store_bytes + 4))
-    f32_ops = 2 * pad_n * D
+    f32_ops, epi_ops = 2 * pad_n * D, 0
     if sage:
         byts += 2 * D * D * 4
-        f32_ops += 2 * 2 * pad_n * D * D + 3 * pad_n * D
+        f32_ops += 3 * pad_n * D
+        epi_ops = 2 * 2 * pad_n * D * D
     t_b = byts / PEAK_BYTES_S
-    t_o = 2 * nnz * D / band_rate + f32_ops / PEAK_F32_S
+    t_o = 2 * nnz * D / band_rate + epi_ops / epi_rate + f32_ops / PEAK_F32_S
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -1654,21 +1644,6 @@ def mode_suffix(precise, store):
     return "" if precise else ("_bf16" if store == "float32" else "_bf16_act")
 
 
-def nibble_twin(banded):
-    """`banded` with both layers' bases re-stored in nibbles on the device:
-    the same band values (pack_nibbles' layout; values above 7 raise)."""
-    import dataclasses
-
-    def pack(dbg):
-        b = dbg.base
-        if int(b.min()) < 0 or int(b.max()) > 7:
-            raise AssertionError("band values outside [0, 7]: no nibble twin")
-        return dataclasses.replace(dbg, base=(b[..., 0::2] + 16 * b[..., 1::2]).contiguous(),
-                                   nibble=True)
-
-    return dataclasses.replace(banded, dbg0=pack(banded.dbg0), dbg1=pack(banded.dbg1))
-
-
 def compare_epi(name, got, ref):
     """K2's bf16 epilogue against its plain version (EPI_TOL, EPI_SHARE)."""
     import torch
@@ -1881,7 +1856,8 @@ def time_epi_kernels(device, banded, label):
 
         err = compare_epi(f"{label} {name + nib}", kern(), plain())
         bound_ms, bound_by = bounds(dbg, 64, True, 2 if store == "bfloat16" else 4,
-                                    PEAK_F32_S if precise else PEAK_BF16_S)
+                                    PEAK_F32_S if precise else PEAK_BF16_S,
+                                    epi_rate=PEAK_BF16_S)
         res[name + nib] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
                                bound_by=bound_by, max_abs_err=err,
                                library_ms=lib[torch.float32 if precise else torch.bfloat16])
@@ -1891,19 +1867,24 @@ def time_epi_kernels(device, banded, label):
 
 
 def diag_bounds(dbg, D, diag, precise):
-    """Least time of K1's timing variant on these inputs: the bytes it must
-    move (the band; h, the scales, the mirror table and slot map as far as
-    it reads them; the output) over the memory rate, and the band's
-    multiply-adds it does (hlin: those of the window columns it stages) at
-    the FP32 or bf16 tensor-core rate.  Returns (ms, bound_by)."""
+    """Least time of K1's timing variant on these inputs: the bytes its
+    output depends on, over the memory rate (noscale: the band, h, the
+    mirror table and slot map; nodot: h and both scales, no band; noh: the
+    row scale, the mirror table and slot map; hlin: the band's window
+    columns [B, B + S), h, both scales, the mirror table and slot map; each
+    the output too), and the band's multiply-adds it does (hlin: those of
+    those columns) at the FP32 or bf16 tensor-core rate.  The bytes a
+    variant stages beyond these (the band of nodot and noh) count in no
+    bound.  Returns (ms, bound_by)."""
     from mdcommunity_tpu_torch.ops.dense_band import band_rows
 
     nb, S, B, pad_n, C = dbg.n_blocks, dbg.S, dbg.B, dbg.pad_n, dbg.C
+    half = 2 if dbg.nibble else 1
     band = band_rows(dbg)
     hb, vec, mir = pad_n * D * 4, pad_n * 4, nb * C * D * 4 + pad_n * 4
-    byts = nb * S * dbg.W2 + hb   # the band and the output
-    byts += {"noscale": hb + mir, "nodot": hb + 2 * vec, "noh": vec + mir,
-             "hlin": hb + 2 * vec + mir}[diag]
+    full, own = nb * S * dbg.W2 // half, nb * S * S // half
+    byts = hb + {"noscale": full + hb + mir, "nodot": hb + 2 * vec,
+                 "noh": vec + mir, "hlin": own + hb + 2 * vec + mir}[diag]
     nnz = 0 if diag in ("nodot", "noh") else int(
         (band[:, :, B:B + S] if diag == "hlin" else band).ne(0).sum().item())
     t_b = byts / PEAK_BYTES_S
@@ -1977,23 +1958,21 @@ def time_stream(device, banded, label, G=8):
     return res
 
 
-def time_slice6(device, banded, simple, clean, label):
+def time_slice6(device, banded, nib, nib_clean, label):
     """This slice's modes at `banded`'s shapes: K2's bf16 epilogue, K1's diag
-    variants and the stream probe on `banded`; nibble twins of K1, K1's
-    backward, K2 with either epilogue and their bf16 modes on `simple` (a
-    build whose band values fit a nibble), and of K3 on the spill-free
-    `clean` one.  Returns numbers by counter."""
+    variants and the stream probe on `banded`; K1, K1's backward, K2 with
+    either epilogue and their bf16 modes on the nibble build `nib`, and K3
+    on the spill-free nibble build `nib_clean` (synth_banded(nibble=True)).
+    Returns numbers by counter."""
     import torch
 
     res = time_epi_kernels(device, banded, label)
     res.update(time_diag_kernels(device, banded, label))
     res.update(time_stream(device, banded, label))
-    twin = nibble_twin(simple)
-    res.update(time_kernels(device, twin, label))
-    res.update(time_bf16_kernels(device, twin, label))
-    res.update(time_epi_kernels(device, twin, label))
-    del twin
-    res.update(time_halo_kernels(device, nibble_twin(clean), label))
+    res.update(time_kernels(device, nib, label))
+    res.update(time_bf16_kernels(device, nib, label))
+    res.update(time_epi_kernels(device, nib, label))
+    res.update(time_halo_kernels(device, nib_clean, label))
     if device != "cpu":
         torch.cuda.empty_cache()
     return res
@@ -2102,8 +2081,9 @@ def main(argv=None):
             sharded_forward_phase("cpu", small, gp)
             sharded_trainer_phase("cpu", small, edges, 16, gp)
         check_slice6_kernels("cpu", 2048)
-        shuffled = synth_banded(2048, True, 0, "cpu")
-        time_slice6("cpu", shuffled, shuffled, small, "rehearsal")
+        time_slice6("cpu", synth_banded(2048, True, 0, "cpu"),
+                    synth_banded(2048, True, 0, "cpu", nibble=True),
+                    synth_banded(2048, False, 0, "cpu", reorder=False, nibble=True), "rehearsal")
         probe_phase("cpu", small=True)
         log("rehearsal done")
         return 0
@@ -2125,15 +2105,16 @@ def main(argv=None):
     # the sharded engine refuses spill: the unshuffled build
     clean18 = synth_banded(18222, False, 0, device)
     times.update(time_halo_kernels(device, clean18, "18,432 rows"))
-    times.update(time_slice6(device, main_graph, main_graph, clean18, "18,432 rows"))
+    times.update(time_slice6(device, main_graph, synth_banded(18222, True, 0, device, nibble=True),
+                             synth_banded(18222, False, 0, device, nibble=True), "18,432 rows"))
     del main_graph, clean18
     big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
                                   with_edges=True)
     time_kernels(device, big, "2^20 rows")
     time_bf16_kernels(device, big, "2^20 rows")
-    big_simple = synth_banded(1 << 20, False, 0, device, reorder=False, simple=True)
-    time_slice6(device, big, big_simple, big_simple, "2^20 rows")
-    del big_simple
+    big_nib = synth_banded(1 << 20, False, 0, device, reorder=False, simple=True, nibble=True)
+    time_slice6(device, big, big_nib, big_nib, "2^20 rows")
+    del big_nib
     torch.cuda.empty_cache()
     blocked_errs, blocked_times = blocked_kernel_phases(device)
 

@@ -16,7 +16,9 @@ values up to 7, so the workloads are deduplicated simple graphs
      the bf16 mode with h stored in f32 and in bf16; and, on the spill-free
      scale-8 workload at the same size, the fused step (kernel K2, with
      either epilogue) and the gp-sharded operator (kernel K3, GP = 4 shards
-     on the one device) in the three modes, and the sharded gradient.
+     on the one device) in the three modes, and the sharded gradient.  A
+     --n-check whose scale-8 build spills, or whose block count GP does not
+     divide, raises ValueError: no check is skipped.
   2. Speed at --n nodes (2^20, 2^22 ring edges, S = 256, B = 128, D = 64):
      one forward and one backward operator pass (the backward with the
      scales swapped, on a cotangent), nibble against int8, in the f32 and
@@ -140,34 +142,37 @@ def main(argv=None):
     # its gradient on the scale-8 workload, whose build has no spill, over
     # GP shards of one device, in the three modes
     i8, nib = graphs(args.n_check, 0)
-    if i8.spill.nnz == 0 and i8.n_blocks % GP == 0:
-        mesh = make_mesh(GP, device)
-        live, h = band_operands(i8, D, 7)
-        h = torch.nn.functional.normalize(h, dim=-1)
-        wr = np.random.default_rng(8)
-        aw, bw = (torch.from_numpy((wr.standard_normal((D, D)) / 8).astype(np.float32))
-                  .to(device) for _ in range(2))
-        for precise, dt in ((True, torch.float32), (False, torch.float32),
-                            (False, torch.bfloat16)):
-            m = "f32" if precise else ("bf16" if dt == torch.float32 else "bf16_act")
-            hh = h.to(dt)
-            sub = [mirror_sub(dbg, live, hh, precise) for dbg in (i8, nib)]
-            for epi in (True, False):
-                same(f"sage_{m}{'' if epi else '_bf16epi'}", [
-                    sage_step(dbg, live, live, hh, s, aw, bw, precise, f32_epi=epi)
-                    for dbg, s in zip((i8, nib), sub)])
-            parts = [split_nodes(mesh, x) for x in (live, live, hh)]
-            same(f"sharded_{m}", [gather_nodes(mesh, spmm_band_sharded(
-                mesh, shard_band_graph(mesh, dbg), *parts, precise=precise))
-                for dbg in (i8, nib)])
-        grads = []
-        for dbg in (i8, nib):
-            xs = [p.clone().requires_grad_() for p in split_nodes(mesh, h)]
-            grads.append(gather_nodes(mesh, list(torch.autograd.grad(
-                spmm_band_sharded_grad(mesh, shard_band_graph(mesh, dbg),
-                                       split_nodes(mesh, live), split_nodes(mesh, live), xs),
-                xs, split_nodes(mesh, h)))))
-        same("sharded_backward", grads)
+    if i8.spill.nnz or i8.n_blocks % GP:
+        raise ValueError(f"--n-check {args.n_check}: the fused and sharded checks need a "
+                         f"spill-free build of a multiple of {GP} blocks (spill "
+                         f"{i8.spill.nnz}, {i8.n_blocks} blocks)")
+    mesh = make_mesh(GP, device)
+    live, h = band_operands(i8, D, 7)
+    h = torch.nn.functional.normalize(h, dim=-1)
+    wr = np.random.default_rng(8)
+    aw, bw = (torch.from_numpy((wr.standard_normal((D, D)) / 8).astype(np.float32))
+              .to(device) for _ in range(2))
+    for precise, dt in ((True, torch.float32), (False, torch.float32),
+                        (False, torch.bfloat16)):
+        m = "f32" if precise else ("bf16" if dt == torch.float32 else "bf16_act")
+        hh = h.to(dt)
+        sub = [mirror_sub(dbg, live, hh, precise) for dbg in (i8, nib)]
+        for epi in (True, False):
+            same(f"sage_{m}{'' if epi else '_bf16epi'}", [
+                sage_step(dbg, live, live, hh, s, aw, bw, precise, f32_epi=epi)
+                for dbg, s in zip((i8, nib), sub)])
+        parts = [split_nodes(mesh, x) for x in (live, live, hh)]
+        same(f"sharded_{m}", [gather_nodes(mesh, spmm_band_sharded(
+            mesh, shard_band_graph(mesh, dbg), *parts, precise=precise))
+            for dbg in (i8, nib)])
+    grads = []
+    for dbg in (i8, nib):
+        xs = [p.clone().requires_grad_() for p in split_nodes(mesh, h)]
+        grads.append(gather_nodes(mesh, list(torch.autograd.grad(
+            spmm_band_sharded_grad(mesh, shard_band_graph(mesh, dbg),
+                                   split_nodes(mesh, live), split_nodes(mesh, live), xs),
+            xs, split_nodes(mesh, h)))))
+    same("sharded_backward", grads)
     out["bits_equal"] = checks
     del i8, nib
 

@@ -9,6 +9,8 @@ and torch.matmul dense layers), the fused forward with the f32 epilogue
 (K2, f32_epi=True) and with the bf16 one (f32_epi=False); at precise=False
 the fused ones also with h stored in bf16 (act_dtype=bfloat16).  The dense
 layers run at each mode's matmul precision (utils/device.matmul_precision).
+A --n whose build spills raises ValueError (the fused step needs a
+spill-free build): no configuration is dropped.
 
 For each it reports Q's error against the precise unfused forward on four
 states (random covers of 0, 10, 25 and 45% of the nodes): the JAX script's
@@ -77,6 +79,9 @@ def main(argv=None):
     banded, _, ordered = build_banded_duplex(n, e0, e1, max_rank=n, device=device)
     net = load_model(args.model, device=device)
     pad_n = banded.pad_n
+    if not banded.spill_free:
+        raise ValueError(f"--n {n}: the build spills, and the fused configurations need a "
+                         "spill-free one")
     states = []
     for frac in FRACS:
         cov = rng.random(pad_n) < frac
@@ -87,11 +92,10 @@ def main(argv=None):
     configs = [(f"{'precise' if p else 'fast'}_{name}", p, fuse, epi, torch.float32)
                for p in (False, True)
                for name, fuse, epi in (("unfused", False, True), ("fused_f32epi", True, True),
-                                       ("fused_bf16epi", True, False))
-               if banded.spill_free or not fuse]
-    if banded.spill_free:   # the fast fused steps with h stored in bf16
-        configs += [(f"fast_{name}_bf16act", False, True, epi, torch.bfloat16)
-                    for name, epi in (("fused_f32epi", True), ("fused_bf16epi", False))]
+                                       ("fused_bf16epi", True, False))]
+    # the fast fused steps with h stored in bf16
+    configs += [(f"fast_{name}_bf16act", False, True, epi, torch.bfloat16)
+                for name, epi in (("fused_f32epi", True), ("fused_bf16epi", False))]
 
     def forward(bdx, cov, precise, fuse, f32_epi, act=torch.float32):
         with matmul_precision(precise):
@@ -111,7 +115,6 @@ def main(argv=None):
         return res
 
     out = dict(probe="f32_epi", n=n, pad_n=pad_n, device=str(device), gpu=gpu_line(),
-               spill=[banded.dbg(layer).spill.nnz for layer in range(2)],
                configs=evaluate(banded, states))
     if device.type == "cuda":
         for name, *config in configs:

@@ -3,13 +3,16 @@ probe's plain version (ops/probe_kernels.py) against a numpy reading of the
 JAX package's probe kernels (scripts/probe_pallas_stream.py::make_stream,
 scripts/probe_overlap.py::make), including their last-group output; K1's
 timing variants noscale and nodot (ops/band_kernels.spmm_band diag=)
-against their definitions, and noh and hlin refused on a CPU tensor; and
-each probe's main (probe_f32_epi, bench_nibble, tune_band, probe_hbm_roof)
-at a small size, printing one JSON line.
+against their definitions and against the JAX package's band kernel run
+with the same diag in interpret mode (band_pallas._apply, as
+scripts/tune_band_packed.py --diag calls it), and noh and hlin refused on a
+CPU tensor; and each probe's main (probe_f32_epi, bench_nibble, tune_band,
+probe_hbm_roof) at a small size, printing one JSON line.
 
 Tolerances: 0 for the stream (integer sums, exact in f32 below 2^24) and
 for nodot (one product a row, rounded as the definition rounds it); 1e-5
-of max|ref| for noscale (f32 sums in another order)."""
+of max|ref| for noscale (f32 sums in another order), against the
+definition and against JAX, where nodot is exact too."""
 
 import json
 
@@ -22,6 +25,12 @@ from mdcommunity_tpu_torch.ops import band_kernels as bk
 from mdcommunity_tpu_torch.ops import dense_band as tdb
 from mdcommunity_tpu_torch.ops.probe_kernels import stream_sum
 from torch_one_thread import one_torch_thread  # noqa: F401
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from mdcommunity_tpu.ops import dense_band as jdb  # noqa: E402
+from mdcommunity_tpu.ops.band_pallas import _apply, pack_band, pack_rows, unpack_rows  # noqa: E402
 
 
 def _jax_stream_body(x, G, extra, s):
@@ -113,6 +122,49 @@ def test_diag_nodot_writes_the_window_value_of_row_i_minus_b(precise):
     if not precise:
         cw = cw.to(torch.bfloat16).float()
     assert torch.equal(got, cw * row[:, None])
+
+
+@pytest.fixture(scope="module")
+def pallas_diag_case():
+    """tests/test_band_pallas.py:124-136's ring graph (n = 4,096, 8,192
+    edges, S = 512, B = 128, mirror lanes) in int8, with row and col scales
+    that differ, so that dropping or swapping a scale shows; and the live
+    mask as a second col, for the bf16 mode, where the Pallas engine's
+    mirror compaction bf16(h)·col equals bf16(col ⊙ h) only for col in
+    {0, 1} (tests/test_torch_band_bf16.py)."""
+    rng = np.random.default_rng(5)
+    n = 4096
+    src = rng.integers(0, n, 8192)
+    off = np.minimum((24.0 * (rng.pareto(2.0, 8192) + 1)).astype(np.int64), n // 2 - 1)
+    dst = (src + off * rng.choice([-1, 1], 8192)) % n
+    ss, dd = np.concatenate([src, dst]), np.concatenate([dst, src])
+    jg = jdb.build_dense_band(ss, dd, None, n, S=512, B=128, dtype=jnp.int8)
+    tg = tdb.build_dense_band(ss, dd, n, S=512, B=128, device="cpu")
+    # no spill: _apply adds it after the kernel, outside what diag changes
+    assert tg.C > 0 and tg.spill.nnz == 0 and tg.pad_n == n
+    live = (rng.random(n) > 0.15).astype(np.float32)
+    row = live * rng.uniform(0.5, 1.5, n).astype(np.float32)
+    cols = {True: (0.5 + rng.random(n)).astype(np.float32), False: live}
+    h = rng.standard_normal((n, 64)).astype(np.float32)
+    return jg, pack_band(jg, G=8), tg, row, cols, h
+
+
+@pytest.mark.parametrize("diag", ["noscale", "nodot"])
+@pytest.mark.parametrize("precise", [True, False])
+def test_diag_matches_pallas_diag(pallas_diag_case, diag, precise):
+    jg, pk, tg, row, cols, h = pallas_diag_case
+    col = cols[precise]
+    ref = np.asarray(unpack_rows(_apply(pk, jg, jnp.asarray(row), jnp.asarray(col),
+                                        pack_rows(jnp.asarray(h)), True, diag, precise)),
+                     np.float64)
+    r, c, x = map(torch.from_numpy, (row, col, h))
+    got = bk.spmm_band(tg, r, c, x, tdb.mirror_sub(tg, c, x, precise), precise=precise,
+                       diag=diag)
+    if diag == "nodot":
+        np.testing.assert_array_equal(got.double().numpy(), ref)
+    scale = np.abs(ref).max()
+    assert scale > 0
+    np.testing.assert_allclose(got.double().numpy(), ref, rtol=0, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("diag", ["noh", "hlin"])

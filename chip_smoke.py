@@ -12,7 +12,13 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      backward (band_spmm_bwd: torch.autograd.grad through BandSpmm, row !=
      col) against autograd through the plain operator; and K1's and K2's
      bf16 modes (precise=False), h stored in f32 and in bf16, each launched
-     twice for bit-identical output;
+     twice for bit-identical output; and the bf16 modes of K1, K2 (either
+     epilogue) and K3 at the edges of their chunk geometry (check_bf16_edges:
+     (S, B), D, one- and two-block rings, an all-zero band block, rows that
+     reach both window ends; int8 and nibble, both storages; relaunched for
+     the same bits, nibble = int8 and sharded = K1 bit for bit), and split
+     over CTAs of fewer rows at 18,432 rows against whole-block CTAs, bit for
+     bit (check_bf16_split);
   3. time K1, K2, K1's backward, the bf16 modes, their plain versions and a
      library yardstick (torch.bmm of the widened band against materialised
      windows, in bf16 for the bf16 modes) at the main path's shapes, 18,432
@@ -202,13 +208,14 @@ def sage_weights(device):
 # ---------------------------------------------------------------- checks
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, quiet=False):
     import torch
 
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     rel = err / max(scale, 1e-30)
-    log(f"check {name}: max_abs_err {err:.3e}  max|ref| {scale:.3e}  rel {rel:.3e}")
+    if not quiet:
+        log(f"check {name}: max_abs_err {err:.3e}  max|ref| {scale:.3e}  rel {rel:.3e}")
     if not torch.isfinite(got).all() or rel > REL_TOL:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
@@ -373,7 +380,7 @@ BF16_MODES = (
 )
 
 
-def compare_bf16(name, got, ref):
+def compare_bf16(name, got, ref, quiet=False):
     """A bf16-storage output against its plain version: within one bf16 ulp
     of each element (the f32 sums before the rounding run in another order)
     plus REL_TOL of max|ref|."""
@@ -384,8 +391,9 @@ def compare_bf16(name, got, ref):
     ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
     excess = ((got - ref).abs() - ulp - REL_TOL * scale).max().item()
     err = (got - ref).abs().max().item()
-    log(f"check {name}: max_abs_err {err:.3e}  max|ref| {scale:.3e}  "
-        f"worst excess over 1 bf16 ulp + REL_TOL·max {excess:.3e}")
+    if not quiet:
+        log(f"check {name}: max_abs_err {err:.3e}  max|ref| {scale:.3e}  "
+            f"worst excess over 1 bf16 ulp + REL_TOL·max {excess:.3e}")
     if not torch.isfinite(got).all() or excess > 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
@@ -481,6 +489,175 @@ def time_bf16_kernels(device, banded, label):
         log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} "
             + json.dumps(dict(res[name + nib], dense_formulation_ms=dense_ms)))
     return res
+
+
+# ---------------------------------------------------------------- bf16 edge shapes
+
+# (S, B) and D of the bf16 edge checks: the window's chunk geometry (S + 2B
+# of 256, 512, 1024 and 768 columns; B = S lets every row reach both window
+# ends) and the column groups (D = 2 and 24 pad to 16 and 32 columns, D = 2
+# also loads h element by element)
+EDGE_SB = ((128, 64), (256, 128), (512, 256), (256, 256))
+EDGE_D = (2, 24, 64)
+
+
+def edge_graph(kind, nb, S, B, nibble, device, seed=0):
+    """A graph of nb blocks of S rows (n = nb·S) for the bf16 edge checks:
+    'ring' joins each node to its next three ring neighbours and each
+    block's first row to a uniform node (mirror lanes where that edge leaves
+    the band, no spill); 'hollow' is the ring with block 1's nodes edgeless
+    (an all-zero band block); 'ends' joins every row of block b to the first
+    row of block b − 1 and the last of block b + 1, so with B = S every row
+    holds entries at both ends of its window.  Simple: nibble storage takes
+    it."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.ops.dense_band import build_dense_band
+
+    n = nb * S
+    i = np.arange(n)
+    if kind == "ends":
+        blk = i // S
+        pairs = [np.stack([i, (blk - 1) % nb * S], 1), np.stack([i, (blk + 1) % nb * S + S - 1], 1)]
+    else:
+        rng = np.random.default_rng(seed)
+        pairs = [np.stack([i, (i + k) % n], 1) for k in (1, 2, 3)]
+        pairs.append(np.stack([i[::S], rng.integers(0, n, nb)], 1))
+    p = np.concatenate(pairs)
+    if kind == "hollow":
+        p = p[(p // S != 1).all(1)]
+    p = np.unique(np.sort(p[p[:, 0] != p[:, 1]], 1), axis=0)
+    src, dst = np.concatenate([p[:, 0], p[:, 1]]), np.concatenate([p[:, 1], p[:, 0]])
+    return build_dense_band(src, dst, n, S=S, B=B, device=device, nibble=nibble)
+
+
+def bf16_mode_calls(g, row, col, h, aw, bw, mesh):
+    """{counter: (kernel call, plain call, compare)} of K1, K2 with either
+    epilogue and the sharded operator (K3 on mesh's shards) in the bf16
+    mode on graph g, h stored in its dtype."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+    from mdcommunity_tpu_torch.parallel.band_partition import shard_band_graph, spmm_band_sharded
+    from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, split_nodes
+
+    m = "_bf16_act" if h.dtype == torch.bfloat16 else "_bf16"
+    sub = mirror_sub(g, col, h, precise=False)
+    cmp = compare_bf16 if h.dtype == torch.bfloat16 else compare
+    sdbg = shard_band_graph(mesh, g)
+    parts = [split_nodes(mesh, x) for x in (row, col, h)]
+    k1_plain = lambda: bk.spmm_band_plain(g, row, col, h, sub, precise=False)  # noqa: E731
+    return {
+        f"band_spmm{m}": (lambda: bk.spmm_band(g, row, col, h, sub, precise=False),
+                          k1_plain, cmp),
+        f"band_sage{m}": (lambda: bk.sage_step(g, row, col, h, sub, aw, bw, precise=False),
+                          lambda: bk.sage_step_plain(g, row, col, h, sub, aw, bw, False), cmp),
+        f"band_sage_bf16epi{m}": (
+            lambda: bk.sage_step(g, row, col, h, sub, aw, bw, False, f32_epi=False),
+            lambda: bk.sage_step_plain(g, row, col, h, sub, aw, bw, False, False),
+            compare_epi),
+        f"band_halo{m}": (
+            lambda: gather_nodes(mesh, spmm_band_sharded(mesh, sdbg, *parts, precise=False)),
+            k1_plain, cmp),
+    }
+
+
+def check_bf16_edges(device):
+    """The bf16 modes of K1, K2 (either epilogue) and K3 at the edges of
+    their chunk geometry: (S, B) in EDGE_SB and D in EDGE_D on one- and
+    two-block rings (the window wraps onto the block itself or its only
+    neighbour; K3 on one shard a block), and at nb = 4 (two shards of two
+    blocks) a ring with an all-zero band block and one whose rows all reach
+    both window ends, f32 and bf16 storage, int8 and nibble.  Every launch
+    is held to its plain version, launched twice for the same bits, the
+    nibble build's launches to the int8 build's bits and the sharded
+    operator to K1 on the whole graph (max abs difference 0 on the card; the
+    CPU rehearsal's plain einsums may sum in another order, 2^-7 of max
+    with bf16 storage).  Returns max abs errors by counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh
+
+    exact = 0.0 if device != "cpu" else 2.0 ** -7
+    cases = [("ring", nb, S, B, D) for S, B in EDGE_SB for nb in (1, 2) for D in EDGE_D]
+    cases += [(kind, 4, 256, B, D) for kind, B in (("hollow", 128), ("ends", 256))
+              for D in EDGE_D]
+    errs, t0 = {}, time.perf_counter()
+    for kind, nb, S, B, D in cases:
+        g8, g4 = (edge_graph(kind, nb, S, B, nib, device) for nib in (False, True))
+        if g8.spill.nnz or (kind == "hollow" and g8.base[1].any()):
+            raise AssertionError(f"edge graph {kind} S={S} B={B}: not as built for")
+        gen = torch.Generator().manual_seed(D)
+        aw, bw = (torch.randn(D, D, generator=gen).div(D ** 0.5).to(device) for _ in range(2))
+        h32 = operands(g8, D, S + B, device)[0]
+        row, col = scales(g8, nb, device)
+        mesh = make_mesh(min(nb, 2), device)
+        label = f"{kind} nb={nb} S={S} B={B} D={D}"
+        for store in ("float32", "bfloat16"):
+            h = h32.to(getattr(torch, store)).contiguous()
+            outs = []
+            for g in (g8, g4):
+                o = {}
+                for name, (kern, plain, cmp) in bf16_mode_calls(g, row, col, h, aw, bw,
+                                                                 mesh).items():
+                    got = kern()
+                    if not torch.equal(kern(), got):
+                        raise AssertionError(f"{label} {name}: two launches differ")
+                    nib = "_nib" if g.nibble else ""
+                    errs[name + nib] = max(errs.get(name + nib, 0.0),
+                                           cmp(f"{label} {name + nib}", got, plain(), quiet=True))
+                    o[name] = got
+                outs.append(o)
+            for name in outs[0]:
+                if not torch.equal(outs[0][name], outs[1][name]):
+                    raise AssertionError(f"{label} {name}: nibble is not the int8 build's bits")
+            m = "_bf16_act" if store == "bfloat16" else "_bf16"
+            k1, k3 = outs[0][f"band_spmm{m}"].float(), outs[0][f"band_halo{m}"].float()
+            if (k3 - k1).abs().max().item() > exact * k1.abs().max().item():
+                raise AssertionError(f"{label} band_halo{m}: the sharded operator is not K1's bits")
+    log(f"check bf16 edges: {len(cases)} graphs x 2 storages x int8/nibble, K1, K2 (both "
+        f"epilogues) and K3 against their plain versions, relaunched, nibble = int8 and "
+        f"sharded = K1 bits: passed in {time.perf_counter() - t0:.1f} s; max abs errors "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in sorted(errs.items())}))
+    return errs
+
+
+def check_bf16_split(device):
+    """At 18,432 rows (72 blocks of 256) the bf16 launches split each block
+    over CTAs of fewer rows (ops/band_kernels.bf16_rows_per_cta): K1, K2
+    (either epilogue) and the sharded operator (K3, GP shards) in both
+    storages give the bits of whole-block CTAs, and are held to their plain
+    versions.  Returns max abs errors by counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh
+
+    g = synth_banded(18222, False, 0, device).dbg0
+    split = bk.bf16_rows_per_cta(g.n_blocks, g.S, 132)
+    h32, _ = operands(g, 64, 11, device)
+    row, col = scales(g, 12, device)
+    aw, bw = sage_weights(device)
+    mesh = make_mesh(GP, device)
+    errs = {}
+    for store in ("float32", "bfloat16"):
+        h = h32.to(getattr(torch, store)).contiguous()
+        calls = bf16_mode_calls(g, row, col, h, aw, bw, mesh)
+        whole_rows = bk.bf16_rows_per_cta
+        bk.bf16_rows_per_cta = lambda nb, S, sms: min(bk.BF16_MAX_ROWS, -(-S // 16) * 16)
+        bk._plan.cache_clear()
+        try:
+            whole = {name: kern() for name, (kern, _, _) in calls.items()}
+        finally:
+            bk.bf16_rows_per_cta = whole_rows
+            bk._plan.cache_clear()
+        for name, (kern, plain, cmp) in calls.items():
+            got = kern()
+            if not torch.equal(got, whole[name]):
+                raise AssertionError(f"{name} at 18,432 rows: split CTAs differ from whole blocks")
+            errs[name] = cmp(f"18,432 rows, {split}-row CTAs, {name}", got, plain())
+    return errs
 
 
 # ---------------------------------------------------------------- K1 backward
@@ -1644,7 +1821,7 @@ def mode_suffix(precise, store):
     return "" if precise else ("_bf16" if store == "float32" else "_bf16_act")
 
 
-def compare_epi(name, got, ref):
+def compare_epi(name, got, ref, quiet=False):
     """K2's bf16 epilogue against its plain version (EPI_TOL, EPI_SHARE)."""
     import torch
 
@@ -1655,8 +1832,9 @@ def compare_epi(name, got, ref):
            if got.dtype == torch.bfloat16 else 0.0)
     share = (err <= REL_TOL * scale + ulp).float().mean().item()
     worst = err.max().item()
-    log(f"check {name}: max_abs_err {worst:.3e}  max|ref| {scale:.3e}  share within "
-        f"REL_TOL {share:.6f}")
+    if not quiet:
+        log(f"check {name}: max_abs_err {worst:.3e}  max|ref| {scale:.3e}  share within "
+            f"REL_TOL {share:.6f}")
     if not torch.isfinite(got).all() or worst > EPI_TOL or share < EPI_SHARE:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return worst
@@ -2058,6 +2236,8 @@ def main(argv=None):
         native_build.build()
         check_kernels("cpu", 2048)
         check_bf16_kernels("cpu", 2048)
+        check_bf16_edges("cpu")
+        check_bf16_split("cpu")
         check_backward("cpu", 2048)
         time_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         time_bf16_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
@@ -2095,9 +2275,11 @@ def main(argv=None):
     build_all()
     errs = check_kernels(device, 1 << 16)
     errs.update(check_bf16_kernels(device, 1 << 16))
+    for more in (check_bf16_edges(device), check_bf16_split(device)):
+        errs.update({k: max(v, errs.get(k, 0.0)) for k, v in more.items()})
     errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
-    errs.update(check_halo_kernels(device, 1 << 16))
-    errs.update(check_slice6_kernels(device, 1 << 16))
+    for more in (check_halo_kernels(device, 1 << 16), check_slice6_kernels(device, 1 << 16)):
+        errs.update({k: max(v, errs.get(k, 0.0)) for k, v in more.items()})
 
     main_graph = synth_banded(18222, True, 0, device)
     times = time_kernels(device, main_graph, "18,432 rows")

@@ -45,8 +45,9 @@ band_spmm[_bf16]_diag_<name>.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -92,21 +93,73 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         # the trailing ints: nb, S, B, C, D, then [bf16_act,] nib and
-        # diag (K1), epi_bf16 (K2) or b0, b1 before them (K3)
+        # diag (K1), epi_bf16 (K2) or b0, b1 before them (K3); the bf16
+        # modes end with tr and geo (bf16_rows_per_cta, window_reach)
         lib.mdc_band_spmm.restype = i
         lib.mdc_band_spmm.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.mdc_band_sage.restype = i
         lib.mdc_band_sage.argtypes = [p] * 9 + [i] * 7 + [p]
         lib.mdc_band_spmm_bf16.restype = i
-        lib.mdc_band_spmm_bf16.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.mdc_band_spmm_bf16.argtypes = [p] * 7 + [i] * 10 + [p]
         lib.mdc_band_sage_bf16.restype = i
-        lib.mdc_band_sage_bf16.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.mdc_band_sage_bf16.argtypes = [p] * 9 + [i] * 10 + [p]
         lib.mdc_band_spmm_halo.restype = i
         lib.mdc_band_spmm_halo.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.mdc_band_spmm_halo_bf16.restype = i
-        lib.mdc_band_spmm_halo_bf16.argtypes = [p] * 11 + [i] * 9 + [p]
+        lib.mdc_band_spmm_halo_bf16.argtypes = [p] * 11 + [i] * 11 + [p]
         _lib = lib
     return _lib
+
+
+# ---------------------------------------------------------------- bf16 plan
+
+KC_BF16 = 64        # window columns a chunk of the bf16 contraction (csrc/band.cu KB)
+BF16_MAX_ROWS = 256  # rows a CTA of the bf16 kernels, at most
+BF16_MIN_ROWS = 64   # the split's floor: the 64-row tiles of the first bf16 design
+
+
+def window_reach(S: int, B: int, nb: int, r0: int, r1: int) -> Tuple[int, int]:
+    """The window columns [lo, hi) in which local rows [r0, r1) of a band
+    block can hold band entries, as the bf16 kernels skip by it.
+
+    The band test (dense_band.band_slots) keeps an edge only if each end
+    lies in the other's block window.  On a ring of three or more blocks a
+    source in window columns [0, B) sits in the previous block at row
+    S − B + w, whose window reaches the destination row r only if r < B;
+    one in [S + B, W2) sits in the next block, whose window reaches r only
+    if r >= S − B.  With one or two blocks the window wraps onto the block
+    itself or its only neighbour and any column can hold an entry."""
+    W2 = S + 2 * B
+    if nb < 3:
+        return 0, W2
+    return (0 if r0 < B else B), (W2 if r1 > S - B else S + B)
+
+
+def bf16_rows_per_cta(nb: int, S: int, sms: int) -> int:
+    """Rows of a band block a CTA of the bf16 kernels takes: the whole block
+    (rounded up to 16, at most 256), halved while the launch's nb blocks
+    would leave an SM without a CTA, down to 64 rows.  Each CTA stages the
+    window columns its rows reach once (window_reach), so a whole-block CTA
+    stages each window row once a block; at 18,432 rows (72 blocks of 256)
+    128-row CTAs time best on the H100 (PERF.md)."""
+    tr = min(BF16_MAX_ROWS, -(-S // 16) * 16)
+    while nb * -(-S // tr) < sms and tr > BF16_MIN_ROWS:
+        tr = max(BF16_MIN_ROWS, -(-(tr // 2) // 16) * 16)
+    return tr
+
+
+def _bf16_plan(dev: torch.device, nb: int, S: int, ring_nb: int) -> Tuple[int, int]:
+    """(tr, geo) of a bf16 launch over nb blocks of a graph whose ring has
+    ring_nb blocks (a K3 shard passes its own count: the ring has at least
+    as many)."""
+    return _plan(dev.index if dev.index is not None else torch.cuda.current_device(),
+                 nb, S, ring_nb)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(index: int, nb: int, S: int, ring_nb: int) -> Tuple[int, int]:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return bf16_rows_per_cta(nb, S, sms), int(ring_nb >= 3)
 
 
 # ---------------------------------------------------------------- checks
@@ -166,7 +219,7 @@ def _counter(kernel: str, h: torch.Tensor, precise: bool, nibble: bool = False,
 
 def _launch(fn, dbg, row, col, h, mir_sub, extra, name, flags) -> torch.Tensor:
     """Launch `fn` with the operands, the shape ints and the mode ints
-    `flags` ([bf16_act,] nib, diag or epi_bf16)."""
+    `flags` ([bf16_act,] nib, diag or epi_bf16[, tr, geo])."""
     tensors = [dbg.base, h, row, col, mir_sub, dbg.slot_of_row, *extra]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
@@ -313,8 +366,9 @@ def spmm_band(dbg, row, col, h, mir_sub, counter: Optional[str] = None,
     if precise:
         return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), name,
                        (dbg.nibble, code))
+    plan = _bf16_plan(h.device, dbg.n_blocks, dbg.S, dbg.n_blocks)
     return _launch(_load().mdc_band_spmm_bf16, dbg, row, col, h, mir_sub, (), name,
-                   (h.dtype == torch.bfloat16, dbg.nibble, code))
+                   (h.dtype == torch.bfloat16, dbg.nibble, code, *plan))
 
 
 def sage_step(dbg, row, col, h, mir_sub, A_w, B_w, precise: bool = True,
@@ -335,8 +389,9 @@ def sage_step(dbg, row, col, h, mir_sub, A_w, B_w, precise: bool = True,
     if precise:
         return _launch(_load().mdc_band_sage, dbg, row, col, h, mir_sub, (A_w, B_w), name,
                        (dbg.nibble, not f32_epi))
+    plan = _bf16_plan(h.device, dbg.n_blocks, dbg.S, dbg.n_blocks)
     return _launch(_load().mdc_band_sage_bf16, dbg, row, col, h, mir_sub, (A_w, B_w),
-                   name, (h.dtype == torch.bfloat16, dbg.nibble, not f32_epi))
+                   name, (h.dtype == torch.bfloat16, dbg.nibble, not f32_epi, *plan))
 
 
 def spmm_band_halo(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=None,
@@ -394,7 +449,7 @@ def spmm_band_halo(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=None,
             rc_ = lib.mdc_band_spmm_halo(*args, int(nib), stream)
         else:
             rc_ = lib.mdc_band_spmm_halo_bf16(*args, int(h.dtype == torch.bfloat16), int(nib),
-                                              stream)
+                                              *_bf16_plan(h.device, b1 - b0, S, nb), stream)
     if rc_ != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc_}")
     launches[name] += 1

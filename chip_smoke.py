@@ -12,13 +12,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      backward (band_spmm_bwd: torch.autograd.grad through BandSpmm, row !=
      col) against autograd through the plain operator; and K1's and K2's
      bf16 modes (precise=False), h stored in f32 and in bf16, each launched
-     twice for bit-identical output; and the bf16 modes of K1, K2 (either
-     epilogue) and K3 at the edges of their chunk geometry (check_bf16_edges:
-     (S, B), D, one- and two-block rings, an all-zero band block, rows that
-     reach both window ends; int8 and nibble, both storages; relaunched for
-     the same bits, nibble = int8 and sharded = K1 bit for bit), and split
-     over CTAs of fewer rows at 18,432 rows against whole-block CTAs, bit for
-     bit (check_bf16_split);
+     twice for bit-identical output; the precise K1 (D = 64 and 2), K1's
+     backward, K2 with either epilogue and K3 (and its backward) also
+     against their plain versions run in float64 on the same inputs, within
+     F64_TOL of max|ref| (check_f64, which logs the f32 plain version's
+     error beside the kernel's); and K1, K2 (either epilogue) and K3 in the
+     precise and both bf16 modes at the edges of their chunk geometry
+     (check_edges: (S, B), D, one- and two-block rings, an all-zero band
+     block, rows that reach both window ends; int8 and nibble; relaunched
+     for the same bits, nibble = int8 and sharded = K1 bit for bit; the
+     precise ones against f64 too), and split over CTAs of fewer rows at
+     18,432 rows against whole-block CTAs, bit for bit (check_split);
   3. time K1, K2, K1's backward, the bf16 modes, their plain versions and a
      library yardstick (torch.bmm of the widened band against materialised
      windows, in bf16 for the bf16 modes) at the main path's shapes, 18,432
@@ -235,14 +239,17 @@ def check_kernels(device, n):
         raise AssertionError("check graph A has no mirror lanes")
     h, live = operands(dbg, 64, 2, device)
     sub = mirror_sub(dbg, live, h)
-    errs["band_spmm"] = compare(
-        "K1 D=64", bk.spmm_band(dbg, live, live, h, sub),
-        bk.spmm_band_plain(dbg, live, live, h, sub))
+    got, ref = bk.spmm_band(dbg, live, live, h, sub), bk.spmm_band_plain(dbg, live, live, h, sub)
+    errs["band_spmm"] = compare("K1 D=64", got, ref)
+    check_f64("K1 D=64", got, bk.spmm_band_plain(dbg, *f64(live, live, h, sub)), ref,
+              counter="band_spmm")
     h2, ones = operands(dbg, 2, 3, device, unit=True)
     sub2 = mirror_sub(dbg, ones, h2)
-    errs["band_spmm"] = max(errs["band_spmm"], compare(
-        "K1 D=2", bk.spmm_band(dbg, ones, ones, h2, sub2),
-        bk.spmm_band_plain(dbg, ones, ones, h2, sub2)))
+    got, ref = (bk.spmm_band(dbg, ones, ones, h2, sub2),
+                bk.spmm_band_plain(dbg, ones, ones, h2, sub2))
+    errs["band_spmm"] = max(errs["band_spmm"], compare("K1 D=2", got, ref))
+    check_f64("K1 D=2", got, bk.spmm_band_plain(dbg, *f64(ones, ones, h2, sub2)), ref,
+              counter="band_spmm")
 
     clean = synth_banded(n, False, 1, device)
     dbg = clean.dbg0
@@ -254,9 +261,13 @@ def check_kernels(device, n):
     h = torch.nn.functional.normalize(h, dim=-1)
     sub = mirror_sub(dbg, live, h)
     aw, bw = sage_weights(device)
-    errs["band_sage"] = compare(
-        "K2", bk.sage_step(dbg, live, live, h, sub, aw, bw),
-        bk.sage_step_plain(dbg, live, live, h, sub, aw, bw))
+    ref64 = f64_calls(dbg, live, live, h, sub, aw, bw)
+    for name, f32_epi in (("band_sage", True), ("band_sage_bf16epi", False)):
+        got = bk.sage_step(dbg, live, live, h, sub, aw, bw, f32_epi=f32_epi)
+        ref = bk.sage_step_plain(dbg, live, live, h, sub, aw, bw, f32_epi=f32_epi)
+        errs[name] = (compare if f32_epi else compare_epi)(f"K2 f32_epi={f32_epi}", got, ref)
+        check_f64(f"K2 f32_epi={f32_epi}", got, ref64[name][0], ref, ref64[name][1],
+                  counter=name)
     return errs
 
 
@@ -491,10 +502,83 @@ def time_bf16_kernels(device, banded, label):
     return res
 
 
-# ---------------------------------------------------------------- bf16 edge shapes
+# ---------------------------------------------------------------- the f64 yardstick
 
-# (S, B) and D of the bf16 edge checks: the window's chunk geometry (S + 2B
-# of 256, 512, 1024 and 768 columns; B = S lets every row reach both window
+# The precise mode against its plain version run in float64 on the same
+# inputs, in units of max|ref|: f32's 2^-23 with room for a few terms.  K2's
+# epilogue can cancel and then normalises, which amplifies any f32 error in
+# a row whose z is small against its terms (D = 2 shows it): the check holds
+# the kernel on the rows that f32 resolves, those where the f32 plain version
+# is within F64_TOL / 2 (all of them for K1 and K3), and logs their share.
+# Each check logs the kernel's error beside the f32 plain version's and fails
+# when the kernel's exceeds F64_TOL; F64 keeps the worst by counter.
+F64_TOL = 1e-6
+F64 = {}
+
+
+def f64(*xs):
+    """xs with every floating tensor in float64 (graphs and None as they are)."""
+    import torch
+
+    return [x.double() if torch.is_tensor(x) and x.is_floating_point() else x for x in xs]
+
+
+def check_f64(name, got, ref64, ref32, ref64_plain=None, counter=None):
+    """The kernel's output `got` [n, D] against `ref64` and the f32 plain
+    version's `ref32` against `ref64_plain` (by default ref64), in units of
+    max|ref64|: the kernel on the rows that f32 resolves, the plain version
+    on all rows.  Raises when the kernel's exceeds F64_TOL."""
+    ref64_plain = ref64 if ref64_plain is None else ref64_plain
+    scale = max(ref64.abs().max().item(), 1e-300)
+    e_k = (got.double() - ref64).abs().amax(-1) / scale
+    e_p = (ref32.double() - ref64_plain).abs().amax(-1) / scale
+    rows = e_p <= F64_TOL / 2
+    kern = e_k[rows].max().item() if rows.any() else 0.0
+    log(f"f64 {name}: kernel {kern:.3e} ({e_k.max().item():.3e} on every row), f32 plain "
+        f"{e_p.max().item():.3e} of max|ref| {scale:.3e}; rows held "
+        f"{rows.double().mean().item():.1%}")
+    key = counter or name
+    old = F64.get(key, (0.0, 0.0, 1.0))
+    F64[key] = (max(old[0], kern), max(old[1], e_p.max().item()),
+                min(old[2], rows.double().mean().item()))
+    if not kern <= F64_TOL:
+        raise AssertionError(f"{name}: {kern:.3e} of max|ref| from the f64 plain version")
+    return kern
+
+
+def bf16_epilogue64(pool, h, aw, bw):
+    """K2's bf16 epilogue (f32_epi=False) in f64 on the pooled block `pool`:
+    the dot operands rounded to bf16, as sage_step_plain rounds them."""
+    import torch
+
+    r = lambda x: x.to(torch.bfloat16).double()  # noqa: E731
+    z = torch.relu(r(pool) @ r(aw) + r(h) @ r(bw))
+    return z * torch.rsqrt(torch.clamp(torch.sum(z * z, -1, keepdim=True), min=1e-24))
+
+
+def f64_calls(dbg, row, col, h, sub, aw, bw):
+    """{counter: (the kernel's f64 reference, the f32 plain version's)} of
+    the precise K1, K2 and K2's bf16 epilogue on these inputs: their plain
+    versions in f64.  The bf16 epilogue rounds its dot operands to bf16 by
+    definition, so a pooled value within f32 noise of a rounding boundary
+    may round either way; its references are the f64 epilogue on the
+    bf16-rounded pooled block that K1 (K2's pooled block bit for bit: the
+    same contraction, mirror add and row scale) and K1's plain version
+    compute on the same inputs.  K1's own check holds that block."""
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+
+    a64, w64 = f64(row, col, h, sub), f64(aw, bw)
+    k1 = bk.spmm_band_plain(dbg, *a64)
+    k2 = bk.sage_step_plain(dbg, *a64, *w64)
+    return {"band_spmm": (k1, k1), "band_sage": (k2, k2),
+            "band_sage_bf16epi": tuple(bf16_epilogue64(p, h, aw, bw) for p in (
+                bk.spmm_band(dbg, row, col, h, sub), bk.spmm_band_plain(dbg, row, col, h, sub)))}
+
+
+# ---------------------------------------------------------------- edge shapes
+
+# (S, B) and D of the edge checks: the window's chunk geometry (S + 2B of
+# 256, 512, 1024 and 768 columns; B = S lets every row reach both window
 # ends) and the column groups (D = 2 and 24 pad to 16 and 32 columns, D = 2
 # also loads h element by element)
 EDGE_SB = ((128, 64), (256, 128), (512, 256), (256, 256))
@@ -502,7 +586,7 @@ EDGE_D = (2, 24, 64)
 
 
 def edge_graph(kind, nb, S, B, nibble, device, seed=0):
-    """A graph of nb blocks of S rows (n = nb·S) for the bf16 edge checks:
+    """A graph of nb blocks of S rows (n = nb·S) for the edge checks:
     'ring' joins each node to its next three ring neighbours and each
     block's first row to a uniform node (mirror lanes where that edge leaves
     the band, no spill); 'hollow' is the ring with block 1's nodes edgeless
@@ -531,10 +615,10 @@ def edge_graph(kind, nb, S, B, nibble, device, seed=0):
     return build_dense_band(src, dst, n, S=S, B=B, device=device, nibble=nibble)
 
 
-def bf16_mode_calls(g, row, col, h, aw, bw, mesh):
+def mode_calls(g, row, col, h, aw, bw, mesh, precise):
     """{counter: (kernel call, plain call, compare)} of K1, K2 with either
-    epilogue and the sharded operator (K3 on mesh's shards) in the bf16
-    mode on graph g, h stored in its dtype."""
+    epilogue and the sharded operator (K3 on mesh's shards) in the precise
+    (h f32) or the bf16 mode on graph g, h stored in its dtype."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
@@ -542,41 +626,44 @@ def bf16_mode_calls(g, row, col, h, aw, bw, mesh):
     from mdcommunity_tpu_torch.parallel.band_partition import shard_band_graph, spmm_band_sharded
     from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, split_nodes
 
-    m = "_bf16_act" if h.dtype == torch.bfloat16 else "_bf16"
-    sub = mirror_sub(g, col, h, precise=False)
+    m = mode_suffix(precise, "bfloat16" if h.dtype == torch.bfloat16 else "float32")
+    sub = mirror_sub(g, col, h, precise=precise)
     cmp = compare_bf16 if h.dtype == torch.bfloat16 else compare
     sdbg = shard_band_graph(mesh, g)
     parts = [split_nodes(mesh, x) for x in (row, col, h)]
-    k1_plain = lambda: bk.spmm_band_plain(g, row, col, h, sub, precise=False)  # noqa: E731
+    k1_plain = lambda: bk.spmm_band_plain(g, row, col, h, sub, precise)  # noqa: E731
     return {
-        f"band_spmm{m}": (lambda: bk.spmm_band(g, row, col, h, sub, precise=False),
+        f"band_spmm{m}": (lambda: bk.spmm_band(g, row, col, h, sub, precise=precise),
                           k1_plain, cmp),
-        f"band_sage{m}": (lambda: bk.sage_step(g, row, col, h, sub, aw, bw, precise=False),
-                          lambda: bk.sage_step_plain(g, row, col, h, sub, aw, bw, False), cmp),
+        f"band_sage{m}": (lambda: bk.sage_step(g, row, col, h, sub, aw, bw, precise),
+                          lambda: bk.sage_step_plain(g, row, col, h, sub, aw, bw, precise),
+                          cmp),
         f"band_sage_bf16epi{m}": (
-            lambda: bk.sage_step(g, row, col, h, sub, aw, bw, False, f32_epi=False),
-            lambda: bk.sage_step_plain(g, row, col, h, sub, aw, bw, False, False),
+            lambda: bk.sage_step(g, row, col, h, sub, aw, bw, precise, f32_epi=False),
+            lambda: bk.sage_step_plain(g, row, col, h, sub, aw, bw, precise, False),
             compare_epi),
         f"band_halo{m}": (
-            lambda: gather_nodes(mesh, spmm_band_sharded(mesh, sdbg, *parts, precise=False)),
+            lambda: gather_nodes(mesh, spmm_band_sharded(mesh, sdbg, *parts, precise=precise)),
             k1_plain, cmp),
     }
 
 
-def check_bf16_edges(device):
-    """The bf16 modes of K1, K2 (either epilogue) and K3 at the edges of
-    their chunk geometry: (S, B) in EDGE_SB and D in EDGE_D on one- and
-    two-block rings (the window wraps onto the block itself or its only
-    neighbour; K3 on one shard a block), and at nb = 4 (two shards of two
-    blocks) a ring with an all-zero band block and one whose rows all reach
-    both window ends, f32 and bf16 storage, int8 and nibble.  Every launch
-    is held to its plain version, launched twice for the same bits, the
-    nibble build's launches to the int8 build's bits and the sharded
-    operator to K1 on the whole graph (max abs difference 0 on the card; the
-    CPU rehearsal's plain einsums may sum in another order, 2^-7 of max
-    with bf16 storage).  Returns max abs errors by counter."""
+def check_edges(device):
+    """K1, K2 (either epilogue) and K3 in the precise and the bf16 modes at
+    the edges of their chunk geometry: (S, B) in EDGE_SB and D in EDGE_D on
+    one- and two-block rings (the window wraps onto the block itself or its
+    only neighbour; K3 on one shard a block), and at nb = 4 (two shards of
+    two blocks) a ring with an all-zero band block and one whose rows all
+    reach both window ends; the precise mode (f32), the bf16 mode with f32
+    and bf16 storage; int8 and nibble.  Every launch is held to its plain
+    version (the precise K1, K2 and K3 also to the f64 one, check_f64),
+    launched twice for the same bits, the nibble build's launches to the
+    int8 build's bits and the sharded operator to K1 on the whole graph (max
+    abs difference 0 on the card; the CPU rehearsal's plain einsums may sum
+    in another order, 2^-7 of max).  Returns max abs errors by counter."""
     import torch
 
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
     from mdcommunity_tpu_torch.parallel.mesh import make_mesh
 
     exact = 0.0 if device != "cpu" else 2.0 ** -7
@@ -594,13 +681,13 @@ def check_bf16_edges(device):
         row, col = scales(g8, nb, device)
         mesh = make_mesh(min(nb, 2), device)
         label = f"{kind} nb={nb} S={S} B={B} D={D}"
-        for store in ("float32", "bfloat16"):
+        for precise, store in PREC_MODES:
             h = h32.to(getattr(torch, store)).contiguous()
             outs = []
             for g in (g8, g4):
                 o = {}
-                for name, (kern, plain, cmp) in bf16_mode_calls(g, row, col, h, aw, bw,
-                                                                 mesh).items():
+                calls = mode_calls(g, row, col, h, aw, bw, mesh, precise)
+                for name, (kern, plain, cmp) in calls.items():
                     got = kern()
                     if not torch.equal(kern(), got):
                         raise AssertionError(f"{label} {name}: two launches differ")
@@ -608,49 +695,57 @@ def check_bf16_edges(device):
                     errs[name + nib] = max(errs.get(name + nib, 0.0),
                                            cmp(f"{label} {name + nib}", got, plain(), quiet=True))
                     o[name] = got
+                if precise:
+                    ref = f64_calls(g, row, col, h, mirror_sub(g, col, h), aw, bw)
+                    ref["band_halo"] = ref["band_spmm"]
+                    for name, (ref64, ref64_plain) in ref.items():
+                        check_f64(f"{label} {name}{nib}", o[name], ref64, calls[name][1](),
+                                  ref64_plain, f"{name} (edges)")
                 outs.append(o)
             for name in outs[0]:
                 if not torch.equal(outs[0][name], outs[1][name]):
                     raise AssertionError(f"{label} {name}: nibble is not the int8 build's bits")
-            m = "_bf16_act" if store == "bfloat16" else "_bf16"
+            m = mode_suffix(precise, store)
             k1, k3 = outs[0][f"band_spmm{m}"].float(), outs[0][f"band_halo{m}"].float()
             if (k3 - k1).abs().max().item() > exact * k1.abs().max().item():
                 raise AssertionError(f"{label} band_halo{m}: the sharded operator is not K1's bits")
-    log(f"check bf16 edges: {len(cases)} graphs x 2 storages x int8/nibble, K1, K2 (both "
-        f"epilogues) and K3 against their plain versions, relaunched, nibble = int8 and "
-        f"sharded = K1 bits: passed in {time.perf_counter() - t0:.1f} s; max abs errors "
+    log(f"check edges: {len(cases)} graphs x (precise, bf16 with f32 and bf16 storage) x "
+        f"int8/nibble, K1, K2 (both epilogues) and K3 against their plain versions (precise: "
+        f"and f64), relaunched, nibble = int8 and sharded = K1 bits: passed in "
+        f"{time.perf_counter() - t0:.1f} s; max abs errors "
         + json.dumps({k: float(f"{v:.3e}") for k, v in sorted(errs.items())}))
     return errs
 
 
-def check_bf16_split(device):
-    """At 18,432 rows (72 blocks of 256) the bf16 launches split each block
-    over CTAs of fewer rows (ops/band_kernels.bf16_rows_per_cta): K1, K2
-    (either epilogue) and the sharded operator (K3, GP shards) in both
-    storages give the bits of whole-block CTAs, and are held to their plain
-    versions.  Returns max abs errors by counter."""
+def check_split(device):
+    """At 18,432 rows (72 blocks of 256) the launches split each block over
+    CTAs of fewer rows (ops/band_kernels.rows_per_cta): K1, K2 (either
+    epilogue) and the sharded operator (K3, GP shards) in the precise mode
+    and the bf16 mode with both storages give the bits of whole-block CTAs,
+    and are held to their plain versions.  Returns max abs errors by
+    counter."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
     from mdcommunity_tpu_torch.parallel.mesh import make_mesh
 
     g = synth_banded(18222, False, 0, device).dbg0
-    split = bk.bf16_rows_per_cta(g.n_blocks, g.S, 132)
+    split = bk.rows_per_cta(g.n_blocks, g.S, 132)
     h32, _ = operands(g, 64, 11, device)
     row, col = scales(g, 12, device)
     aw, bw = sage_weights(device)
     mesh = make_mesh(GP, device)
     errs = {}
-    for store in ("float32", "bfloat16"):
+    for precise, store in PREC_MODES:
         h = h32.to(getattr(torch, store)).contiguous()
-        calls = bf16_mode_calls(g, row, col, h, aw, bw, mesh)
-        whole_rows = bk.bf16_rows_per_cta
-        bk.bf16_rows_per_cta = lambda nb, S, sms: min(bk.BF16_MAX_ROWS, -(-S // 16) * 16)
+        calls = mode_calls(g, row, col, h, aw, bw, mesh, precise)
+        whole_rows = bk.rows_per_cta
+        bk.rows_per_cta = lambda nb, S, sms: min(bk.MAX_ROWS, -(-S // 16) * 16)
         bk._plan.cache_clear()
         try:
             whole = {name: kern() for name, (kern, _, _) in calls.items()}
         finally:
-            bk.bf16_rows_per_cta = whole_rows
+            bk.rows_per_cta = whole_rows
             bk._plan.cache_clear()
         for name, (kern, plain, cmp) in calls.items():
             got = kern()
@@ -705,7 +800,11 @@ def check_backward(device, n):
     g = torch.randn(dbg.pad_n, 64, generator=gen).to(device)
     (got,) = torch.autograd.grad(spmm_dense_band_grad(dbg, row, col, h), h, g)
     (ref,) = torch.autograd.grad(plain_operator(dbg, row, col, h), h, g)
-    return compare("K1 backward D=64, row != col, autograd", got, ref)
+    err = compare("K1 backward D=64, row != col, autograd", got, ref)
+    h64 = h.detach().double().requires_grad_()
+    (ref64,) = torch.autograd.grad(plain_operator(dbg, *f64(row, col), h64), h64, g.double())
+    check_f64("K1 backward, autograd", got, ref64, ref, counter="band_spmm_bwd")
+    return err
 
 
 # ---------------------------------------------------------------- the fit
@@ -910,6 +1009,9 @@ def check_halo_kernels(device, n, gp=GP):
                 ref = bk.spmm_band_halo_plain(*op, precise=precise)
                 cmp = compare_bf16 if store == "bfloat16" else compare
                 errs[name] = max(errs[name], cmp(f"K3 {name} S={S} shard {i}", got, ref))
+                if precise:
+                    check_f64(f"K3 S={S} shard {i}", got, bk.spmm_band_halo_plain(*f64(*op)),
+                              ref, counter=name)
             out = gather_nodes(mesh, spmm_band_sharded(
                 mesh, sdbg, *(split_nodes(mesh, x) for x in (row, col, hh)), precise=precise))
             k1 = spmm_dense_band(dbg, row, col, hh, precise=precise)
@@ -934,6 +1036,10 @@ def check_halo_kernels(device, n, gp=GP):
         (plain,) = torch.autograd.grad(plain_operator(dbg, row, col, hf), hf, g)
         errs["band_halo_bwd"] = max(errs["band_halo_bwd"], compare(
             f"K3 backward S={S} vs autograd through the plain operator", dh, plain))
+        h64 = h.double().requires_grad_()
+        (ref64,) = torch.autograd.grad(plain_operator(dbg, *f64(row, col), h64), h64,
+                                       g.double())
+        check_f64(f"K3 backward S={S}", dh, ref64, plain, counter="band_halo_bwd")
     return errs
 
 
@@ -2236,8 +2342,8 @@ def main(argv=None):
         native_build.build()
         check_kernels("cpu", 2048)
         check_bf16_kernels("cpu", 2048)
-        check_bf16_edges("cpu")
-        check_bf16_split("cpu")
+        check_edges("cpu")
+        check_split("cpu")
         check_backward("cpu", 2048)
         time_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         time_bf16_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
@@ -2275,11 +2381,14 @@ def main(argv=None):
     build_all()
     errs = check_kernels(device, 1 << 16)
     errs.update(check_bf16_kernels(device, 1 << 16))
-    for more in (check_bf16_edges(device), check_bf16_split(device)):
+    for more in (check_edges(device), check_split(device)):
         errs.update({k: max(v, errs.get(k, 0.0)) for k, v in more.items()})
     errs["band_spmm_bwd"] = check_backward(device, 1 << 16)
     for more in (check_halo_kernels(device, 1 << 16), check_slice6_kernels(device, 1 << 16)):
         errs.update({k: max(v, errs.get(k, 0.0)) for k, v in more.items()})
+    log("f64 yardstick, worst of max|ref| (kernel on the rows held, f32 plain version, "
+        "least share of rows held): "
+        + json.dumps({k: [float(f"{x:.3e}") for x in v] for k, v in F64.items()}))
 
     main_graph = synth_banded(18222, True, 0, device)
     times = time_kernels(device, main_graph, "18,432 rows")

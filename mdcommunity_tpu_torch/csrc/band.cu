@@ -6,7 +6,7 @@
 // K3  mdc_band_spmm_halo : K1 on one shard of a gp mesh, its windows linear
 //     over [left halo | local rows | right halo]
 // and their bf16 modes mdc_band_spmm_bf16, mdc_band_sage_bf16 and
-// mdc_band_spmm_halo_bf16.
+// mdc_band_spmm_halo_bf16.  Every mode is one kernel, band_mma_kernel.
 //
 // A_band is a DenseBandGraph's int8 base [nb, S+C, W2] (only its S band rows
 // are read): row s of destination block b holds the edges from source rows
@@ -31,17 +31,17 @@
 // the TPU's vector tiles and have no counterpart here: h stays [pad_n, D]
 // and the scales are read per row.
 //
-// The TPU kernel's remaining modes are template parameters of band_kernel:
+// The TPU kernel's remaining modes are template parameters:
 //   NIB (nibble=True, band_pallas.py:584-602): the base rows hold two window
 //     columns a byte, byte = a[w] + 16·a[w+1] for even w, each in [0, 7]
-//     (the row pitch is W2/2 bytes, the mirror-lane rows included).  The
-//     staging unpacks them where it widens int8, 8 columns a 32-bit word;
-//     the staged values and the sum order are the int8 path's, so a nibble
-//     launch gives the int8 launch's bits in every mode (K1, K2, K3).
+//     (the row pitch is W2/2 bytes, the mirror-lane rows included).  The A
+//     fragments unpack them in registers into the int8 path's values, in
+//     the same order, so a nibble launch gives the int8 launch's bits in
+//     every mode (K1, K2, K3).
 //   EPI (f32_epi=False, :653-668): K2's epilogue rounds its dot operands
 //     (the pooled block after the row scale, the own rows' h, A_w and B_w)
-//     to bf16 and accumulates in f32 (FP32 FMA on bf16 values: each product
-//     is exact), in either precise mode; relu, Σz² and rsqrt stay f32.
+//     to bf16 and sums in f32, in either precise mode; relu, Σz² and rsqrt
+//     stay f32.
 //   DIAG (diag=, :280-286, 480-498, 623-633), K1 only, timing variants
 //     whose output is wrong by design: 1 noscale (no col scale in the
 //     window staging, no row scale: out = A_band @ h + Gᵀ·sub), 2 nodot
@@ -50,10 +50,11 @@
 //     global memory in the epilogue), 3 noh (nodot without the h-window
 //     staging: out = row ⊙ Gᵀ·sub), 4 hlin (a block stages only its own S
 //     window rows, no B-row overlap and no wrap; the rest are zeros).
+//   PREC: the precise mode (below), else the bf16 mode.
 //
 // K3 replaces the same kernel's halo=True mode (band_pallas.py:274-278,
 // 394-478), the local engine of the gp-sharded band operator
-// (parallel/band_partition.py:189-291).  It is band_kernel with HALO set: a
+// (parallel/band_partition.py:189-291).  It is the kernel with HALO set: a
 // shard passes its own base blocks, h, scales, slots and mirror sub, and
 // its ring neighbours' B-row strips lh, rh with their col scales lc, rc.
 // Window row j = b·S − B + w of local block b reads lh[j + B] for j < 0,
@@ -69,45 +70,53 @@
 // h, and write the output, while the band holds only ~6-12 nonzeros a row
 // out of W2 = 512, so the multiply-adds the data needs are few.  A kernel
 // that multiplies the band as a dense matrix instead does 2·pad_n·W2·D
-// flops (6.9e10 at 2^20 nodes, D=64): ~1 ms at the 67 TFLOP/s of FP32 FMA
-// against ~0.17 ms for the bytes, so a dense kernel is bound by operations.
-// Tensor cores are no way out for the precise eval: TF32 rounds h to ~10
-// bits, the kind of rounding that cost the JAX package 0.035 AUDC.  The
-// bf16 modes have accepted that rounding, and there the same dense product
-// runs on the bf16 tensor cores (989 TFLOP/s: ~0.07 ms at 2^20), under the
-// bytes.
+// flops (6.9e10 at 2^20 nodes, D = 64): ~1 ms at the 67 TFLOP/s of FP32 FMA,
+// over the bytes' 0.33 ms; on the bf16 tensor cores (989 TFLOP/s) ~0.07 ms,
+// and three passes ~0.21 ms, under them.  So every mode runs the dense
+// product on the tensor cores, and what bounds the kernel is moving the
+// band and the window, and, in the precise mode, the three passes.
 //
-// What the precise design does about it.  Every multiply-add is an FP32
-// FFMA from registers: a thread owns a 4-row × 4-column register tile of the
-// output, and each step of the window loop reads one float4 of the base tile
-// and one float4 of the h tile from shared memory for 16 FFMAs.  The int8
-// base is widened once, while it is staged (KC=64 window columns at a time,
-// four columns per 32-bit load), not once per FMA.  All NT threads stage,
-// also when fewer own an output tile (D=2: 64 of 256), because staging, not
-// the FMAs, is what a narrow D waits on.  A chunk whose staged base tile is
-// all zero (most of them: a row's neighbours sit in one or two chunks of the
-// window) skips its h staging and its multiplies, so the operations follow
-// the band's fill rather than its dense size.  The window is staged
-// col-scaled, so the row scale, the mirror add and (K2) the dense layer and
-// normalisation are f32 epilogues on the tile.  Sums run in a fixed order
-// (window position, then k of the epilogue dots), so results are
-// deterministic.
+// The operands.  The bf16 modes: the int8 (or nibble) band widened exactly,
+// the window as bf16(col ⊙ h) formed in f32 from the stored h and rounded to
+// nearest even (XLA's astype(bfloat16)), bf16(sub) added in f32.  The
+// precise mode cannot round col ⊙ h: one TF32 or bf16 pass keeps 10 or 8 of
+// its 24 bits, the kind of rounding that cost the JAX package 0.035 AUDC.
+// It splits each window value x = col·h (rounded once in f32, as an FP32
+// multiply-add takes it) into three bf16 pieces, hi = bf16(x), mid =
+// bf16(x − hi) and lo = bf16(x − hi − mid) (split3x2,
+// ops/band_kernels.split_bf16x3).  x − hi has at most 16 significant bits
+// and x − hi − mid at most 8, so each remainder is exact in f32 and hi +
+// mid + lo = x exactly (2^-110 <= |x| < (2 − 2^-8)·2^127); a band value
+// (8 bits) times a piece (8 bits) is exact in f32
+// (tests/test_torch_band_split.py).  So three MMA passes of one band
+// fragment against the three pieces add exactly the products that FP32
+// FMAs of x add; only the accumulation differs.  The tensor core adds a
+// pass's products to its accumulator input aligned to the largest, and
+// truncates the sum to f32 (toward zero): a sum whose bits span more than
+// f32's 24 drifts toward zero.  A band value times a piece has at most 15
+// bits, and one k16 step of one row holds a few such products, so a pass
+// into a zeroed register is mostly exact; the lo and mid products stay a
+// 2^-8 of the hi ones, where a truncation is negligible.  So each k16 step
+// sums its lo and mid products into one zeroed partial and its hi products
+// into another, and adds both into the f32 accumulator, rounded to nearest.
+// Measured against the plain version run in f64 (chip_smoke.py's
+// yardstick, PERF.md), the kernel's error stays at the f32 plain
+// version's.  The cheaper designs drifted: one partial for all three passes
+// (lo, mid, hi) truncates the lo and mid sum's last bits where it meets the
+// hi products, and the three passes straight into the accumulator truncate
+// at the accumulator's magnitude; both biased the gate gradient of
+// chip_smoke.py's fit check past its bound, and the second also broke the
+// yardstick's 1e-6 on a two-column K2 of its edge graphs.  K2's f32
+// epilogue (below) is an f32 dot on arbitrary f32 operands, which no split
+// of one side makes exact: it stays on FP32 FMAs.
 //
-// The bf16 modes (band_bf16_kernel).  Their operands are bf16: the int8 (or
-// nibble) band widened exactly, the window as bf16(col ⊙ h) formed in f32
-// from the stored h and rounded to nearest even (XLA's astype(bfloat16)),
-// bf16(sub) added in f32; the sums are f32 on the tensor cores.  With the
-// dense product under the bytes (0.07 ms at 2^20 against 0.33), what bounds
-// them on this card is moving the band and the window: a first design that
-// cut each band block into 64-row tiles staged the whole window four times a
-// block, element by element with scalar loads, with no overlap of copies and
-// math, and ran at 8-20% of its bytes bound (PERF.md).  This design:
+// The pipeline (every mode):
 //   * A CTA (256 threads, a warp 32 rows) owns TR rows of a band block, all
 //     S of them (TR = 256 at S = 256) unless the graph has too few blocks to
-//     give every SM a CTA (ops/band_kernels.bf16_rows_per_cta then splits
-//     them, down to 64 rows), and one column group of at most 64 columns
-//     (K2: all of them, in turn).  So each window row is staged once per
-//     band block.
+//     give every SM a CTA (ops/band_kernels.rows_per_cta then splits them,
+//     down to 64 rows; the precise K2 takes 128 so that two CTAs share an
+//     SM), and one column group of at most 64 columns (K2: all of them, in
+//     turn).  So each window row is staged once or twice per band block.
 //   * It walks the window in chunks of KB = 64 columns, only those its rows
 //     can reach: on a ring of three or more blocks the symmetric band test
 //     (ops/dense_band.band_slots) keeps rows r >= B out of window columns
@@ -119,34 +128,35 @@
 //     every launch shape adds a row's chunks in ascending order with one k
 //     order inside a chunk, so K1, K3 and every row split give the same bits.
 //   * The base chunks come by cp.async 16-byte copies (8 or 4 where the row
-//     pitch asks) into a ring of four stages (K2: three): two chunks are in
-//     flight while one multiplies.  The window rows of chunk c + 1 load as
-//     16-byte vectors (a float4 pair, or 8 bf16) into registers before chunk
-//     c multiplies, unconditionally from valid addresses with a mask for what
-//     is real, so that no instruction waits on them until they are scaled
-//     (col[j] once a window row; K3's halo choice once a window row), rounded
-//     and stored as 16-byte vectors after it, into a ring of two stages whose
-//     rows are XOR-swizzled so that ldmatrix reads them without bank
-//     conflicts.  The rows' slots and row scales come by cp.async with the
-//     first chunk, so the epilogue waits on no load but the rare mirror row.
+//     pitch asks) into a ring of four stages (the precise K1 and K3, whose
+//     window ring is three times the size, and K2: three).  The window rows
+//     of chunk c + 1 load as 16-byte vectors (a float4 pair, or 8 bf16) into
+//     registers before chunk c multiplies, unconditionally from valid
+//     addresses with a mask for what is real, so that no instruction waits
+//     on them until they are scaled (col[j] once a window row; K3's halo
+//     choice once a window row), rounded or split, and stored as 16-byte
+//     vectors after it, into a ring of two stages (one bf16 plane, or the
+//     precise mode's three) whose rows are XOR-swizzled so that ldmatrix
+//     reads them without bank conflicts.  The rows' slots and row scales come
+//     by cp.async with the first chunk, so the epilogue waits on no load but
+//     the rare mirror row.
 //   * The band goes into the MMA (mma.sync m16n8k16, bf16, f32 accumulators)
 //     from shared memory through registers: a thread reads 4 bytes of each
 //     of its two rows a k16 step (2 with nibbles) and widens them exactly in
 //     registers (byte_perm into an f32 2^23 + v + 128, one FADD, a bf16x2
-//     pack), with no bf16 copy of the band in shared memory.  The chunk's k
-//     order is permuted so that those bytes are contiguous: step s, fragment
-//     column 2t+e (+8) takes window column 16t + 4s + e (+2); the window
-//     rows that ldmatrix hands to the B fragment follow the same permutation.
-//     Measured on the H100 (PERF.md), the widening costs nothing visible; the
-//     time goes to the copies.
+//     pack), with no bf16 copy of the band in shared memory, once for the
+//     three passes of the precise mode.  The chunk's k order is permuted so
+//     that those bytes are contiguous: step s, fragment column 2t+e (+8)
+//     takes window column 16t + 4s + e (+2); the window rows that ldmatrix
+//     hands to the B fragments follow the same permutation.
 //   * K2 stages A_w and B_w once a CTA.  Its f32 epilogue runs on FP32 FMAs
 //     (the JAX package's f32_epi=True is an f32 dot) from 8 × 8 register
 //     tiles over the pooled block in shared memory, transposed; the bf16
 //     epilogue (f32_epi=False: bf16 operands by definition) runs [bf16(pool)
 //     | bf16(h_own)] @ [A_w; B_w] on the tensor cores with f32 sums, whose
 //     order within a k16 step is the tensor core's (within EPI_TOL of the
-//     plain version, chip_smoke.py).  Shared memory stays near 100 KB so two
-//     CTAs share an SM and one's epilogue overlaps the other's copies.
+//     plain version, chip_smoke.py).  Shared memory stays under half an SM's
+//     so two CTAs share an SM and one's epilogue overlaps the other's copies.
 //   * K3's interior launches, whose windows never reach a halo, run K1's
 //     instantiation (the same values in the same order) and so skip the
 //     halo test; the boundary launches choose lh, h or rh once a window row.
@@ -162,8 +172,7 @@
 
 namespace {
 
-constexpr int KC = 64;    // precise mode: window columns staged per step
-constexpr int NT = 256;   // threads per block
+constexpr int NT = 256;   // threads a CTA
 constexpr int NW = NT / 32;
 // DIAG values (band_pallas.py's diag names)
 constexpr int FULL = 0, NOSCALE = 1, NODOT = 2, NOH = 3, HLIN = 4;
@@ -180,21 +189,18 @@ struct BandArgs {
   const float* bw;   // K2 only: [D, D]
   T* out;
   int nb, S, B, C, D;
-  int TR;            // destination rows per block (multiple of 4; of 16 in
-                     // the bf16 modes)
-  int DG;            // column groups of 4: ceil(D / 4) (bf16 modes: DP / 4,
-                     // DP = D rounded up to 16)
+  int TR;            // destination rows a CTA (a multiple of 16)
+  int DG;            // DP / 4, DP = D rounded up to 16
   const T* lh;       // K3 only: [B, D] left halo (the left shard's tail)
   const T* rh;       // K3 only: [B, D] right halo (the right shard's head)
   const float* lc;   // K3 only: [B] col scales of lh
   const float* rc;   // K3 only: [B] col scales of rh
   int b0;            // first block of the launch (grid y = blocks b0, b0+1, ...)
-  int geo;           // bf16 modes: the ring has >= 3 blocks (window_reach)
-  int G;             // bf16 modes: bytes a cp.async copy of the base (16, 8, 4)
-  int vec;           // bf16 modes: h rows load as 16-byte vectors
+  int geo;           // the ring has >= 3 blocks (window_reach)
+  int G;             // bytes a cp.async copy of the base (16, 8, 4)
+  int vec;           // h rows load as 16-byte vectors
 };
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -203,225 +209,23 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// col ⊙ h at window row j = b·S − B + w of block b: K1 wraps it (mod
-// pad_n; |j − wrap| < pad_n because B <= S), K3 reads it from the halos
-// past either end of the shard.  DIAG noscale stages h unscaled.
-template <bool HALO, int DIAG, typename T>
-__device__ __forceinline__ float window_val(const BandArgs<T>& a, int b, int w, int d,
-                                            int pad_n) {
-  int j = b * a.S - a.B + w;
-  if constexpr (DIAG == HLIN) {
-    if (w < a.B || w >= a.B + a.S) return 0.f;
-  } else if constexpr (HALO) {
-    if (j < 0) return a.lc[j + a.B] * ld(a.lh + (long long)(j + a.B) * a.D + d);
-    if (j >= pad_n) return a.rc[j - pad_n] * ld(a.rh + (long long)(j - pad_n) * a.D + d);
-  } else {
-    if (j < 0) j += pad_n;
-    if (j >= pad_n) j -= pad_n;
-  }
-  const float v = ld(a.h + (long long)j * a.D + d);
-  return DIAG == NOSCALE ? v : a.col[j] * v;
-}
+// ---------------------------------------------------------------- the pipeline
 
-// window column t of a 32-bit base word: int8 storage holds 4 columns a
-// word, nibble storage 8 (column w + t in bits 4t..4t+3)
-template <bool NIB>
-__device__ __forceinline__ float base_col(uint32_t word, int t) {
-  if constexpr (NIB) return (float)((word >> (4 * t)) & 15u);
-  return (float)(int8_t)(word >> (8 * t));
-}
-
-// the 32-bit base word holding window columns [w, w + CPW) of local row r
-template <bool NIB>
-__device__ __forceinline__ uint32_t base_word(const int8_t* base_blk, int r, int w,
-                                              int W2) {
-  const int pitch = NIB ? W2 / 2 : W2;
-  return *reinterpret_cast<const uint32_t*>(base_blk + (long long)r * pitch +
-                                            (NIB ? w / 2 : w));
-}
-
-// The precise (f32 operand) mode.  HALO: K3's linear windows over the halos.
-// NIB: nibble base storage.  EPI: K2's bf16 epilogue (f32_epi=False).  DIAG:
-// K1's timing variants (FULL for the real operator).
-template <bool SAGE, bool HALO, bool NIB, bool EPI, int DIAG>
-__global__ void __launch_bounds__(NT) band_kernel(BandArgs<float> a) {
-  static_assert(!(SAGE && HALO), "K2 has no halo mode");
-  static_assert(SAGE || !EPI, "the bf16 epilogue is K2's");
-  static_assert(DIAG == FULL || !(SAGE || HALO || NIB), "diag variants are K1's");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int TR = a.TR, DG = a.DG, DP = 4 * DG, D = a.D, S = a.S, B = a.B;
-  const int W2 = S + 2 * B;
-  const int b = a.b0 + blockIdx.y;
-  const int tile0 = blockIdx.x * TR;   // first local row of this tile
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  // threads tid < DG·TR/4 own a 4×4 output tile; all of them stage
-  const bool owner = tid < DG * (TR / 4);
-  const int dg = tid % DG, rg = tid / DG;
-  const int pad_n = a.nb * S;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  {
-    float* bs = reinterpret_cast<float*>(smem);   // [KC][TR] base, transposed
-    float* hs = bs + KC * TR;                     // [KC][DP] col ⊙ h window
-    constexpr int CPW = NIB ? 8 : 4;              // window columns a 32-bit word
-    const int8_t* base_blk = a.base + (long long)b * (S + a.C) * (NIB ? W2 / 2 : W2);
-    for (int w0 = 0; w0 < W2; w0 += KC) {
-      int nz = 0;
-      // CPW window columns per 32-bit load (W2 and w0 are multiples of
-      // CPW); consecutive threads take consecutive rows, so the shared
-      // stores of a warp hit 32 banks
-      for (int e = tid; e < TR * (KC / CPW); e += nthr) {
-        const int r = e % TR, q = e / TR;
-        const int w = w0 + CPW * q;
-        uint32_t word = 0;
-        if (w < W2 && tile0 + r < S) word = base_word<NIB>(base_blk, tile0 + r, w, W2);
-        nz |= word != 0u;
-#pragma unroll
-        for (int t = 0; t < CPW; ++t) bs[(CPW * q + t) * TR + r] = base_col<NIB>(word, t);
-      }
-      // all-zero base chunk: nothing to add (the barrier also orders the
-      // previous chunk's reads of hs before this chunk's writes)
-      if (!__syncthreads_or(nz)) continue;
-      if constexpr (DIAG == NOH) continue;   // the barrier above was the last
-      for (int e = tid; e < KC * DP; e += nthr) {
-        const int k = e / DP, d = e - k * DP;
-        float v = 0.f;
-        if (w0 + k < W2 && d < D) v = window_val<HALO, DIAG>(a, b, w0 + k, d, pad_n);
-        hs[k * DP + d] = v;
-      }
-      __syncthreads();
-      if (DIAG != NODOT && owner) {
-#pragma unroll 4
-        for (int k = 0; k < KC; ++k) {
-          const float4 bv = *reinterpret_cast<const float4*>(bs + k * TR + 4 * rg);
-          const float4 hv = *reinterpret_cast<const float4*>(hs + k * DP + 4 * dg);
-          const float bf[4] = {bv.x, bv.y, bv.z, bv.w};
-          const float hf[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bf[i], hf[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // mirror expansion (+ sub[slot]) before the row scale, as the TPU kernel
-  float* pool = reinterpret_cast<float*>(smem);  // K2: [TR][DP], reuses stage
-#pragma unroll
-  for (int i = 0; i < 4 && owner; ++i) {
-    const int r = tile0 + 4 * rg + i;
-    const bool rv = r < S;
-    const long long node = (long long)b * S + r;
-    const int sl = (rv && a.C > 0) ? a.slot[node] : -1;
-    const float rs = rv ? a.row[node] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = 4 * dg + j;
-      float v = acc[i][j];
-      if (rv && d < D) {
-        if constexpr (DIAG == NODOT) {   // the window value of row i − B
-          v = window_val<HALO, FULL>(a, b, r, d, pad_n);
-        } else if (sl >= 0) {
-          v += a.sub[((long long)b * a.C + sl) * D + d];
-        }
-        if (DIAG != NOSCALE) v *= rs;
-        if (!SAGE) st(a.out + node * D + d, v);
-      } else {
-        v = 0.f;
-      }
-      if (SAGE) pool[(4 * rg + i) * DP + d] = EPI ? round_bf16(v) : v;
-    }
-  }
-  if (!SAGE) return;
-
-  // K2 epilogue: z = relu(pool @ A_w + h_own @ B_w); h' = z · rsqrt(Σz²)
-  // (EPI: the four dot operands rounded to bf16, f32 sums)
-  float* hown = pool + TR * DP;   // [TR][DP] unscaled h of the tile's rows
-  float* as = hown + TR * DP;     // [D][DP]
-  float* bws = as + D * DP;       // [D][DP]
-  float* part = bws + D * DP;     // [TR][DG] row sums of squares
-  for (int e = tid; e < TR * DP; e += nthr) {
-    const int r = e / DP, d = e - r * DP;
-    float v = 0.f;
-    if (tile0 + r < S && d < D) v = ld(a.h + ((long long)b * S + tile0 + r) * D + d);
-    hown[e] = EPI ? round_bf16(v) : v;
-  }
-  for (int e = tid; e < D * DP; e += nthr) {
-    const int k = e / DP, c = e - k * DP;
-    const float av = c < D ? a.aw[k * D + c] : 0.f;
-    const float bv = c < D ? a.bw[k * D + c] : 0.f;
-    as[e] = EPI ? round_bf16(av) : av;
-    bws[e] = EPI ? round_bf16(bv) : bv;
-  }
-  __syncthreads();
-
-  float za[4][4], zb[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) za[i][j] = zb[i][j] = 0.f;
-  for (int k = 0; k < D && owner; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(as + k * DP + 4 * dg);
-    const float4 bv = *reinterpret_cast<const float4*>(bws + k * DP + 4 * dg);
-    const float af[4] = {av.x, av.y, av.z, av.w};
-    const float bf[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = pool[(4 * rg + i) * DP + k];
-      const float q = hown[(4 * rg + i) * DP + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        za[i][j] = fmaf(p, af[j], za[i][j]);
-        zb[i][j] = fmaf(q, bf[j], zb[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float z = fmaxf(za[i][j] + zb[i][j], 0.f);
-      za[i][j] = z;
-      sq = fmaf(z, z, sq);   // columns >= D hold exact zeros
-    }
-    if (owner) part[(4 * rg + i) * DG + dg] = sq;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tile0 + 4 * rg + i;
-    if (!owner || r >= S) continue;
-    float tot = 0.f;
-    for (int g = 0; g < DG; ++g) tot += part[(4 * rg + i) * DG + g];
-    const float scale = 1.f / sqrtf(fmaxf(tot, 1e-24f));
-    const long long node = (long long)b * S + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = 4 * dg + j;
-      if (d < D) st(a.out + node * D + d, za[i][j] * scale);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- bf16 modes
-
-constexpr int KB = 64;          // window columns a chunk of the bf16 contraction
-// base ring stages: K1 and K3 keep two chunks of copies in flight, K2
-// (whose epilogue needs the room) one
-constexpr int NS_K1 = 4, NS_K2 = 3;
+constexpr int KB = 64;          // window columns a chunk of the contraction
+// bf16 planes of a staged window: the bf16 modes' bf16(col ⊙ h), or the
+// precise mode's three pieces hi, mid, lo of col ⊙ h (split3x2)
+__host__ __device__ constexpr int planes(bool prec) { return prec ? 3 : 1; }
+// base ring stages: the bf16 modes' K1 and K3 keep two chunks of copies in
+// flight; the precise mode's K1 and K3 (whose window ring is three times
+// the size) and K2 (whose epilogue needs the room) one
+__host__ __device__ constexpr int ns_k1(bool prec) { return prec ? 3 : 4; }
+constexpr int NS_K2 = 3;
 constexpr int HP = 64;          // staged window row pitch (bf16): a column group
 constexpr int MTM = 2;          // 16-row m-tiles a warp, at most
 constexpr int NTM = HP / 8;     // 8-column n-tiles of a column group
 constexpr int HS_STAGE = KB * HP;   // bf16 elements of a window stage
 constexpr int SMEM_MAX = 232448;    // bytes of shared memory a block may use
+constexpr int SMEM_HALF = 233472 / 2 - 1024;   // two blocks an SM (1 KB each reserved)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -468,9 +272,25 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
+  return bits(__floats2bfloat162_rn(lo, hi));
+}
+// The precise mode's split of a pair (x0, x1) of f32 window values: hi =
+// bf16(x), mid = bf16(x − hi), lo = bf16(x − hi − mid), each rounded to
+// nearest even (ops/band_kernels.split_bf16x3).  Each remainder is exact
+// in f32 and hi + mid + lo = x exactly for 2^-110 <= |x| < (2 − 2^-8)·2^127;
+// below, lo rounds to bf16's subnormal grid (an error under 2^-134).
+__device__ __forceinline__ void split3x2(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                         uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = __fsub_rn(x0, __low2float(h)), r1 = __fsub_rn(x1, __high2float(h));
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bf2(__fsub_rn(r0, __low2float(m)), __fsub_rn(r1, __high2float(m)));
 }
 // byte k of x = word ^ 0x80808080 (v + 128) as an f32: 2^23 + v + 128 minus
 // 2^23 + 128, exact for every int8 v
@@ -590,18 +410,21 @@ struct HItems {
   float scl[2];
 };
 
-// The rows of one CTA of the bf16 kernel: TR rows from tile0, m-tiles a warp.
+// The rows of one CTA: TR rows from tile0, m-tiles a warp.
 struct Tile {
   int b, tile0, m16, mt;
 };
 
 // acc[mi·NTM + j] (m-tile mi of the warp, n-tile j of column group cg) +=
-// bf16(A_band) @ bf16(col ⊙ h) over the window chunks the CTA's rows reach.
-// Leaves the ring free for reuse (the caller synchronises before).
-template <int NS, bool HALO, bool NIB, int DIAG, typename T>
-__device__ __forceinline__ void contract_bf16(const BandArgs<T>& a, unsigned char* smem,
-                                              const Tile& tl, int cg,
-                                              float (&acc)[MTM * NTM][4]) {
+// A_band @ (col ⊙ h) over the window chunks the CTA's rows reach: with
+// bf16(col ⊙ h) in the bf16 modes, with its three pieces (PREC) in the
+// precise mode.  Leaves the ring free for reuse (the caller synchronises
+// before).
+template <int NS, bool HALO, bool NIB, int DIAG, bool PREC, typename T>
+__device__ __forceinline__ void contract(const BandArgs<T>& a, unsigned char* smem,
+                                         const Tile& tl, int cg,
+                                         float (&acc)[MTM * NTM][4]) {
+  constexpr int NPL = planes(PREC);
   const int S = a.S, B = a.B, D = a.D, W2 = S + 2 * B, TR = a.TR, G = a.G;
   const int pad_n = a.nb * S, b = tl.b, tile0 = tl.tile0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -610,7 +433,8 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a, unsigned cha
   const int pitch = NIB ? W2 / 2 : W2;
   const int8_t* base_blk = a.base + (long long)b * (S + a.C) * pitch;
   unsigned char* ring = smem;   // [NS][TR][CB]
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + NS * TR * CB);  // [2][KB][HP]
+  // [2][NPL][KB][HP]
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + NS * TR * CB);
   const int dn = min(HP, 4 * a.DG - cg * HP);   // columns of the group (of 16)
   const int nn = dn / 8;
   const int m0 = warp * tl.mt;                       // the warp's first m-tile
@@ -675,12 +499,25 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a, unsigned cha
       float v[8];
       unpack8(hw.raw[it], hw.ok[it], v, T());
       const float sc = hw.scl[it];
-      uint4 o;
-      o.x = bf2(sc * v[0], sc * v[1]);
-      o.y = bf2(sc * v[2], sc * v[3]);
-      o.z = bf2(sc * v[4], sc * v[5]);
-      o.w = bf2(sc * v[6], sc * v[7]);
-      *reinterpret_cast<uint4*>(hs + stage * HS_STAGE + rr * HP + 8 * (q ^ hkey(rr))) = o;
+      __nv_bfloat16* dst = hs + stage * NPL * HS_STAGE + rr * HP + 8 * (q ^ hkey(rr));
+      if constexpr (PREC) {   // x = col·h rounded once in f32, then its pieces
+        uint32_t w[3][4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          split3x2(__fmul_rn(sc, v[2 * k]), __fmul_rn(sc, v[2 * k + 1]), w[0][k], w[1][k],
+                   w[2][k]);
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+          *reinterpret_cast<uint4*>(dst + pl * HS_STAGE) =
+              make_uint4(w[pl][0], w[pl][1], w[pl][2], w[pl][3]);
+      } else {
+        uint4 o;
+        o.x = bf2(sc * v[0], sc * v[1]);
+        o.y = bf2(sc * v[2], sc * v[3]);
+        o.z = bf2(sc * v[4], sc * v[5]);
+        o.w = bf2(sc * v[6], sc * v[7]);
+        *reinterpret_cast<uint4*>(dst) = o;
+      }
     }
   };
   // the ldmatrix row of this lane: matrix m = lane / 8 (n-tile pair half
@@ -732,13 +569,30 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a, unsigned cha
 #pragma unroll
       for (int p = 0; p < NTM / 2; ++p) {
         if (2 * p < nn) {
-          uint32_t bf[4];
-          ldsm_x4_t(hbase + 2 * (w * HP + 8 * ((2 * p + (lm >> 1)) ^ lq)), bf);
+          uint32_t bf[NPL][4];   // planes hi (, mid, lo)
+          const uint32_t adr = hbase + 2 * (w * HP + 8 * ((2 * p + (lm >> 1)) ^ lq));
+#pragma unroll
+          for (int pl = 0; pl < NPL; ++pl) ldsm_x4_t(adr + 2 * pl * HS_STAGE, bf[pl]);
 #pragma unroll
           for (int mi = 0; mi < MTM; ++mi) {
             if (mi < mtw) {
-              mma_bf16(acc[mi * NTM + 2 * p], af[mi], bf[0], bf[1]);
-              mma_bf16(acc[mi * NTM + 2 * p + 1], af[mi], bf[2], bf[3]);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float* c = acc[mi * NTM + 2 * p + e];
+                if constexpr (PREC) {
+                  // the k16 step's lo and mid products (each exact) into one
+                  // zeroed partial, its hi products into another, then
+                  // their f32 sum, rounded to nearest, into the accumulator
+                  float u[4] = {0.f, 0.f, 0.f, 0.f}, v[4] = {0.f, 0.f, 0.f, 0.f};
+                  mma_bf16(u, af[mi], bf[2][2 * e], bf[2][2 * e + 1]);
+                  mma_bf16(v, af[mi], bf[0][2 * e], bf[0][2 * e + 1]);
+                  mma_bf16(u, af[mi], bf[1][2 * e], bf[1][2 * e + 1]);
+#pragma unroll
+                  for (int k = 0; k < 4; ++k) c[k] += v[k] + u[k];
+                } else {
+                  mma_bf16(c, af[mi], bf[0][2 * e], bf[0][2 * e + 1]);
+                }
+              }
             }
           }
         }
@@ -768,18 +622,18 @@ __device__ __forceinline__ void contract_bf16(const BandArgs<T>& a, unsigned cha
     cp_async_commit();
     if (any_next && DIAG != NOH) h_load(c + 1);   // in flight while chunk c multiplies
     if (any_cur && DIAG != NOH && DIAG != NODOT)
-      mma_chunk(ring + (i % NS) * TR * CB, hs + (i & 1) * HS_STAGE);
+      mma_chunk(ring + (i % NS) * TR * CB, hs + (i & 1) * NPL * HS_STAGE);
     if (any_next && DIAG != NOH) h_store((i + 1) & 1);
     any_cur = any_next;
   }
   cp_async_wait<0>();   // the (empty) trailing groups
 }
 
-// K1 / K3: the mirror add (bf16(sub), in f32), the row scale and the store,
-// from the accumulators (row g and g + 8 of each m-tile, columns 2t, 2t + 1
-// of each n-tile)
-template <bool HALO, int DIAG, typename T>
-__device__ __forceinline__ void store_bf16(const BandArgs<T>& a, const Tile& tl, int cg,
+// K1 / K3: the mirror add (sub, or bf16(sub) in the bf16 modes, in f32), the
+// row scale and the store, from the accumulators (row g and g + 8 of each
+// m-tile, columns 2t, 2t + 1 of each n-tile)
+template <bool HALO, int DIAG, bool PREC, typename T>
+__device__ __forceinline__ void store_rows(const BandArgs<T>& a, const Tile& tl, int cg,
                                            const float (&acc)[MTM * NTM][4],
                                            const unsigned char* info) {
   const int S = a.S, D = a.D, b = tl.b;
@@ -810,9 +664,10 @@ __device__ __forceinline__ void store_bf16(const BandArgs<T>& a, const Tile& tl,
         for (int e = 0; e < 2; ++e) {
           if (d + e >= D) continue;
           if constexpr (DIAG == NODOT) {   // the window value of row r − B
-            v[e] = round_bf16(*wsc * wrow[d + e]);
+            const float x = *wsc * wrow[d + e];
+            v[e] = PREC ? x : round_bf16(x);
           } else if (sl >= 0) {
-            v[e] += round_bf16(sub[d + e]);
+            v[e] += PREC ? sub[d + e] : round_bf16(sub[d + e]);
           }
           if (DIAG != NOSCALE) v[e] *= rs;
         }
@@ -832,9 +687,9 @@ __device__ __forceinline__ void store_bf16(const BandArgs<T>& a, const Tile& tl,
 }
 
 __host__ __device__ inline int align128(int x) { return (x + 127) / 128 * 128; }
-// bytes of the base ring (ns stages) and the window ring
-__host__ __device__ inline int staging_bytes(int TR, bool nib, int ns) {
-  return align128(ns * TR * (nib ? KB / 2 : KB) + 2 * HS_STAGE * 2);
+// bytes of the base ring (ns stages) and the window ring (two stages)
+__host__ __device__ inline int staging_bytes(int TR, bool nib, int ns, bool prec) {
+  return align128(ns * TR * (nib ? KB / 2 : KB) + 2 * planes(prec) * HS_STAGE * 2);
 }
 // the row information (slot, row scale) of the CTA's rows, [2][TR] 32-bit
 __host__ __device__ inline int info_bytes(int TR) { return align128(8 * TR); }
@@ -859,10 +714,10 @@ __device__ __forceinline__ void issue_info(const BandArgs<T>& a, const Tile& tl,
 struct SageSmem {
   int staging, pool, w, part, info, total;
 };
-template <bool NIB, bool EPI>
+template <bool NIB, bool EPI, bool PREC>
 __host__ __device__ inline SageSmem sage_smem(int TR, int DP) {
   SageSmem m;
-  m.staging = staging_bytes(TR, NIB, NS_K2);
+  m.staging = staging_bytes(TR, NIB, NS_K2, PREC);
   const int ncg = (DP + HP - 1) / HP;
   const int AP = (2 * DP + 63) / 64 * 64, WP = (DP + 63) / 64 * 64;
   const int pool = align128(EPI ? TR * AP * 2 : DP * (TR + 4) * 4);
@@ -880,10 +735,11 @@ __host__ __device__ inline SageSmem sage_smem(int TR, int DP) {
 }
 
 // K2 after the contraction of column group cg: the pooled block (mirror
-// add, row scale) into shared memory, transposed f32 [DP][TR + 4] for the
-// f32 epilogue, bf16 [TR][AP] (swizzled) for the bf16 one
-template <bool EPI, typename T>
-__device__ __forceinline__ void pool_bf16(const BandArgs<T>& a, const Tile& tl, int cg,
+// add as in store_rows, row scale) into shared memory, transposed f32
+// [DP][TR + 4] for the f32 epilogue, bf16 [TR][AP] (swizzled) for the bf16
+// one
+template <bool EPI, bool PREC, typename T>
+__device__ __forceinline__ void pool_rows(const BandArgs<T>& a, const Tile& tl, int cg,
                                           const float (&acc)[MTM * NTM][4],
                                           unsigned char* pool, const unsigned char* info) {
   const int S = a.S, D = a.D, DP = 4 * a.DG, TR = a.TR, b = tl.b;
@@ -910,7 +766,10 @@ __device__ __forceinline__ void pool_bf16(const BandArgs<T>& a, const Tile& tl, 
           float v = 0.f;
           if (rv && d < D) {
             v = acc[mi * NTM + j][2 * hh + e];
-            if (sl >= 0) v += round_bf16(a.sub[((long long)b * a.C + sl) * D + d]);
+            if (sl >= 0) {
+              const float sv = a.sub[((long long)b * a.C + sl) * D + d];
+              v += PREC ? sv : round_bf16(sv);
+            }
             v *= rs;
           }
           if constexpr (EPI) {
@@ -1100,11 +959,13 @@ __device__ __forceinline__ void sage_epi_mma(const BandArgs<T>& a, const Tile& t
   }
 }
 
-// The bf16 modes (precise=False).  T: storage of h and out (float or
-// __nv_bfloat16).  Grid (row tiles of TR, blocks, column groups of HP; K2
-// one group a CTA, all of them in turn).
-template <bool SAGE, bool HALO, typename T, bool NIB, bool EPI, int DIAG>
-__global__ void __launch_bounds__(NT, 2) band_bf16_kernel(BandArgs<T> a) {
+// K1, K2 and K3 in every mode.  T: storage of h and out (float or
+// __nv_bfloat16); PREC: the precise (f32 operand) mode, else the bf16 mode.
+// Grid (row tiles of TR, blocks, column groups of HP; K2 one group a CTA,
+// all of them in turn).
+template <bool SAGE, bool HALO, typename T, bool NIB, bool EPI, int DIAG, bool PREC>
+__global__ void __launch_bounds__(NT, 2) band_mma_kernel(BandArgs<T> a) {
+  static_assert(!PREC || std::is_same<T, float>::value, "the precise mode stores f32");
   static_assert(!(SAGE && HALO), "K2 has no halo mode");
   static_assert(SAGE || !EPI, "the bf16 epilogue is K2's");
   static_assert(DIAG == FULL || !(SAGE || HALO || NIB), "diag variants are K1's");
@@ -1116,13 +977,13 @@ __global__ void __launch_bounds__(NT, 2) band_bf16_kernel(BandArgs<T> a) {
   tl.mt = (tl.m16 + NW - 1) / NW;
   float acc[MTM * NTM][4];
   if constexpr (!SAGE) {
-    unsigned char* info = smem + staging_bytes(a.TR, NIB, NS_K1);
+    unsigned char* info = smem + staging_bytes(a.TR, NIB, ns_k1(PREC), PREC);
     issue_info(a, tl, info);
-    contract_bf16<NS_K1, HALO, NIB, DIAG>(a, smem, tl, blockIdx.z, acc);
-    store_bf16<HALO, DIAG>(a, tl, blockIdx.z, acc, info);
+    contract<ns_k1(PREC), HALO, NIB, DIAG, PREC>(a, smem, tl, blockIdx.z, acc);
+    store_rows<HALO, DIAG, PREC>(a, tl, blockIdx.z, acc, info);
   } else {
     const int S = a.S, D = a.D, DP = 4 * a.DG, TR = a.TR, tid = threadIdx.x;
-    const SageSmem m = sage_smem<NIB, EPI>(TR, DP);
+    const SageSmem m = sage_smem<NIB, EPI, PREC>(TR, DP);
     unsigned char* pool = smem + m.pool;
     // A_w and B_w once a CTA, [2·DP][DP] f32 (by cp.async, landing while
     // the first chunks' copies do) or [2·DP][WP] bf16, swizzled
@@ -1160,9 +1021,9 @@ __global__ void __launch_bounds__(NT, 2) band_bf16_kernel(BandArgs<T> a) {
     const int ncg = (DP + HP - 1) / HP;
     for (int cg = 0; cg < ncg; ++cg) {
       __syncthreads();   // the ring is free (the previous group's reads)
-      contract_bf16<NS_K2, false, NIB, FULL>(a, smem, tl, cg, acc);
+      contract<NS_K2, false, NIB, FULL, PREC>(a, smem, tl, cg, acc);
       __syncthreads();   // the pooled block may reuse the ring
-      pool_bf16<EPI>(a, tl, cg, acc, pool, smem + m.info);
+      pool_rows<EPI, PREC>(a, tl, cg, acc, pool, smem + m.info);
     }
     if constexpr (EPI) {   // bf16(h_own) beside the pooled block
       const int AP = (2 * DP + 63) / 64 * 64;
@@ -1186,6 +1047,7 @@ __global__ void __launch_bounds__(NT, 2) band_bf16_kernel(BandArgs<T> a) {
   }
 }
 
+
 // ---------------------------------------------------------------- launchers
 
 __host__ inline bool shape_ok(int D, int nb, int b0, int b1, int S, int B, int C, bool nib) {
@@ -1193,38 +1055,13 @@ __host__ inline bool shape_ok(int D, int nb, int b0, int b1, int S, int B, int C
            S < 1 || B < 0 || B > S || C < 0 || (S + 2 * B) % (nib ? 8 : 4) != 0);
 }
 
-// precise mode: launches blocks [a.b0, b1) of a.nb
-template <bool SAGE, bool HALO, bool NIB, bool EPI, int DIAG>
-int launch(BandArgs<float> a, int b1, cudaStream_t stream) {
-  if (!shape_ok(a.D, a.nb, a.b0, b1, a.S, a.B, a.C, NIB)) return (int)cudaErrorInvalidValue;
-  const int DP = (a.D + 3) / 4 * 4;
-  a.DG = DP / 4;
-  if (a.DG > NT) return (int)cudaErrorInvalidValue;
-  int TR = 4 * (NT / a.DG);
-  const int cap = (a.S + 3) / 4 * 4;
-  if (TR > cap) TR = cap;
-  a.TR = TR;
-  size_t shm = sizeof(float) * (size_t)KC * (TR + DP);
-  if (SAGE) {
-    const size_t epi =
-        sizeof(float) * ((size_t)2 * TR * DP + (size_t)2 * a.D * DP +
-                         (size_t)TR * a.DG);
-    if (epi > shm) shm = epi;
-  }
-  void (*kern)(BandArgs<float>) = band_kernel<SAGE, HALO, NIB, EPI, DIAG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.S + TR - 1) / TR, b1 - a.b0);
-  kern<<<grid, NT, shm, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// bf16 modes: launches blocks [a.b0, b1) of a.nb at tr rows a CTA (a
-// multiple of 16 up to 256: ops/band_kernels.bf16_rows_per_cta); K2 lowers
-// it until its shared memory fits
-template <bool SAGE, bool HALO, typename T, bool NIB, bool EPI, int DIAG>
-int launch_bf(BandArgs<T> a, int b1, int tr, cudaStream_t stream) {
+// Launches blocks [a.b0, b1) of a.nb at tr rows a CTA (a multiple of 16 up
+// to 256: ops/band_kernels.rows_per_cta).  K2 lowers it until its shared
+// memory fits, in the precise mode until two CTAs share an SM: its window
+// ring of three planes takes a 256-row CTA to ~130 KB at D = 64, and two
+// 128-row CTAs an SM timed faster than one of 256 rows
+template <bool SAGE, bool HALO, typename T, bool NIB, bool EPI, int DIAG, bool PREC>
+int launch(BandArgs<T> a, int b1, int tr, cudaStream_t stream) {
   if (!shape_ok(a.D, a.nb, a.b0, b1, a.S, a.B, a.C, NIB) || a.D > 256 || tr < 16 ||
       tr % 16 != 0 || tr > 256)
     return (int)cudaErrorInvalidValue;
@@ -1237,11 +1074,12 @@ int launch_bf(BandArgs<T> a, int b1, int tr, cudaStream_t stream) {
     if (DP > 2 * HP) return (int)cudaErrorInvalidValue;
     // the f32 epilogue's 8-row tiles, the bf16 one's m-tiles a warp
     const int cap = EPI ? (DP > HP ? 16 * NW : 2 * 16 * NW) : 8 * (NT / (DP / 8));
-    while (TR > 16 && (TR > cap || sage_smem<NIB, EPI>(TR, DP).total > SMEM_MAX))
+    const int budget = PREC ? SMEM_HALF : SMEM_MAX;
+    while (TR > 16 && (TR > cap || sage_smem<NIB, EPI, PREC>(TR, DP).total > budget))
       TR = (TR / 2 + 15) / 16 * 16;
-    shm = sage_smem<NIB, EPI>(TR, DP).total;
+    shm = sage_smem<NIB, EPI, PREC>(TR, DP).total;
   } else {
-    shm = staging_bytes(TR, NIB, NS_K1) + info_bytes(TR);
+    shm = staging_bytes(TR, NIB, ns_k1(PREC), PREC) + info_bytes(TR);
   }
   if (shm > SMEM_MAX) return (int)cudaErrorInvalidValue;
   a.TR = TR;
@@ -1255,7 +1093,7 @@ int launch_bf(BandArgs<T> a, int b1, int tr, cudaStream_t stream) {
   auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   a.vec = a.D % (int)(16 / sizeof(T)) == 0 && al16(a.h) && (a.lh == nullptr || al16(a.lh)) &&
           (a.rh == nullptr || al16(a.rh));
-  void (*kern)(BandArgs<T>) = band_bf16_kernel<SAGE, HALO, T, NIB, EPI, DIAG>;
+  void (*kern)(BandArgs<T>) = band_mma_kernel<SAGE, HALO, T, NIB, EPI, DIAG, PREC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
   if (err != cudaSuccess) return (int)err;
@@ -1264,97 +1102,69 @@ int launch_bf(BandArgs<T> a, int b1, int tr, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the runtime flags to the precise kernel's template parameters: nib
-// (nibble storage) in every mode, epi (K2's bf16 epilogue) only with sage,
-// diag (K1's timing variants) only for K1
-template <bool SAGE, bool HALO>
-int dispatch(BandArgs<float> a, int b1, int nib, int epi, int diag, cudaStream_t stream) {
+// the runtime flags to the template parameters: nib (nibble storage) in
+// every mode, epi (K2's bf16 epilogue) only with sage, diag (K1's timing
+// variants, f32 storage) only for K1.  A K3 launch whose blocks never reach
+// a halo (1 <= b0, b1 <= nb − 1) runs K1's instantiation: j stays in
+// [0, local_n)
+template <bool SAGE, bool HALO, typename T, bool PREC>
+int dispatch(BandArgs<T> a, int b1, int nib, int epi, int diag, int tr, cudaStream_t stream) {
   if constexpr (SAGE) {
     if (diag) return (int)cudaErrorInvalidValue;
     if (nib)
-      return epi ? launch<SAGE, HALO, true, true, FULL>(a, b1, stream)
-                 : launch<SAGE, HALO, true, false, FULL>(a, b1, stream);
-    return epi ? launch<SAGE, HALO, false, true, FULL>(a, b1, stream)
-               : launch<SAGE, HALO, false, false, FULL>(a, b1, stream);
-  } else {
-    if (epi) return (int)cudaErrorInvalidValue;
-    if (diag) {
-      if constexpr (!HALO) {
-        if (nib) return (int)cudaErrorInvalidValue;
-        switch (diag) {
-          case NOSCALE: return launch<false, false, false, false, NOSCALE>(a, b1, stream);
-          case NODOT: return launch<false, false, false, false, NODOT>(a, b1, stream);
-          case NOH: return launch<false, false, false, false, NOH>(a, b1, stream);
-          case HLIN: return launch<false, false, false, false, HLIN>(a, b1, stream);
-        }
-      }
-      return (int)cudaErrorInvalidValue;
-    }
-    return nib ? launch<false, HALO, true, false, FULL>(a, b1, stream)
-               : launch<false, HALO, false, false, FULL>(a, b1, stream);
-  }
-}
-
-// the same for the bf16 modes; a K3 launch whose blocks never reach a halo
-// (1 <= b0, b1 <= nb − 1) runs K1's instantiation: j stays in [0, local_n)
-template <bool SAGE, bool HALO, typename T>
-int dispatch_bf(BandArgs<T> a, int b1, int nib, int epi, int diag, int tr,
-                cudaStream_t stream) {
-  if constexpr (SAGE) {
-    if (diag) return (int)cudaErrorInvalidValue;
-    if (nib)
-      return epi ? launch_bf<true, false, T, true, true, FULL>(a, b1, tr, stream)
-                 : launch_bf<true, false, T, true, false, FULL>(a, b1, tr, stream);
-    return epi ? launch_bf<true, false, T, false, true, FULL>(a, b1, tr, stream)
-               : launch_bf<true, false, T, false, false, FULL>(a, b1, tr, stream);
+      return epi ? launch<true, false, T, true, true, FULL, PREC>(a, b1, tr, stream)
+                 : launch<true, false, T, true, false, FULL, PREC>(a, b1, tr, stream);
+    return epi ? launch<true, false, T, false, true, FULL, PREC>(a, b1, tr, stream)
+               : launch<true, false, T, false, false, FULL, PREC>(a, b1, tr, stream);
   } else {
     if (epi) return (int)cudaErrorInvalidValue;
     if (diag) {
       if constexpr (!HALO && std::is_same<T, float>::value) {
         if (nib) return (int)cudaErrorInvalidValue;
         switch (diag) {
-          case NOSCALE: return launch_bf<false, false, T, false, false, NOSCALE>(a, b1, tr, stream);
-          case NODOT: return launch_bf<false, false, T, false, false, NODOT>(a, b1, tr, stream);
-          case NOH: return launch_bf<false, false, T, false, false, NOH>(a, b1, tr, stream);
-          case HLIN: return launch_bf<false, false, T, false, false, HLIN>(a, b1, tr, stream);
+          case NOSCALE: return launch<false, false, T, false, false, NOSCALE, PREC>(a, b1, tr, stream);
+          case NODOT: return launch<false, false, T, false, false, NODOT, PREC>(a, b1, tr, stream);
+          case NOH: return launch<false, false, T, false, false, NOH, PREC>(a, b1, tr, stream);
+          case HLIN: return launch<false, false, T, false, false, HLIN, PREC>(a, b1, tr, stream);
         }
       }
       return (int)cudaErrorInvalidValue;
     }
     if (HALO && a.b0 >= 1 && b1 <= a.nb - 1)
-      return nib ? launch_bf<false, false, T, true, false, FULL>(a, b1, tr, stream)
-                 : launch_bf<false, false, T, false, false, FULL>(a, b1, tr, stream);
-    return nib ? launch_bf<false, HALO, T, true, false, FULL>(a, b1, tr, stream)
-               : launch_bf<false, HALO, T, false, false, FULL>(a, b1, tr, stream);
+      return nib ? launch<false, false, T, true, false, FULL, PREC>(a, b1, tr, stream)
+                 : launch<false, false, T, false, false, FULL, PREC>(a, b1, tr, stream);
+    return nib ? launch<false, HALO, T, true, false, FULL, PREC>(a, b1, tr, stream)
+               : launch<false, HALO, T, false, false, FULL, PREC>(a, b1, tr, stream);
   }
 }
 
-template <typename T>
-int launch_bf16(bool sage, const int8_t* base, const void* h, const float* row,
-                const float* col, const float* sub, const int32_t* slot,
-                const float* aw, const float* bw, void* out, int nb, int S,
-                int B, int C, int D, int nib, int epi, int diag, int tr, int geo,
-                cudaStream_t stream) {
+// K1 (sage = false) or K2 over all nb blocks
+template <typename T, bool PREC>
+int run_band(bool sage, const int8_t* base, const void* h, const float* row,
+             const float* col, const float* sub, const int32_t* slot, const float* aw,
+             const float* bw, void* out, int nb, int S, int B, int C, int D, int nib,
+             int epi, int diag, int tr, int geo, cudaStream_t stream) {
   BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, aw, bw,
                 static_cast<T*>(out), nb, S, B, C, D, 0, 0};
   a.geo = geo;
-  return sage ? dispatch_bf<true, false, T>(a, nb, nib, epi, diag, tr, stream)
-              : dispatch_bf<false, false, T>(a, nb, nib, epi, diag, tr, stream);
+  return sage ? dispatch<true, false, T, PREC>(a, nb, nib, epi, diag, tr, stream)
+              : dispatch<false, false, T, PREC>(a, nb, nib, epi, diag, tr, stream);
 }
 
-template <typename T>
-int launch_halo_bf16(const int8_t* base, const void* h, const void* lh,
-                     const void* rh, const float* row, const float* col,
-                     const float* lc, const float* rc, const float* sub,
-                     const int32_t* slot, void* out, int nb, int S, int B,
-                     int C, int D, int b0, int b1, int nib, int tr, int geo,
-                     cudaStream_t stream) {
+// K3 over blocks [b0, b1) of a shard
+template <typename T, bool PREC>
+int run_halo(const int8_t* base, const void* h, const void* lh, const void* rh,
+             const float* row, const float* col, const float* lc, const float* rc,
+             const float* sub, const int32_t* slot, void* out, int nb, int S, int B, int C,
+             int D, int b0, int b1, int nib, int tr, int geo, cudaStream_t stream) {
   BandArgs<T> a{base, static_cast<const T*>(h), row, col, sub, slot, nullptr,
                 nullptr, static_cast<T*>(out), nb, S, B, C, D, 0, 0,
                 static_cast<const T*>(lh), static_cast<const T*>(rh), lc, rc, b0};
   a.geo = geo;
-  return dispatch_bf<false, true, T>(a, b1, nib, 0, 0, tr, stream);
+  return dispatch<false, true, T, PREC>(a, b1, nib, 0, 0, tr, stream);
 }
+
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
@@ -1363,57 +1173,48 @@ extern "C" {
 // Every entry point returns the cudaError_t of the launch (0 = launched).
 // nib = 1: the base is nibble storage [nb, S+C, W2/2].  diag: 0 (the
 // operator) or a K1 timing variant (1 noscale, 2 nodot, 3 noh, 4 hlin).
-// epi_bf16 = 1: K2's bf16 epilogue (f32_epi=False).  The bf16 modes also
-// take tr, the rows a CTA (a multiple of 16, at most 256), and geo = 1 when
-// the graph's ring has three or more blocks (the window-reach skip).
+// epi_bf16 = 1: K2's bf16 epilogue (f32_epi=False).  tr: the rows a CTA (a
+// multiple of 16, at most 256); geo = 1 when the graph's ring has three or
+// more blocks (the window-reach skip).  D <= 256 (K2: 128).  The unsuffixed
+// entry points are the precise mode (h, out f32); the _bf16 ones the bf16
+// mode, h and out f32 (bf16_act = 0) or bf16 (1).
 
 // K1.
 int mdc_band_spmm(const int8_t* base, const float* h, const float* row,
                   const float* col, const float* sub, const int32_t* slot,
                   float* out, int nb, int S, int B, int C, int D, int nib,
-                  int diag, void* stream) {
-  BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
-                    nb, S, B, C, D, 0, 0};
-  return dispatch<false, false>(a, nb, nib, 0, diag, (cudaStream_t)stream);
+                  int diag, int tr, int geo, void* stream) {
+  return run_band<float, true>(false, base, h, row, col, sub, slot, nullptr, nullptr, out,
+                               nb, S, B, C, D, nib, 0, diag, tr, geo, (cudaStream_t)stream);
 }
 
 // K2.  aw, bw: f32 [D, D].
 int mdc_band_sage(const int8_t* base, const float* h, const float* row,
                   const float* col, const float* sub, const int32_t* slot,
                   const float* aw, const float* bw, float* out, int nb,
-                  int S, int B, int C, int D, int nib, int epi_bf16, void* stream) {
-  BandArgs<float> a{base, h, row, col, sub, slot, aw, bw, out,
-                    nb, S, B, C, D, 0, 0};
-  return dispatch<true, false>(a, nb, nib, epi_bf16, 0, (cudaStream_t)stream);
+                  int S, int B, int C, int D, int nib, int epi_bf16, int tr, int geo,
+                  void* stream) {
+  return run_band<float, true>(true, base, h, row, col, sub, slot, aw, bw, out, nb, S, B,
+                               C, D, nib, epi_bf16, 0, tr, geo, (cudaStream_t)stream);
 }
 
-// K1, bf16 operands.  h and out are f32 (bf16_act = 0) or bf16 (1); D <= 256.
 int mdc_band_spmm_bf16(const int8_t* base, const void* h, const float* row,
                        const float* col, const float* sub, const int32_t* slot,
                        void* out, int nb, int S, int B, int C, int D,
                        int bf16_act, int nib, int diag, int tr, int geo, void* stream) {
-  return bf16_act
-      ? launch_bf16<__nv_bfloat16>(false, base, h, row, col, sub, slot, nullptr,
-                                   nullptr, out, nb, S, B, C, D, nib, 0, diag, tr, geo,
-                                   (cudaStream_t)stream)
-      : launch_bf16<float>(false, base, h, row, col, sub, slot, nullptr, nullptr,
-                           out, nb, S, B, C, D, nib, 0, diag, tr, geo,
-                           (cudaStream_t)stream);
+  auto run = bf16_act ? &run_band<bf16, false> : &run_band<float, false>;
+  return run(false, base, h, row, col, sub, slot, nullptr, nullptr, out, nb, S, B, C, D,
+             nib, 0, diag, tr, geo, (cudaStream_t)stream);
 }
 
-// K2, bf16 operands, f32 epilogue (or bf16 with epi_bf16).  aw, bw: f32
-// [D, D]; D <= 128.
 int mdc_band_sage_bf16(const int8_t* base, const void* h, const float* row,
                        const float* col, const float* sub, const int32_t* slot,
                        const float* aw, const float* bw, void* out, int nb,
                        int S, int B, int C, int D, int bf16_act, int nib,
                        int epi_bf16, int tr, int geo, void* stream) {
-  return bf16_act
-      ? launch_bf16<__nv_bfloat16>(true, base, h, row, col, sub, slot, aw, bw,
-                                   out, nb, S, B, C, D, nib, epi_bf16, 0, tr, geo,
-                                   (cudaStream_t)stream)
-      : launch_bf16<float>(true, base, h, row, col, sub, slot, aw, bw, out, nb,
-                           S, B, C, D, nib, epi_bf16, 0, tr, geo, (cudaStream_t)stream);
+  auto run = bf16_act ? &run_band<bf16, false> : &run_band<float, false>;
+  return run(true, base, h, row, col, sub, slot, aw, bw, out, nb, S, B, C, D, nib,
+             epi_bf16, 0, tr, geo, (cudaStream_t)stream);
 }
 
 // K3: blocks [b0, b1) of one shard of nb blocks.  h, out: [nb·S, D];
@@ -1424,26 +1225,21 @@ int mdc_band_spmm_halo(const int8_t* base, const float* h, const float* lh,
                        const float* rh, const float* row, const float* col,
                        const float* lc, const float* rc, const float* sub,
                        const int32_t* slot, float* out, int nb, int S, int B,
-                       int C, int D, int b0, int b1, int nib, void* stream) {
-  BandArgs<float> a{base, h, row, col, sub, slot, nullptr, nullptr, out,
-                    nb, S, B, C, D, 0, 0, lh, rh, lc, rc, b0};
-  return dispatch<false, true>(a, b1, nib, 0, 0, (cudaStream_t)stream);
+                       int C, int D, int b0, int b1, int nib, int tr, int geo,
+                       void* stream) {
+  return run_halo<float, true>(base, h, lh, rh, row, col, lc, rc, sub, slot, out, nb, S, B,
+                               C, D, b0, b1, nib, tr, geo, (cudaStream_t)stream);
 }
 
-// K3, bf16 operands; h, lh, rh and out f32 (bf16_act = 0) or bf16 (1).
 int mdc_band_spmm_halo_bf16(const int8_t* base, const void* h, const void* lh,
                             const void* rh, const float* row, const float* col,
                             const float* lc, const float* rc, const float* sub,
                             const int32_t* slot, void* out, int nb, int S, int B,
                             int C, int D, int b0, int b1, int bf16_act, int nib,
                             int tr, int geo, void* stream) {
-  return bf16_act
-      ? launch_halo_bf16<__nv_bfloat16>(base, h, lh, rh, row, col, lc, rc, sub,
-                                        slot, out, nb, S, B, C, D, b0, b1, nib, tr, geo,
-                                        (cudaStream_t)stream)
-      : launch_halo_bf16<float>(base, h, lh, rh, row, col, lc, rc, sub, slot,
-                                out, nb, S, B, C, D, b0, b1, nib, tr, geo,
-                                (cudaStream_t)stream);
+  auto run = bf16_act ? &run_halo<bf16, false> : &run_halo<float, false>;
+  return run(base, h, lh, rh, row, col, lc, rc, sub, slot, out, nb, S, B, C, D, b0, b1, nib,
+             tr, geo, (cudaStream_t)stream);
 }
 
 }  // extern "C"

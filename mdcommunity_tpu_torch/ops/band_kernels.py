@@ -15,12 +15,19 @@ which also says what bounds them on an H100.  K1 is also the operator's
 backward: ops/dense_band.BandSpmm launches it with row and col swapped,
 counted under `band_spmm_bwd`.
 
-precise=True (the default) is the kernel's f32-operand mode.  precise=False
+precise=True (the default) is the kernel's f32-operand mode: the window
+value x = col·h is taken in f32 and split into three bf16 pieces hi + mid +
+lo = x (split_bf16x3), which the kernel multiplies by the band on the bf16
+tensor cores, three passes whose products are exact, summed a k16 step at a
+time into f32 (csrc/band.cu says why that is f32's result and what bounds
+it; chip_smoke.py holds it to the plain version run in f64).  precise=False
 is its bf16 mode (the JAX package's precise=False): the band, bf16(col ⊙ h)
 (formed in f32, rounded to nearest even) and bf16(mir_sub) are the operands,
 sums and the epilogue run in f32.  Its storage follows h: f32, or bf16 (the
 JAX package's act_dtype=bf16), and then the output is rounded to bf16 too.
-bf16 storage needs precise=False, as net_packed.py:142-143 enforces.
+bf16 storage needs precise=False, as net_packed.py:142-143 enforces.  Both
+modes launch one kernel with one plan (launch_plan: the rows a CTA and the
+window-reach skip).  D is at most 256 (K2: 128).
 
 The TPU kernel's other modes: a graph built with nibble=True
 (ops/dense_band.py) stores two window columns a byte, and every kernel reads
@@ -93,34 +100,34 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         # the trailing ints: nb, S, B, C, D, then [bf16_act,] nib and
-        # diag (K1), epi_bf16 (K2) or b0, b1 before them (K3); the bf16
-        # modes end with tr and geo (bf16_rows_per_cta, window_reach)
+        # diag (K1), epi_bf16 (K2) or b0, b1 before them (K3), then tr and
+        # geo (launch_plan)
         lib.mdc_band_spmm.restype = i
-        lib.mdc_band_spmm.argtypes = [p] * 7 + [i] * 7 + [p]
+        lib.mdc_band_spmm.argtypes = [p] * 7 + [i] * 9 + [p]
         lib.mdc_band_sage.restype = i
-        lib.mdc_band_sage.argtypes = [p] * 9 + [i] * 7 + [p]
+        lib.mdc_band_sage.argtypes = [p] * 9 + [i] * 9 + [p]
         lib.mdc_band_spmm_bf16.restype = i
         lib.mdc_band_spmm_bf16.argtypes = [p] * 7 + [i] * 10 + [p]
         lib.mdc_band_sage_bf16.restype = i
         lib.mdc_band_sage_bf16.argtypes = [p] * 9 + [i] * 10 + [p]
         lib.mdc_band_spmm_halo.restype = i
-        lib.mdc_band_spmm_halo.argtypes = [p] * 11 + [i] * 8 + [p]
+        lib.mdc_band_spmm_halo.argtypes = [p] * 11 + [i] * 10 + [p]
         lib.mdc_band_spmm_halo_bf16.restype = i
         lib.mdc_band_spmm_halo_bf16.argtypes = [p] * 11 + [i] * 11 + [p]
         _lib = lib
     return _lib
 
 
-# ---------------------------------------------------------------- bf16 plan
+# ---------------------------------------------------------------- launch plan
 
-KC_BF16 = 64        # window columns a chunk of the bf16 contraction (csrc/band.cu KB)
-BF16_MAX_ROWS = 256  # rows a CTA of the bf16 kernels, at most
-BF16_MIN_ROWS = 64   # the split's floor: the 64-row tiles of the first bf16 design
+KC = 64         # window columns a chunk of the contraction (csrc/band.cu KB)
+MAX_ROWS = 256  # rows a CTA, at most
+MIN_ROWS = 64   # the split's floor: the 64-row tiles of the first bf16 design
 
 
 def window_reach(S: int, B: int, nb: int, r0: int, r1: int) -> Tuple[int, int]:
     """The window columns [lo, hi) in which local rows [r0, r1) of a band
-    block can hold band entries, as the bf16 kernels skip by it.
+    block can hold band entries, as the kernels skip by it.
 
     The band test (dense_band.band_slots) keeps an edge only if each end
     lies in the other's block window.  On a ring of three or more blocks a
@@ -135,31 +142,56 @@ def window_reach(S: int, B: int, nb: int, r0: int, r1: int) -> Tuple[int, int]:
     return (0 if r0 < B else B), (W2 if r1 > S - B else S + B)
 
 
-def bf16_rows_per_cta(nb: int, S: int, sms: int) -> int:
-    """Rows of a band block a CTA of the bf16 kernels takes: the whole block
+def rows_per_cta(nb: int, S: int, sms: int) -> int:
+    """Rows of a band block a CTA takes, in every mode: the whole block
     (rounded up to 16, at most 256), halved while the launch's nb blocks
-    would leave an SM without a CTA, down to 64 rows.  Each CTA stages the
-    window columns its rows reach once (window_reach), so a whole-block CTA
-    stages each window row once a block; at 18,432 rows (72 blocks of 256)
-    128-row CTAs time best on the H100 (PERF.md)."""
-    tr = min(BF16_MAX_ROWS, -(-S // 16) * 16)
-    while nb * -(-S // tr) < sms and tr > BF16_MIN_ROWS:
-        tr = max(BF16_MIN_ROWS, -(-(tr // 2) // 16) * 16)
+    would leave an SM without a CTA, down to 64 rows (K2 lowers it further
+    where its shared memory asks).  Each CTA stages the window columns its
+    rows reach once (window_reach), so a whole-block CTA stages each window
+    row once a block; at 18,432 rows (72 blocks of 256) 128-row CTAs time
+    best on the H100 (PERF.md)."""
+    tr = min(MAX_ROWS, -(-S // 16) * 16)
+    while nb * -(-S // tr) < sms and tr > MIN_ROWS:
+        tr = max(MIN_ROWS, -(-(tr // 2) // 16) * 16)
     return tr
 
 
-def _bf16_plan(dev: torch.device, nb: int, S: int, ring_nb: int) -> Tuple[int, int]:
-    """(tr, geo) of a bf16 launch over nb blocks of a graph whose ring has
-    ring_nb blocks (a K3 shard passes its own count: the ring has at least
-    as many)."""
+def launch_plan(nb: int, S: int, ring_nb: int, sms: int) -> Tuple[int, int]:
+    """(tr, geo) of a launch over nb blocks of S rows of a graph whose ring
+    has ring_nb blocks (a K3 shard passes its own count: the ring has at
+    least as many) on a card of `sms` SMs: the rows a CTA, and whether the
+    window-reach skip holds (a ring of three or more blocks)."""
+    return rows_per_cta(nb, S, sms), int(ring_nb >= 3)
+
+
+def _launch_plan(dev: torch.device, nb: int, S: int, ring_nb: int) -> Tuple[int, int]:
     return _plan(dev.index if dev.index is not None else torch.cuda.current_device(),
                  nb, S, ring_nb)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(index: int, nb: int, S: int, ring_nb: int) -> Tuple[int, int]:
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return bf16_rows_per_cta(nb, S, sms), int(ring_nb >= 3)
+    return launch_plan(nb, S, ring_nb,
+                       torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The precise mode's operands: f32 x as three bf16 tensors hi + mid +
+    lo, as csrc/band.cu stages each window value col·h: hi = bf16(x), mid =
+    bf16(x − hi), lo = bf16(x − hi − mid), each rounded to nearest even.
+    x − hi has at most 16 significant bits and x − hi − mid at most 8, so
+    both remainders are exact in f32 and lo is exact in bf16 wherever x's
+    last bit (2^-23 of its binade) lies on bf16's grid: hi + mid + lo = x
+    for 2^-110 <= |x| < (2 − 2^-8)·2^127; below, lo rounds to the subnormal
+    grid (an error under 2^-134); above, hi rounds to infinity.  An int8 or
+    nibble band value times any piece has at most 16 significant bits, so
+    the kernel's products are exact."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"split_bf16x3 takes f32, got {x.dtype}")
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------- checks
@@ -219,7 +251,7 @@ def _counter(kernel: str, h: torch.Tensor, precise: bool, nibble: bool = False,
 
 def _launch(fn, dbg, row, col, h, mir_sub, extra, name, flags) -> torch.Tensor:
     """Launch `fn` with the operands, the shape ints and the mode ints
-    `flags` ([bf16_act,] nib, diag or epi_bf16[, tr, geo])."""
+    `flags` ([bf16_act,] nib, diag or epi_bf16, tr, geo)."""
     tensors = [dbg.base, h, row, col, mir_sub, dbg.slot_of_row, *extra]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all operands must be contiguous")
@@ -363,10 +395,10 @@ def spmm_band(dbg, row, col, h, mir_sub, counter: Optional[str] = None,
     name = (f"{counter}{'_nib' if dbg.nibble else ''}" if counter
             else _counter("band_spmm", h, precise, dbg.nibble, diag))
     code = DIAGS.get(diag, 0)
+    plan = _launch_plan(h.device, dbg.n_blocks, dbg.S, dbg.n_blocks)
     if precise:
         return _launch(_load().mdc_band_spmm, dbg, row, col, h, mir_sub, (), name,
-                       (dbg.nibble, code))
-    plan = _bf16_plan(h.device, dbg.n_blocks, dbg.S, dbg.n_blocks)
+                       (dbg.nibble, code, *plan))
     return _launch(_load().mdc_band_spmm_bf16, dbg, row, col, h, mir_sub, (), name,
                    (h.dtype == torch.bfloat16, dbg.nibble, code, *plan))
 
@@ -386,10 +418,10 @@ def sage_step(dbg, row, col, h, mir_sub, A_w, B_w, precise: bool = True,
     if h.device.type == "cpu":
         return sage_step_plain(dbg, row, col, h, mir_sub, A_w, B_w, precise, f32_epi)
     name = _counter("band_sage" if f32_epi else "band_sage_bf16epi", h, precise, dbg.nibble)
+    plan = _launch_plan(h.device, dbg.n_blocks, dbg.S, dbg.n_blocks)
     if precise:
         return _launch(_load().mdc_band_sage, dbg, row, col, h, mir_sub, (A_w, B_w), name,
-                       (dbg.nibble, not f32_epi))
-    plan = _bf16_plan(h.device, dbg.n_blocks, dbg.S, dbg.n_blocks)
+                       (dbg.nibble, not f32_epi, *plan))
     return _launch(_load().mdc_band_sage_bf16, dbg, row, col, h, mir_sub, (A_w, B_w),
                    name, (h.dtype == torch.bfloat16, dbg.nibble, not f32_epi, *plan))
 
@@ -442,14 +474,15 @@ def spmm_band_halo(shard, row, col, h, lh, rh, lc, rc, mir_sub, blocks=None,
     ptr = [0 if t is None else t.data_ptr()
            for t in (shard.base, h, lh, rh, row, col, lc, rc, mir_sub, shard.slot_of_row, out)]
     args = [*ptr, nb, S, B, shard.C, h.shape[1], b0, b1]
+    plan = _launch_plan(h.device, b1 - b0, S, nb)
     lib = _load()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         if precise:
-            rc_ = lib.mdc_band_spmm_halo(*args, int(nib), stream)
+            rc_ = lib.mdc_band_spmm_halo(*args, int(nib), *plan, stream)
         else:
             rc_ = lib.mdc_band_spmm_halo_bf16(*args, int(h.dtype == torch.bfloat16), int(nib),
-                                              *_bf16_plan(h.device, b1 - b0, S, nb), stream)
+                                              *plan, stream)
     if rc_ != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc_}")
     launches[name] += 1

@@ -1,13 +1,13 @@
-"""The premise of the bf16 band kernels' chunk skipping, on the host.
+"""The premise of the band kernels' chunk skipping, on the host.
 
-csrc/band.cu's bf16 kernels walk a band block's window in chunks of
-KC_BF16 columns and skip those that the CTA's rows cannot reach
+csrc/band.cu's kernels (every mode) walk a band block's window in chunks of
+KC columns and skip those that the CTA's rows cannot reach
 (ops/band_kernels.window_reach): on a ring of three or more blocks the
 symmetric band test keeps rows r >= B out of window columns [0, B) and rows
 r < S - B out of [S + B, W2).  A skipped chunk that held an entry would drop
 it, so the builds' bands are checked against that reach for random graphs,
 block sizes and storages, together with the CTA row split
-(bf16_rows_per_cta) and the chunk ranges the kernels derive from both.  With
+(rows_per_cta) and the chunk ranges the kernels derive from both.  With
 one or two blocks the window wraps onto the block itself or its only
 neighbour, and an entry can sit anywhere: the reach is then the whole
 window, and a graph shows why."""
@@ -19,10 +19,10 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from mdcommunity_tpu_torch.ops.band_kernels import (
-    BF16_MAX_ROWS,
-    BF16_MIN_ROWS,
-    KC_BF16,
-    bf16_rows_per_cta,
+    KC,
+    MAX_ROWS,
+    MIN_ROWS,
+    rows_per_cta,
     window_reach,
 )
 from mdcommunity_tpu_torch.ops.dense_band import band_rows, build_dense_band
@@ -66,14 +66,14 @@ def test_band_entries_lie_in_window_reach(seed, s8, b_frac, nb, shuffle, nibble,
         assert not row[:, :lo].any() and not row[:, hi:].any(), (r, lo, hi)
     # per CTA of the launch's row split: the chunks it walks hold every entry
     # of its rows
-    tr = bf16_rows_per_cta(nb, S, sms)
+    tr = rows_per_cta(nb, S, sms)
     for r0, r1 in _tiles(S, tr):
         lo, hi = window_reach(S, B, nb, r0, r1)
-        c_lo, c_hi = lo // KC_BF16, -(-hi // KC_BF16)
+        c_lo, c_hi = lo // KC, -(-hi // KC)
         cols = band[:, r0:r1].any(dim=(0, 1)).nonzero().flatten()
         if cols.numel():
-            assert c_lo * KC_BF16 <= cols.min().item()
-            assert cols.max().item() < c_hi * KC_BF16
+            assert c_lo * KC <= cols.min().item()
+            assert cols.max().item() < c_hi * KC
 
 
 @pytest.mark.parametrize("nibble", [False, True])
@@ -93,11 +93,11 @@ def test_two_blocks_break_the_reach(nibble):
 @pytest.mark.parametrize("S", [8, 56, 200, 256, 512])
 @pytest.mark.parametrize("sms", [16, 132])
 def test_row_split_covers_each_row_once(S, sms):
-    full = min(BF16_MAX_ROWS, -(-S // 16) * 16)
+    full = min(MAX_ROWS, -(-S // 16) * 16)
     prev = 0
     for nb in range(1, 201):
-        tr = bf16_rows_per_cta(nb, S, sms)
-        assert tr % 16 == 0 and min(full, BF16_MIN_ROWS) <= tr <= full
+        tr = rows_per_cta(nb, S, sms)
+        assert tr % 16 == 0 and min(full, MIN_ROWS) <= tr <= full
         cover = torch.zeros(S, dtype=torch.int64)
         for r0, r1 in _tiles(S, tr):
             cover[r0:r1] += 1
@@ -107,6 +107,6 @@ def test_row_split_covers_each_row_once(S, sms):
         ctas = nb * -(-S // tr)
         if tr < full:
             assert nb * -(-S // full) < sms
-        assert tr == full or tr == BF16_MIN_ROWS or ctas >= sms
+        assert tr == full or tr == MIN_ROWS or ctas >= sms
         assert tr >= prev   # more blocks never split finer
         prev = tr

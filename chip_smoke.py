@@ -43,9 +43,12 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      1,048 on a spill-free 2^20-node build (selection runs K2, every fit's
      gradient K1 with swapped scales), counts set to 0 just before and read
      just after, and one fit's peak memory with and without remat;
-  7. check and time K4 and K5, run the small-graph validation and golden
-     synthetic rows, and the 18,222-node blocked dismantling against the
-     segment engine with one blocked gradient;
+  7. check K4 and K5 against their plain versions (a random layout; an
+     edge layout with T % 32 != 0, a hub row, dead rows, D = 2, 30, 64,
+     160, 300 and misaligned operands; two launches bit-equal) and time
+     them (CUDA events and profiler device time), run the small-graph
+     validation and golden synthetic rows, and the 18,222-node blocked
+     dismantling against the segment engine with one blocked gradient;
   8. the gp-sharded band engine, GP = 4 shards on the one card: K3 (the
      halo-mode band kernel, band_halo) in its three modes against its plain
      version on two 2^16-row graphs (interior and boundary launches, and
@@ -283,6 +286,20 @@ def time_ms(fn):
 
     if torch.cuda.is_available():
         return cuda_ms(fn)
+    fn()
+    return float("nan")
+
+
+def device_time_ms(fn):
+    """Mean device ms of one call of fn, its kernels' own time summed
+    (utils/timing.device_ms: torch.profiler over 20 calls), without the host
+    work that time_ms's event pair also holds.  NaN in the CPU rehearsal."""
+    import torch
+
+    from mdcommunity_tpu_torch.utils.timing import device_ms
+
+    if torch.cuda.is_available():
+        return device_ms(fn)
     fn()
     return float("nan")
 
@@ -1311,27 +1328,86 @@ def random_blocked(device):
     return bcoo, w.reshape(bcoo.n_pairs, bcoo.T).to(device)
 
 
+EDGE_HUB, EDGE_DEAD = 70, (100, 150)   # edge_blocked's hub row, dead rows
+
+
+def edge_blocked(device):
+    """The blocked kernels' edge layout: S = 64, T = 100 (T % 32 != 0, so
+    K5's 32-slot groups straddle pairs), 1,000 nodes (the last block
+    padded), a hub row (row 70, 305 slots) half of whose edges come from one
+    source block (a pair of several T-slot chunks), rows 100-149 whose every
+    slot is dead (w = 0; some have no slot at all), and padded pairs.
+    Returns (bcoo, w)."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.ops.blocked_kernels import build_block_coo
+
+    rng = np.random.default_rng(21)
+    n, S, T = 1000, 64, 100
+    src = np.concatenate([rng.integers(0, n, 5000), rng.integers(0, n, 150),
+                          rng.integers(128, 192, 150)])
+    dst = np.concatenate([rng.integers(0, n, 5000), np.full(300, EDGE_HUB)])
+    bcoo, _, sdst, mask = build_block_coo(src, dst, n, S, T, device=device)
+    w = rng.random(mask.size) * mask
+    w[(sdst >= EDGE_DEAD[0]) & (sdst < EDGE_DEAD[1])] = 0
+    rp = bcoo.row_ptr.cpu().numpy()
+    counts = np.diff(rp)
+    if not (counts[EDGE_HUB] > 64 and bcoo.T % 32 != 0
+            and int(bcoo.rowptr[-1]) < bcoo.n_pairs
+            and counts[EDGE_DEAD[0]:EDGE_DEAD[1]].max() > 0):
+        raise AssertionError("the edge layout lacks a hub row, T % 32 != 0, "
+                             "padded pairs or dead rows")
+    w = torch.from_numpy(w.astype(np.float32)).reshape(bcoo.n_pairs, bcoo.T)
+    return bcoo, w.to(device)
+
+
 def check_blocked(device):
-    """K4 and K5 against their plain versions on the random layout, at
-    D = 64 and D = 48."""
+    """K4 and K5 against their plain versions: on the random layout at D =
+    64 and 48 (K4 writes nothing into the empty block); on the edge layout
+    (edge_blocked) at D = 2, 30, 64, 160 and 300 (widths that are not a
+    multiple of 4, and K4's and K5's column passes), and at D = 64 with h
+    and g not 16-byte aligned (the kernels' scalar path), where K4 gives
+    exact zeros on the dead rows.  Every launch is made twice and must give
+    the same bits."""
     import torch
 
     from mdcommunity_tpu_torch.ops import blocked_kernels as bk
 
-    bcoo, w = random_blocked(device)
     gen = torch.Generator().manual_seed(13)
     errs = {"spmm_block": 0.0, "sddmm_block": 0.0}
+
+    def operand(rows, D, misaligned=False):
+        x = torch.randn(rows * D + 1, generator=gen).to(device)
+        return (x[1:] if misaligned else x[:-1]).view(rows, D)
+
+    def both(label, bcoo, w, h, g):
+        """K4 and K5 on these operands, each launched twice (the same bits)
+        and held to its plain version; returns K4's output."""
+        outs = {}
+        for name, kern, plain in (
+            ("spmm_block", lambda: bk.spmm_block(bcoo, w, h), bk.spmm_block_plain(bcoo, w, h)),
+            ("sddmm_block", lambda: bk.sddmm_block(bcoo, h, g), bk.sddmm_block_plain(bcoo, h, g)),
+        ):
+            outs[name] = kern()
+            if not torch.equal(outs[name], kern()):
+                raise AssertionError(f"{name} {label}: two launches differ")
+            errs[name] = max(errs[name], compare(f"{name} {label}", outs[name], plain))
+        return outs["spmm_block"]
+
+    bcoo, w = random_blocked(device)
     for D in (64, 48):
-        h = torch.randn(bcoo.n_rows, D, generator=gen).to(device)
-        g = torch.randn(bcoo.n_rows, D, generator=gen).to(device)
-        out = bk.spmm_block(bcoo, w, h)
+        out = both(f"random layout D={D}", bcoo, w, operand(bcoo.n_rows, D),
+                   operand(bcoo.n_rows, D))
         if out[512:1024].abs().max().item() != 0:
             raise AssertionError("K4 wrote into the empty destination block")
-        errs["spmm_block"] = max(errs["spmm_block"], compare(
-            f"K4 random layout D={D}", out, bk.spmm_block_plain(bcoo, w, h)))
-        errs["sddmm_block"] = max(errs["sddmm_block"], compare(
-            f"K5 random layout D={D} (every slot)", bk.sddmm_block(bcoo, h, g),
-            bk.sddmm_block_plain(bcoo, h, g)))
+    bcoo, w = edge_blocked(device)
+    for D, mis in ((2, False), (30, False), (64, False), (160, False), (300, False),
+                   (64, True)):
+        label = f"edge layout S=64 T=100 D={D}" + (" misaligned" if mis else "")
+        out = both(label, bcoo, w, operand(bcoo.n_rows, D, mis), operand(bcoo.n_rows, D, mis))
+        if out[EDGE_DEAD[0]:EDGE_DEAD[1]].abs().max().item() != 0:
+            raise AssertionError(f"K4 {label}: a row whose every slot is dead is not 0")
     return errs
 
 
@@ -1365,7 +1441,7 @@ def blocked_operands(bd, seed, device):
 
 def blocked_bounds(bcoo, w, D, kernel):
     """Least time on these inputs: K4 reads the row ranges, then for each
-    real slot (padding it never visits) its slot id, local source and
+    real slot (padding it never visits) its slot id, source row and
     weight, h once, writes the output once, and does one multiply-add per
     live edge and column; K5 reads the index arrays over all P·T slots, h
     and g once, writes P·T results, and does one multiply-add per slot and
@@ -1385,49 +1461,26 @@ def time_blocked(device, bd, label):
     """K4, K4 as the backward (on a gradient g), K5: each against its plain
     version at these shapes, then timed beside its bound and its library
     yardstick (torch.sparse.mm on a CSR of the same weights for K4,
-    torch.sparse.sampled_addmm on the real slots' pattern for K5)."""
+    torch.sparse.sampled_addmm on the real slots' pattern for K5): ms and
+    library_ms by CUDA events around each call (the wrapper's host work
+    included), device_ms and library_device_ms the kernels' own device
+    time (device_time_ms)."""
     import torch
 
     from mdcommunity_tpu_torch.ops import blocked_kernels as bk
+    from mdcommunity_tpu_torch.time_blocked_rows import blocked_calls
 
     bcoo, w, h = blocked_operands(bd, 14, device)
     g = torch.nn.functional.normalize(torch.randn_like(h), dim=-1)
-    n_real = int(bcoo.rowptr[-1])
-    src, dst = bk._rows(bcoo, n_real)
-    wr = w[:n_real].reshape(-1)
-    real = torch.zeros(n_real * bcoo.T, dtype=torch.bool, device=h.device)
-    real[bcoo.row_slot.long()] = True
-    R = bcoo.n_rows
-    a_csr = torch.sparse_coo_tensor(torch.stack([dst[real], src[real]]), wr[real],
-                                    (R, R), check_invariants=True).coalesce().to_sparse_csr()
-    pattern = torch.sparse_coo_tensor(torch.stack([src[real], dst[real]]),
-                                      torch.zeros(int(real.sum()), device=h.device),
-                                      (R, R), check_invariants=True).coalesce().to_sparse_csr()
-    g_t = g.t().contiguous()
-    errs = {
-        "spmm_block": compare(f"{label} K4", bk.spmm_block(bcoo, w, h),
-                              bk.spmm_block_plain(bcoo, w, h)),
-        "spmm_block_bwd": compare(f"{label} K4 backward",
-                                  bk.spmm_block(bcoo, w, g, "spmm_block_bwd"),
-                                  bk.spmm_block_plain(bcoo, w, g)),
-        "sddmm_block": compare(f"{label} K5", bk.sddmm_block(bcoo, h, g),
-                               bk.sddmm_block_plain(bcoo, h, g)),
-    }
     res = {}
-    for name, kern, plain, lib in (
-        ("spmm_block", lambda: bk.spmm_block(bcoo, w, h),
-         lambda: bk.spmm_block_plain(bcoo, w, h), lambda: torch.sparse.mm(a_csr, h)),
-        ("spmm_block_bwd", lambda: bk.spmm_block(bcoo, w, g, "spmm_block_bwd"),
-         lambda: bk.spmm_block_plain(bcoo, w, g), lambda: torch.sparse.mm(a_csr, g)),
-        ("sddmm_block", lambda: bk.sddmm_block(bcoo, h, g),
-         lambda: bk.sddmm_block_plain(bcoo, h, g),
-         lambda: torch.sparse.sampled_addmm(pattern, h, g_t)),
-    ):
-        bound_ms, bound_by = blocked_bounds(bcoo, w, 64, name)
+    for name, kern, plain, lib in blocked_calls(bk, bcoo, w, h, g):
+        err = compare(f"{label} {name}", kern(), plain())
+        bound_ms, bound_by = blocked_bounds(bcoo, w, h.shape[1], name)
         res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=time_ms(lib),
-                         max_abs_err=errs[name])
-        log(f"time {label} {name}: n_rows={R} P={bcoo.n_pairs} slots={bcoo.n_slots} "
+                         device_ms=device_time_ms(kern),
+                         library_device_ms=device_time_ms(lib), max_abs_err=err)
+        log(f"time {label} {name}: n_rows={bcoo.n_rows} P={bcoo.n_pairs} slots={bcoo.n_slots} "
             f"live={int((w != 0).sum().item())} " + json.dumps(res[name]))
     return res
 
@@ -2098,16 +2151,22 @@ def check_slice6_kernels(device, n):
     return errs
 
 
-def yardstick(dbg, h, col, dtype):
+def yardstick(dbg, h, col, dtype, own=False):
     """ms of the library yardstick: torch.bmm of the widened base against
-    the materialised col ⊙ h windows, in `dtype`."""
+    the materialised col ⊙ h windows, in `dtype`; own=True (the hlin
+    variant's) the base's own S window columns [B, B + S) against each
+    block's own rows of col ⊙ h."""
     import torch
 
     from mdcommunity_tpu_torch.ops.band_kernels import _windows
 
     base = widened(dbg, dtype)
-    win = _windows((h.float() * col[:, None]).to(dtype), dbg.n_blocks, dbg.S,
-                   dbg.B).contiguous()
+    x = (h.float() * col[:, None]).to(dtype)
+    if own:
+        base = base[:, :, dbg.B:dbg.B + dbg.S].contiguous()
+        win = x.view(dbg.n_blocks, dbg.S, -1)
+    else:
+        win = _windows(x, dbg.n_blocks, dbg.S, dbg.B).contiguous()
     ms = time_ms(lambda: torch.bmm(base, win))
     del base, win
     return ms
@@ -2179,8 +2238,11 @@ def diag_bounds(dbg, D, diag, precise):
 def time_diag_kernels(device, banded, label):
     """K1's four timing variants in the f32 and bf16 modes at D = 64 on
     layer 0 of `banded`, beside their bounds (diag_bounds), their references
-    (diag_reference) and, for noscale (the unscaled operator), the library
-    yardstick.  noh and hlin need the card.  Returns numbers by counter."""
+    (diag_reference) and, for noscale (the unscaled operator) and hlin (the
+    band's own columns), the library yardstick (`yardstick`).  nodot (a
+    roll of col ⊙ h and a row scale) and noh (the mirror expansion and a row
+    scale) have none: no one PyTorch call computes either.  noh and hlin
+    need the card.  Returns numbers by counter."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
@@ -2192,10 +2254,13 @@ def time_diag_kernels(device, banded, label):
     res = {}
     for precise in (True, False):
         sub = mirror_sub(dbg, live, h, precise)
-        lib = yardstick(dbg, h, ones, torch.float32 if precise else torch.bfloat16)
+        dt = torch.float32 if precise else torch.bfloat16
+        lib = {"noscale": yardstick(dbg, h, ones, dt)}
         for d in DIAG_NAMES:
             if device == "cpu" and d in ("noh", "hlin"):
                 continue
+            if d == "hlin":
+                lib[d] = yardstick(dbg, h, live, dt, own=True)
 
             def kern(d=d):
                 return bk.spmm_band(dbg, live, live, h, sub, precise=precise, diag=d)
@@ -2208,7 +2273,7 @@ def time_diag_kernels(device, banded, label):
             bound_ms, bound_by = diag_bounds(dbg, 64, d, precise)
             res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
                              bound_by=bound_by, max_abs_err=err,
-                             library_ms=lib if d == "noscale" else None)
+                             library_ms=lib.get(d))
             log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} " + json.dumps(res[name]))
     return res
 

@@ -14,7 +14,8 @@ K5 `sddmm_block`  dw[p, t] = h[src row of (p, t)] · g[dst row of (p, t)]
 They replace the JAX package's Pallas TPU kernels _spmm_kernel and
 _sddmm_kernel; the CUDA sources are in csrc/blocked.cu, which also says what
 bounds them on an H100.  The port adds to BlockCOO the per-destination-row
-lists of real slots (row_ptr, row_slot) that K4 walks, built once on the host.
+lists of real slots (row_ptr, row_slot) that K4 walks and the global source
+row of each entry (row_src), built once on the host.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches its kernel or raises.  Nothing falls back.  The kernels build with
@@ -56,16 +57,21 @@ def build(force: bool = False) -> str:
     return build_library(SRC, LIB, force)
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a build of csrc/blocked.cu and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mdc_spmm_block.restype = i
+    lib.mdc_spmm_block.argtypes = [p] * 6 + [i] * 2 + [p]
+    lib.mdc_sddmm_block.restype = i
+    lib.mdc_sddmm_block.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 3 + [p]
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mdc_spmm_block.restype = i
-        lib.mdc_spmm_block.argtypes = [p] * 7 + [i] * 4 + [p]
-        lib.mdc_sddmm_block.restype = i
-        lib.mdc_sddmm_block.argtypes = [p] * 7 + [ctypes.c_longlong] + [i] * 3 + [p]
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -84,6 +90,8 @@ class BlockCOO:
     row_ptr  : int32[n_blocks·S+1] range of each destination row in row_slot
     row_slot : int32[E]            slot ids p·T + t of the real edges, by
                                    destination row, then slot
+    row_src  : int32[E]            the global source row of each row_slot
+                                   entry, src_blk[p]·S + lsrc[p, t]
     Padding slots carry lsrc = ldst = 0 and must have w = 0; pairs past
     rowptr[-1] are padding (P is padded to a multiple of 8, as the JAX
     package pads it).
@@ -96,6 +104,7 @@ class BlockCOO:
     ldst: torch.Tensor
     row_ptr: torch.Tensor
     row_slot: torch.Tensor
+    row_src: torch.Tensor
     n_nodes: int
     S: int
     T: int
@@ -176,7 +185,8 @@ def build_block_coo(
     rowptr = np.zeros(n_blocks + 1, np.int64)
     rowptr[1:] = np.cumsum(np.bincount(pair_dstblk[:n_pairs], minlength=n_blocks))
     # K4's per-row lists: each real slot under its destination row, in slot
-    # order (a fixed order, so the kernel's sums are deterministic)
+    # order (a fixed order, so the kernel's sums are deterministic), and
+    # beside it the slot's global source row, so that K4 reads no pair data
     slot_id = pair_id * T + slot
     by_row = np.lexsort((slot_id, dst))
     row_ptr = np.zeros(n_blocks * S + 1, np.int64)
@@ -188,6 +198,7 @@ def build_block_coo(
     bcoo = BlockCOO(
         rowptr=t(rowptr), src_blk=t(pair_srcblk), dst_blk=t(pair_dstblk),
         lsrc=t(lsrc), ldst=t(ldst), row_ptr=t(row_ptr), row_slot=t(slot_id[by_row]),
+        row_src=t(src[by_row]),
         n_nodes=int(n), S=int(S), T=int(T),
     )
     return bcoo, slot_src.reshape(-1), slot_dst.reshape(-1), slot_mask.reshape(-1)
@@ -271,8 +282,8 @@ def spmm_block(bcoo: BlockCOO, w: torch.Tensor, h: torch.Tensor,
         return spmm_block_plain(bcoo, w, h)
     out = torch.empty_like(h)
     _launch(_load().mdc_spmm_block, counter,
-            [bcoo.row_ptr, bcoo.row_slot, bcoo.src_blk, bcoo.lsrc, w, h],
-            [bcoo.n_rows, bcoo.S, bcoo.T, h.shape[1]], out)
+            [bcoo.row_ptr, bcoo.row_slot, bcoo.row_src, w, h],
+            [bcoo.n_rows, h.shape[1]], out)
     launches[counter] += 1
     return out
 

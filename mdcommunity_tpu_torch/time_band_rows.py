@@ -12,8 +12,14 @@ in one call:
     python -m mdcommunity_tpu_torch.time_band_rows -o runs/band_rows.json
 
 Each row is {ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err} by
-counter and shape, ms the median of REPS launches; the file also holds the
-card's name and power limit.
+counter and shape, ms the median of REPS calls with a CUDA-event pair
+around each (utils/timing.cuda_ms: the window holds the wrapper's host work
+too).  Beside each such time stands its device time, `device_ms` beside
+`ms`, `plain_device_ms` beside `plain_ms`, `library_device_ms` beside
+`library_ms` (any other `<x>_ms` gains `<x>_device_ms`, any other key `<k>`
+`<k>_device_ms`): the kernels' own time, summed over the call's launches
+(utils/timing.device_ms, torch.profiler over REPS calls).  tune_band's rows
+gain theirs alike.  The file also holds the card's name and power limit.
 Needs the card; it checks each kernel against its plain version first, as
 chip_smoke.py does.
 """
@@ -27,6 +33,31 @@ import sys
 import time
 
 REPS, WARM = 100, 10   # CUDA-event launches a row (median), after warm-ups
+
+
+class Timed(float):
+    """A CUDA-event time in ms that also carries the same call's device time
+    (`device_ms`), so that the phases that build the rows need not know."""
+
+    device_ms: float
+
+
+def with_device_times(node):
+    """A copy of node (nested dicts and lists) in which each Timed value at
+    key k gains a sibling holding its device time: k without its trailing
+    `ms`, then `device_ms` (`ms` -> `device_ms`, `plain_ms` ->
+    `plain_device_ms`), or `<k>_device_ms` for a key that does not end in
+    `ms`."""
+    if isinstance(node, list):
+        return [with_device_times(x) for x in node]
+    if not isinstance(node, dict):
+        return node
+    out = {}
+    for k, v in node.items():
+        out[k] = with_device_times(v)
+        if isinstance(v, Timed):
+            out[k[:-2] + "device_ms" if k.endswith("ms") else f"{k}_device_ms"] = v.device_ms
+    return out
 
 
 def main(argv=None):
@@ -49,12 +80,21 @@ def main(argv=None):
     from mdcommunity_tpu_torch.native import build as native_build
     from mdcommunity_tpu_torch.ops import band_kernels, probe_kernels
     from mdcommunity_tpu_torch.utils.device import set_precise_matmul
-    from mdcommunity_tpu_torch.utils.timing import cuda_ms, gpu_line
+    from mdcommunity_tpu_torch.utils import timing
+
+    event_ms = timing.cuda_ms
+
+    def timed(fn, reps=REPS, warm=WARM):
+        t = Timed(event_ms(fn, reps, warm))
+        t.device_ms = timing.device_ms(fn, reps, warm)
+        return t
 
     set_precise_matmul()
     # more launches a row than chip_smoke.py's 20: at 18,432 rows a launch
-    # is mostly host time, and its spread is wide
-    cs.time_ms = lambda fn: cuda_ms(fn, REPS, WARM)
+    # is mostly host time, and its spread is wide.  tune_band reads
+    # timing.cuda_ms when it runs, so its rows carry device times too.
+    cs.time_ms = timed
+    timing.cuda_ms = timed
     t0 = time.perf_counter()
     for build in (band_kernels.build, probe_kernels.build, native_build.build):
         build()
@@ -77,9 +117,11 @@ def main(argv=None):
     rows["2^20"].update(cs.time_slice6(dev, big, big_nib, big_nib, "2^20 rows"))
     del big, big_nib
     torch.cuda.empty_cache()
-    out = dict(gpu=gpu_line(), rows=rows)
+    out = dict(gpu=timing.gpu_line(), rows=rows)
     if not args.no_tune:
         out["tune_band"] = tune_band.main(["--diag", "--proto"])
+    timing.cuda_ms = event_ms
+    out = with_device_times(out)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

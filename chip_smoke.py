@@ -32,7 +32,11 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      committed unit-cost checkpoint, through eval.real.evaluate_real
      (StepRatio 0.001, one host cascade per batch, native host engine), with
      every kernel's launch count set to 0 just before and read just after;
-     its first forward is held against the same forward on the CPU; then
+     its first forward is held against the same forward on the CPU, and its
+     own rollout against the CPU's forward (plain versions) through the
+     rollout's shadow (Lockstep) for the first LOCKSTEP_CALLS model calls
+     or up to the first call whose top-k differs, which must be a near-tie
+     (TIE); then
      the fast eval's main path, `cli test-real --fast --packed` in-process
      on the same file (its first forward held to the CPU's fast forward),
      and one fast model call in each mode (fused or not, f32 or bf16
@@ -68,7 +72,18 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      18,432 and 2^20 rows beside bound, plain and library; then the slice's
      path, the four probe entry points through their mains (probe_f32_epi at
      18,222 nodes, bench_nibble, tune_band --diag and probe_hbm_roof at
-     2^20), counts set to 0 just before and read just after.
+     2^20), counts set to 0 just before and read just after;
+ 10. the bf16 fit: K1's bf16 mode with the scales swapped (BandSpmm's
+     backward at precise=False) against its plain version at 18,432 rows,
+     the sharded bf16 gradient against the unsharded one (max abs
+     difference 0), both backward launches timed at 18,432 and 2^20 rows,
+     and train_banded_loop(precise=False) at 2^20 nodes, unsharded and at
+     GP = 4, beside the precise loop's fit ms, counts set to 0 just before
+     and read just after;
+ 11. the small-graph DQN trainer at Config()'s full width: DQNAgent.train
+     for DQN_ITERS iterations (warm-up, play, validation, fit rate, VCs,
+     peak memory), a resume from latest.ckpt, and one train_step on the
+     card against the CPU's.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -107,6 +122,7 @@ REL_TOL = 1e-4           # kernel vs plain: f32 sums in another order
 FAST_Q_TOL = 1e-2
 F32_Q_TOL, F32_Q_SHARE, FLIP_Q_TOL = 1e-5, 0.95, 2 ** -7
 TIE = 1e-5               # of max|Q|: a gap no f32 forward of this depth resolves
+LOCKSTEP_CALLS = 100     # main-path model calls held to the CPU's trajectory
 # the sharded precise forward vs the unsharded one, of max|Q|: the same
 # kernels' bits, but cuBLAS picks another f32 GEMM kernel for a shard's rows
 # than for the whole graph's (sharded_forward_phase logs the dense layer's
@@ -516,7 +532,46 @@ def time_bf16_kernels(device, banded, label):
         dense_ms = 1e3 * 2 * dbg.pad_n * dbg.W2 * 64 / PEAK_BF16_S
         log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} "
             + json.dumps(dict(res[name + nib], dense_formulation_ms=dense_ms)))
+    res.update(time_bf16_backward(device, dbg, label))
     return res
+
+
+def time_bf16_backward(device, dbg, label):
+    """The bf16 fit's backward launch, K1's bf16 mode with row and col
+    swapped on a cotangent g (band_spmm_bf16_bwd, f32 storage), at D = 64
+    beside its bound, its plain version, the library yardstick (torch.bmm of
+    the bf16-widened band against materialised bf16(row ⊙ g) windows) and
+    its device time (utils/timing.device_ms), after a check at these
+    shapes."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.band_kernels import _windows
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+
+    name = "band_spmm_bf16_bwd" + ("_nib" if dbg.nibble else "")
+    row, col = scales(dbg, 9, device)
+    g = torch.nn.functional.normalize(operands(dbg, 64, 10, device)[0], dim=-1)
+    sub_g = mirror_sub(dbg, row, g, precise=False)
+
+    def kern():
+        return bk.spmm_band(dbg, col, row, g, sub_g, "band_spmm_bf16_bwd", precise=False)
+
+    def plain():
+        return bk.spmm_band_plain(dbg, col, row, g, sub_g, precise=False)
+
+    err = check_bf16_mode(label, name, kern, plain)
+    base_b = widened(dbg, torch.bfloat16)
+    win = _windows((g * row[:, None]).to(torch.bfloat16), dbg.n_blocks, dbg.S,
+                   dbg.B).contiguous()
+    lib_ms = time_ms(lambda: torch.bmm(base_b, win))
+    del base_b, win
+    bound_ms, bound_by = bounds(dbg, 64, False, 4, PEAK_BF16_S)
+    row_ = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, max_abs_err=err,
+                device_ms=device_time_ms(kern))
+    log(f"time {label} {name}: pad_n={dbg.pad_n} C={dbg.C} " + json.dumps(row_))
+    return {name: row_}
 
 
 # ---------------------------------------------------------------- the f64 yardstick
@@ -788,15 +843,17 @@ def scales(dbg, seed, device):
     return row.to(device), col.to(device)
 
 
-def plain_operator(dbg, row, col, h):
+def plain_operator(dbg, row, col, h, precise=True):
     """The full band operator from plain PyTorch operations only (K1's plain
     version, the mirror gather, the spill segment sum), so that autograd
-    derives its gradient independently of BandSpmm."""
+    derives its gradient independently of BandSpmm; precise=False rounds the
+    operands as K1's bf16 mode does (the spill runs on the unrounded col ⊙ h,
+    as spmm_dense_band's)."""
     from mdcommunity_tpu_torch.ops.band_kernels import spmm_band_plain
     from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
     from mdcommunity_tpu_torch.ops.spmm_csr import spmm_sorted
 
-    out = spmm_band_plain(dbg, row, col, h, mirror_sub(dbg, col, h))
+    out = spmm_band_plain(dbg, row, col, h, mirror_sub(dbg, col, h, precise), precise)
     if dbg.spill.nnz:
         out = out + spmm_sorted(dbg.spill, dbg.w_spill, h * col[:, None]) * row[:, None]
     return out
@@ -821,6 +878,37 @@ def check_backward(device, n):
     h64 = h.detach().double().requires_grad_()
     (ref64,) = torch.autograd.grad(plain_operator(dbg, *f64(row, col), h64), h64, g.double())
     check_f64("K1 backward, autograd", got, ref64, ref, counter="band_spmm_bwd")
+    return err
+
+
+def check_bf16_backward(device, banded, label):
+    """The bf16 operator's h-gradient (BandSpmm at precise=False: K1's bf16
+    mode with row and col swapped, band_spmm_bf16_bwd) against its plain
+    version, the plain operator in the bf16 mode applied with the scales
+    swapped to the cotangent (the gradient the JAX package's VJP at
+    precise=False defines: bf16(row ⊙ g), f32 sums), within REL_TOL of max,
+    the bf16 forward rows' tolerance for f32 storage; two backward passes
+    bit-identical."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band_grad
+
+    dbg = banded.dbg0
+    row, col = scales(dbg, 7, device)
+    gen = torch.Generator().manual_seed(8)
+    h = torch.randn(dbg.pad_n, 64, generator=gen).to(device).requires_grad_()
+    g = torch.randn(dbg.pad_n, 64, generator=gen).to(device)
+
+    def grad():
+        return torch.autograd.grad(spmm_dense_band_grad(dbg, row, col, h, precise=False),
+                                   h, g)[0]
+
+    got = grad()
+    err = compare(f"{label} K1-bf16 backward D=64, row != col (pad_n={dbg.pad_n}, "
+                  f"C={dbg.C}, spill={dbg.spill.nnz})", got,
+                  plain_operator(dbg, col, row, g, precise=False))
+    if not torch.equal(grad(), got):
+        raise AssertionError("two bf16 backward passes differ")
     return err
 
 
@@ -971,6 +1059,8 @@ GP = 4  # gp shards, all on the one card
 # (counter, precise, storage) of K3's modes
 HALO_MODES = (("band_halo", True, "float32"), ("band_halo_bf16", False, "float32"),
               ("band_halo_bf16_act", False, "bfloat16"))
+# K3 as the gradient's operator (row and col swapped), precise and bf16
+HALO_BWD = (("band_halo_bwd", True, "float32"), ("band_halo_bf16_bwd", False, "float32"))
 
 
 def halo_operands(mesh, sdbg, row, col, h, precise):
@@ -1008,7 +1098,7 @@ def check_halo_kernels(device, n, gp=GP):
     from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, make_mesh, split_nodes
 
     mesh = make_mesh(gp, device)
-    errs = dict.fromkeys([m[0] for m in HALO_MODES] + ["band_halo_bwd"], 0.0)
+    errs = dict.fromkeys([m[0] for m in HALO_MODES + HALO_BWD], 0.0)
     # bits on the card; the CPU rehearsal's plain einsums may sum a block in
     # another order when their batch of blocks differs (2^-7: bf16 storage)
     exact = 0.0 if device != "cpu" else 2.0 ** -7
@@ -1057,6 +1147,21 @@ def check_halo_kernels(device, n, gp=GP):
         (ref64,) = torch.autograd.grad(plain_operator(dbg, *f64(row, col), h64), h64,
                                        g.double())
         check_f64(f"K3 backward S={S}", dh, ref64, plain, counter="band_halo_bwd")
+        # the bf16 fit's gradient: K3's bf16 mode with the scales swapped, the
+        # unsharded one's (K1-bf16 swapped) bits, and its plain version
+        dh = gather_nodes(mesh, list(torch.autograd.grad(spmm_band_sharded_grad(
+            mesh, sdbg, split_nodes(mesh, row), split_nodes(mesh, col), hs, precise=False),
+            hs, split_nodes(mesh, g))))
+        (ref,) = torch.autograd.grad(spmm_dense_band_grad(dbg, row, col, hf, precise=False),
+                                     hf, g)
+        diff = (dh - ref).abs().max().item()
+        log(f"check K3-bf16 backward S={S}: sharded vs unsharded bf16 gradient, max abs "
+            f"difference {diff}")
+        if diff > exact * ref.abs().max().item():
+            raise AssertionError("the sharded bf16 gradient is not the unsharded one's bits")
+        errs["band_halo_bf16_bwd"] = max(errs["band_halo_bf16_bwd"], compare(
+            f"K3-bf16 backward S={S} vs the plain bf16 operator, scales swapped", dh,
+            plain_operator(dbg, col, row, g, precise=False)))
     return errs
 
 
@@ -1091,9 +1196,9 @@ def time_halo_kernels(device, banded, label, gp=GP):
     g32 = torch.nn.functional.normalize(operands(dbg, 64, 10, device)[0], dim=-1)
     row, col = scales(dbg, 9, device)
     res, nib = {}, "_nib" if dbg.nibble else ""
-    for name, precise, store in HALO_MODES + (("band_halo_bwd", True, "float32"),):
+    for name, precise, store in HALO_MODES + HALO_BWD:
         dt = getattr(torch, store)
-        if name == "band_halo_bwd":  # the gradient's operator: col and row swapped
+        if name.endswith("_bwd"):  # the gradient's operator: col and row swapped
             r, c, h = col, row, g32
         else:
             r, c, h = row, col, h32.to(dt).contiguous()
@@ -1152,6 +1257,8 @@ def time_halo_kernels(device, banded, label, gp=GP):
             k1_whole_graph_ms=time_ms(lambda: spmm_dense_band(dbg, r, c, h, precise=precise)),
             launches_per_call=per_call, shard_ms=per_shard,
             shard_bound_ms=[b[0] for b in sb])
+        if name == "band_halo_bf16_bwd":
+            res[name + nib]["device_ms"] = device_time_ms(kern)
         log(f"time {label} {name + nib}: pad_n={dbg.pad_n} C={dbg.C} gp={gp} nb_l={nb_l} "
             + json.dumps(dict(res[name + nib], **whole)))
     return res
@@ -1302,6 +1409,192 @@ def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4):
         if on_card and s["counts"][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the sharded trainer phase")
     return s["counts"]
+
+
+def bf16_fit_phase(device, banded, edges, k, gp=GP, iters=5):
+    """The bf16 fit on the training path: train_banded_loop(precise=False)
+    for `iters` iterations at k, unsharded and with gp shards on the one
+    card, each beside the precise loop with the same settings on the same
+    graph: fit ms (the median of the fitted iterations after the first,
+    with their least and most), iteration p50.  Counts set to 0 just before each loop and read just
+    after; the unsharded bf16 loop must launch band_spmm_bf16_bwd, the
+    sharded one band_halo_bf16_bwd.  Returns the two bf16 loops' counts,
+    summed."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.env.host_env import make_host_env
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh
+    from mdcommunity_tpu_torch.rl.big_trainer import train_banded_loop
+
+    on_card = device != "cpu"
+    net = load_model(CKPT_FIT, device=device)
+    total = dict.fromkeys(bk.launches, 0)
+    for label, mesh, want in (("unsharded", None, "band_spmm_bf16_bwd"),
+                              (f"gp={gp}", make_mesh(gp, device), "band_halo_bf16_bwd")):
+        fit_ms, spread = {}, {}
+        for precise in (True, False):
+            env = make_host_env(banded.n_nodes, *edges, engine="native")
+            if on_card:
+                torch.cuda.synchronize()
+            bk.reset_launches()
+            net2, hist = train_banded_loop(net, banded, env, iters=iters, k=k,
+                                           target_update=iters, precise=precise, mesh=mesh,
+                                           log=log, log_every=iters)
+            if on_card:
+                torch.cuda.synchronize()
+            counts = dict(bk.launches)
+            rows = [h for h in hist if "loss" in h]
+            fitted = [h for h in rows if h["removed"] == k]
+            if len(fitted) < 2 or not np.isfinite([h["loss"] for h in fitted]).all():
+                raise AssertionError("the loop did not fit full batches to a finite loss")
+            if not sum((a - b.detach()).abs().sum().item()
+                       for a, b in zip(net.parameters(), net2.parameters())) > 0:
+                raise AssertionError("the parameters did not move")
+            fit_s = [h["t_fit_s"] for h in fitted[1:]]
+            fit_ms[precise] = 1e3 * float(np.median(fit_s))
+            spread[precise] = f"{1e3 * min(fit_s):.2f}-{1e3 * max(fit_s):.2f}"
+            log("bf16 fit phase: " + json.dumps(dict(
+                pad_n=banded.pad_n, k=k, mesh=label, precise=precise,
+                fit_ms=fit_ms[precise], fit_ms_min=1e3 * min(fit_s),
+                fit_ms_max=1e3 * max(fit_s), fitted=len(fit_s),
+                iter_p50_s=float(np.median([h["t_iter_s"] for h in rows])),
+                losses=[h["loss"] for h in rows],
+                launches={c: v for c, v in counts.items() if v})))
+            if not precise:
+                total = {c: total[c] + counts[c] for c in total}
+                if on_card and counts[want] <= 0:
+                    raise AssertionError(f"kernel {want} was not launched by the bf16 fit")
+        log(f"bf16 fit vs precise fit, {label}, pad_n={banded.pad_n}, k={k}: fit ms "
+            f"{fit_ms[False]:.2f} (bf16, {spread[False]}) against {fit_ms[True]:.2f} "
+            f"(precise, {spread[True]})")
+    return total
+
+
+# ---------------------------------------------------------------- the DQN trainer
+
+DQN_ITERS = 1001   # validations at iterations 0 and 1,000 (save_frequency)
+DQN_MORE = 5       # the resumed run's iterations
+LEAF_FLOOR = 1e-6  # about f32 rounding of the largest gradient leaf: a leaf under it is held against it
+
+
+def dqn_phase(device, cfg=None, iters=DQN_ITERS, more=DQN_MORE):
+    """The small-graph DQN trainer at Config()'s full width (or `cfg`):
+    DQNAgent(cfg, device).train for `iters` iterations into a git-ignored
+    directory, with its warm-up, play and validation seconds, fit
+    iterations a second, both VCs and peak device memory; counts set to 0
+    just before and read just after (the dense engine launches no hand
+    kernel, as in the JAX package).  Then a resume from latest.ckpt for
+    `more` iterations, after checking that loading it restores the
+    iteration, the Adam state, both generators' states and the weights.
+    Then one replay batch through train_step on `device` and on the CPU
+    (plain PyTorch) from the same parameters: the loss within 1e-5
+    relative, every gradient leaf within 1e-4 of its max|grad| (a leaf that
+    cancels to below LEAF_FLOOR of the largest leaf's is held against that
+    floor; each leaf's error is logged against its own max too)."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.rl.dqn import DQNAgent, train_step
+    from mdcommunity_tpu_torch.utils.config import Config
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    cfg = dataclasses.replace(cfg or Config(), max_iteration=iters)
+    save_dir = os.path.join(OUT, "dqn")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    agent = DQNAgent(cfg, device=device)
+    stats = {}
+    reset_all_launches()
+    t0 = time.perf_counter()
+    agent.train(save_dir=save_dir, log=log, stats=stats)
+    wall = time.perf_counter() - t0
+    counts = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    result = dict(
+        iters=iters, batch_size=cfg.batch_size, num_env=cfg.num_env, n_train=cfg.n_train,
+        n_valid=cfg.n_valid, embedding_size=cfg.embedding_size, pools_s=stats["pools_s"],
+        warmup_s=stats["warmup_s"], play_s=stats["play_s"], fit_s=stats["fit_s"],
+        fit_iters_per_s=stats["fit_iters"] / stats["fit_s"], valid_s=stats["valid_s"],
+        vcs=stats["vcs"], peak_mem_gib=peak, wall_s=wall,
+        launches={c: v for c, v in counts.items() if v})
+    log("dqn phase: " + json.dumps(result))
+    n_val = (iters - 1) // cfg.save_frequency + 1
+    if len(stats["vcs"]) != n_val or not all(0.0 < v < 3.0 for v in stats["vcs"]):
+        raise AssertionError("the DQN run's validation VCs are out of range")
+    for f in ("latest.ckpt", "best_model.ckpt", f"ModelVC_{cfg.num_min}_{cfg.num_max}.csv",
+              f"nrange_{cfg.num_min}_{cfg.num_max}_iter_0.ckpt"):
+        if not os.path.isfile(os.path.join(save_dir, f)):
+            raise AssertionError(f"the DQN run did not write {f}")
+
+    # resume: latest.ckpt restores everything, then the run continues
+    saved = agent._state_dict()
+    resumed = DQNAgent(dataclasses.replace(cfg, max_iteration=iters + more), device=device)
+    resumed.load(os.path.join(save_dir, "latest.ckpt"))
+    back = resumed._state_dict()
+    same = (back["iteration"] == saved["iteration"] == iters
+            and back["adam_step"] == saved["adam_step"] == iters
+            and back["nprng"] == saved["nprng"]
+            and np.array_equal(back["torch_rng"], saved["torch_rng"])
+            and all(np.array_equal(back[k][n], saved[k][n])
+                    for k in ("adam_m", "adam_v") for n in saved[k])
+            and all(np.array_equal(a, b) for a, b in zip(
+                _leaves(back["params"]), _leaves(saved["params"]))))
+    if not same:
+        raise AssertionError("latest.ckpt did not restore the agent's state")
+    resumed.train(save_dir=save_dir, resume=True, log=log)
+    step = resumed._state_dict()["adam_step"]
+    log(f"dqn resume: restored iteration {iters}, Adam step {iters} and both generators; "
+        f"continued to iteration {resumed.iteration}, Adam step {step}")
+    if resumed.iteration != iters + more or step != iters + more:
+        raise AssertionError("the resumed run did not continue from the saved iteration")
+
+    # one train_step on the device and on the CPU, from the same parameters
+    batch, _, iw, _ = agent.sample_batch()
+    args = agent.step_args(batch, iw)
+    res = []
+    for dev in (device, "cpu"):
+        a = {k: (None if v is None else v.map(lambda t: t.to(dev)) if hasattr(v, "map")
+                 else v.to(dev)) for k, v in args.items()}
+        net, tnet = (copy.deepcopy(m).to(dev) for m in (agent.net, agent.target_net))
+        with matmul_precision(True):
+            loss = train_step(net, tnet, None, **a, **agent.step_options())[0]
+        res.append((loss.item(), {k: p.grad.detach().double().cpu()
+                                  for k, p in net.named_parameters()}))
+    (l_dev, g_dev), (l_cpu, g_cpu) = res
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_own = 0.0, 0.0
+    for k, ref in g_cpu.items():
+        scale = ref.abs().max().item()
+        err = (g_dev[k] - ref).abs().max().item()
+        log(f"  train_step grad {k}: max|g| {scale:.3e}  {device} vs CPU {err:.3e} "
+            f"({err / max(scale, 1e-30):.3e} of its max)")
+        worst_own = max(worst_own, err / max(scale, 1e-30))
+        worst = max(worst, err / max(scale, LEAF_FLOOR * top))
+    rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    log(f"dqn train_step {device} vs CPU: loss {l_dev:.9e} vs {l_cpu:.9e} (rel {rel:.3e}); "
+        f"worst gradient leaf {worst:.3e} of max(its max|grad|, {LEAF_FLOOR} x the largest "
+        f"leaf's), {worst_own:.3e} of its own max|grad|")
+    if not rel <= 1e-5 or not worst <= 1e-4:
+        raise AssertionError("the train step on the device differs from the CPU's")
+    return dict(result, train_step_loss_rel=rel, train_step_worst_leaf=worst)
+
+
+def _leaves(tree):
+    """A parameter tree's arrays in key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k])
+        else:
+            yield tree[k]
 
 
 # ---------------------------------------------------------------- K4, K5
@@ -1752,6 +2045,7 @@ def main_path(device, n, step_ratio):
         f"(max|Q| {ref[fin].abs().max().item():.3e})")
     if qerr > 1e-4 * ref[fin].abs().max().item():
         raise AssertionError("first forward disagrees with the CPU forward")
+    shadow = Lockstep(net, os.path.join(OUT, name), n, max(int(step_ratio * n), 1))
 
     stats = {}
     bk.reset_launches()
@@ -1760,15 +2054,16 @@ def main_path(device, n, step_ratio):
         net, OUT, name, os.path.join(OUT, "results"), n_nodes=n, layers=(1, 2),
         step_ratio=step_ratio, batch_env=True, blocked_threshold=0,
         device=device, engine="native",
-        stats=stats,
+        stats=stats, shadow=shadow,
     )
     if device != "cpu":
         torch.cuda.synchronize()
     counts = dict(bk.launches)
+    lockstep = shadow.summary()
     mean_fwd = 1e3 * stats["model_call_s"] / max(stats["model_calls"], 1)
     log("main path: " + json.dumps(dict(
         n=n, step_ratio=step_ratio, audc=score, removed=len(sol),
-        solve_s=solve_s, wall_s=time.perf_counter() - t0,
+        solve_s=solve_s, wall_s=time.perf_counter() - t0, lockstep_s=stats["shadow_s"],
         model_calls=stats["model_calls"], mean_model_call_ms=mean_fwd,
         fuse_sage=stats["fuse_sage"], host_env=stats["host_env"],
         spill=stats["spill"], mirror_C=stats["mirror_C"], launches=counts)))
@@ -1800,7 +2095,91 @@ def main_path(device, n, step_ratio):
         log("main path, unshuffled phase: " + json.dumps(dict(
             removed=len(sol2), score=score2, launches=more)))
         counts = {k: counts[k] + more[k] for k in counts}
-    return counts, dict(audc=score, removed=len(sol), mean_model_call_ms=mean_fwd)
+    return counts, dict(audc=score, removed=len(sol), mean_model_call_ms=mean_fwd,
+                        lockstep=lockstep)
+
+
+class Lockstep:
+    """The main path's own rollout held to the port's CPU forward (the
+    plain versions): the shadow of dismantle_greedy_banded.  At each of the
+    first `calls` model calls it runs the CPU forward on its own band
+    (built from the same edge file, severed as the env reports) and
+    compares its valid top-`step` prefix with the batch the card's call takes,
+    until the first call where they differ.  A parting must be a near-tie
+    (blocked_phase's rule: each side ranks its own pick first, within TIE
+    of max|Q|), else this raises; it is logged with its removal index and
+    gap."""
+
+    def __init__(self, net, path, n, step, calls=LOCKSTEP_CALLS):
+        import copy
+
+        from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
+        from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
+
+        raw = read_multiplex_edges(path, n)
+        self.band, _, _ = build_banded_duplex(n, raw[1], raw[2], device="cpu")
+        self.net = copy.deepcopy(net).to("cpu")
+        self.step, self.calls, self.left = step, 0, calls
+        self.removed, self.seen, self.parting, self.t = 0, None, None, 0.0
+
+    def __call__(self, env, q, covered, acts):
+        import numpy as np
+        import torch
+
+        from mdcommunity_tpu_torch.eval.metrics import top_k_stable
+        from mdcommunity_tpu_torch.graphs.banded import apply_severs
+        from mdcommunity_tpu_torch.models.net import banded_test_forward
+
+        if self.left == 0:
+            return
+        t0 = time.perf_counter()
+        if self.seen is None:
+            self.seen = [np.zeros_like(m) for m in env.sever]
+        for layer in range(2):
+            e = env.edges[layer][env.sever[layer] & ~self.seen[layer]]
+            if len(e):
+                e = torch.from_numpy(np.asarray(e, np.int64))
+                apply_severs(self.band, layer, e[:, 0], e[:, 1],
+                             torch.ones(len(e), dtype=torch.bool))
+            self.seen[layer] = env.sever[layer].copy()
+        qh = banded_test_forward(self.net, self.band, covered.cpu(),
+                                 fuse_sage=self.band.spill_free)
+        vals, order = top_k_stable(qh, self.step)
+        ok = np.isfinite(vals) & ~env.covered[order]
+        a_h = order[: int(np.argmin(ok)) if not ok.all() else len(ok)]
+        self.left -= 1
+        self.calls += 1
+        if not np.array_equal(acts, a_h):
+            self.left = 0
+            self.report(acts, a_h, q.cpu().numpy(), qh.numpy())
+        self.removed += len(acts)
+        self.t += time.perf_counter() - t0
+
+    def report(self, a_c, a_h, qc, qh):
+        import numpy as np
+
+        i = next((i for i, (x, y) in enumerate(zip(a_c, a_h)) if x != y),
+                 min(len(a_c), len(a_h)))
+        x, y = int(a_c[min(i, len(a_c) - 1)]), int(a_h[min(i, len(a_h) - 1)])
+        scale = float(np.abs(qh[np.isfinite(qh)]).max())
+        tie = TIE * scale
+        self.parting = dict(
+            call=self.calls - 1, removal=self.removed + i, card_takes=x, cpu_takes=y,
+            q_card=[float(qc[x]), float(qc[y])], q_cpu=[float(qh[x]), float(qh[y])],
+            gap_card=float(qc[x] - qc[y]), gap_cpu=float(qh[y] - qh[x]),
+            gap_card_share=float(qc[x] - qc[y]) / scale,
+            gap_cpu_share=float(qh[y] - qh[x]) / scale, tie=tie)
+        log("main path lockstep, card vs CPU: first parting " + json.dumps(self.parting))
+        if not (qc[x] >= qc[y] and qh[y] >= qh[x]
+                and qc[x] - qc[y] <= tie and qh[y] - qh[x] <= tie):
+            raise AssertionError("the card's main path parts from the CPU's at a "
+                                 "decision that is not a near-tie")
+
+    def summary(self):
+        out = dict(calls=self.calls, removals=self.removed, parted=self.parting is not None,
+                   wall_s=self.t)
+        log("main path lockstep, card vs CPU: " + json.dumps(out))
+        return dict(out, parting=self.parting)
 
 
 def fast_main_path(device, n, step_ratio, precise_result):
@@ -2410,6 +2789,7 @@ def main(argv=None):
         check_edges("cpu")
         check_split("cpu")
         check_backward("cpu", 2048)
+        check_bf16_backward("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         time_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         time_bf16_kernels("cpu", synth_banded(2048, True, 0, "cpu"), "rehearsal")
         check_blocked("cpu")
@@ -2431,11 +2811,18 @@ def main(argv=None):
             time_halo_kernels("cpu", small, "rehearsal", gp)
             sharded_forward_phase("cpu", small, gp)
             sharded_trainer_phase("cpu", small, edges, 16, gp)
+            bf16_fit_phase("cpu", small, edges, 16, gp)
         check_slice6_kernels("cpu", 2048)
         time_slice6("cpu", synth_banded(2048, True, 0, "cpu"),
                     synth_banded(2048, True, 0, "cpu", nibble=True),
                     synth_banded(2048, False, 0, "cpu", reorder=False, nibble=True), "rehearsal")
         probe_phase("cpu", small=True)
+        import dataclasses
+
+        from mdcommunity_tpu_torch.utils.config import Config
+
+        dqn_phase("cpu", dataclasses.replace(Config().smoke, save_frequency=5,
+                                             update_time=5), iters=11, more=2)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -2456,6 +2843,7 @@ def main(argv=None):
         + json.dumps({k: [float(f"{x:.3e}") for x in v] for k, v in F64.items()}))
 
     main_graph = synth_banded(18222, True, 0, device)
+    errs["band_spmm_bf16_bwd"] = check_bf16_backward(device, main_graph, "18,432 rows")
     times = time_kernels(device, main_graph, "18,432 rows")
     times.update(time_bf16_kernels(device, main_graph, "18,432 rows"))
     # the sharded engine refuses spill: the unshuffled build
@@ -2496,6 +2884,7 @@ def main(argv=None):
     for name in ("band_halo", "band_halo_bf16", "band_halo_bf16_act", "band_halo_bwd"):
         if halo_counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the sharded path")
+    bf16_fit_counts = bf16_fit_phase(device, big, big_edges, 1048, iters=10)
     del big
     torch.cuda.empty_cache()
 
@@ -2512,6 +2901,7 @@ def main(argv=None):
                     ("sddmm_block", grad_counts)):
         if c[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its path")
+    dqn = dqn_phase(device)
 
     kernels = []
     for name, launched, replaces in (
@@ -2549,6 +2939,19 @@ def main(argv=None):
             source="mdcommunity_tpu_torch/csrc/"
                    + ("probe.cu" if name.startswith("stream") else "band.cu"),
             replaces=replaces, mode=mode, launches=probe_counts[name], **t))
+    for name, mode in (
+        ("band_spmm_bf16_bwd", "precise=False, f32 storage, the VJP (:811-829) with row "
+                               "and col swapped: the bf16 fit's backward"),
+        ("band_halo_bf16_bwd", "halo=True (:274-278), precise=False, f32 storage, the VJP "
+                               "with row and col swapped (band_partition.py:312-327): the "
+                               "sharded bf16 fit's backward"),
+    ):
+        t = dict(times[name])
+        t["max_abs_err"] = max(errs[name], t["max_abs_err"])
+        kernels.append(dict(
+            name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
+            replaces="mdcommunity_tpu/ops/band_pallas.py:259", mode=mode,
+            launches=bf16_fit_counts[name], **t))
     for name, launched, replaces in (
         ("spmm_block", blocked_counts, "184"), ("spmm_block_bwd", grad_counts, "184"),
         ("sddmm_block", grad_counts, "309"),
@@ -2560,6 +2963,7 @@ def main(argv=None):
             replaces=f"mdcommunity_tpu/ops/pallas_spmm.py:{replaces}",
             launches=launched[name], **t))
     log(f"fit gradient vs CPU f64: worst leaf error {fit_err:.3e} of its max |grad|")
+    log("dqn trainer: " + json.dumps(dqn))
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

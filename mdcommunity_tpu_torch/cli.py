@@ -2,6 +2,8 @@
 subcommands the port runs).
 
 Usage:
+  python -m mdcommunity_tpu_torch.cli train --variant unit_cost [--smoke] [--resume] \\
+      [--save-dir DIR] [--seed S] [--max-iteration N] [--prioritized] [--gmm-g G]
   python -m mdcommunity_tpu_torch.cli test-real --model M --data DIR -o OUT \\
       [--datasets ...] [--step-ratio R] [--batch-env] [--packed] [--fast]
   python -m mdcommunity_tpu_torch.cli test-synthetic --model M [--sizes 32 64 ...]
@@ -11,8 +13,9 @@ Usage:
 A model is a JAX-package checkpoint (`models_tpu/*/best_model.ckpt`) or a
 reference torch checkpoint.  Everything runs on the CUDA card unless --cpu
 is given, which runs the plain PyTorch versions on the CPU.  The JAX
-package's train, baseline, analyze, summarize-edges, check-features and draw
-subcommands are not ported yet.
+package's baseline, analyze, summarize-edges, check-features and draw
+subcommands are not ported yet; train takes the unit_cost and degree_cost
+variants (ce and hca raise until they are ported).
 """
 
 from __future__ import annotations
@@ -25,6 +28,36 @@ import sys
 
 def _device(args):
     return "cpu" if args.cpu else None
+
+
+def cmd_train(args):
+    """The small-graph DQN trainer (rl/dqn.DQNAgent) with the JAX package's
+    options, save directory and SMOKE_TEST handling."""
+    from mdcommunity_tpu_torch.rl.dqn import DQNAgent
+    from mdcommunity_tpu_torch.utils.config import Config, smoke_requested
+    from mdcommunity_tpu_torch.utils.device import resolve_device
+
+    import dataclasses as _dc
+
+    device = resolve_device(_device(args))
+    cfg = Config(variant=args.variant, seed=args.seed)
+    over = {}
+    if args.max_iteration:
+        over["max_iteration"] = args.max_iteration
+    if args.gmm_g is not None:
+        over["gmm_g"] = None if args.gmm_g < 0 else args.gmm_g
+    if args.prioritized:
+        over["use_prioritized"] = True
+    if over:
+        cfg = _dc.replace(cfg, **over)
+    smoke = args.smoke or smoke_requested()
+    if smoke:
+        cfg = cfg.smoke
+    save_dir = args.save_dir or f"./models_tpu/{args.variant}_GMM_{cfg.num_min}_{cfg.num_max}"
+    if smoke:
+        save_dir += "_SMOKE"
+    DQNAgent(cfg, device=device).train(save_dir=save_dir, resume=args.resume,
+                                       log=lambda m: print(m, flush=True))
 
 
 def cmd_test_real(args):
@@ -94,6 +127,23 @@ def main(argv=None):
     common.add_argument("--cpu", action="store_true", default=argparse.SUPPRESS,
                         help="run on the CPU")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", parents=[common])
+    t.add_argument("--variant", default="unit_cost",
+                   choices=["unit_cost", "degree_cost", "ce", "hca"])
+    t.add_argument("--smoke", action="store_true",
+                   help="SMOKE_TEST sizes (Config.smoke)")
+    t.add_argument("--resume", action="store_true",
+                   help="continue from SAVE_DIR/latest.ckpt")
+    t.add_argument("--save-dir", default=None)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--max-iteration", type=int, default=0,
+                   help="override Config.max_iteration (0 = default)")
+    t.add_argument("--prioritized", action="store_true",
+                   help="prioritized replay sampling (IsPrioritizedSampling)")
+    t.add_argument("--gmm-g", type=float, default=None,
+                   help="GMM angular correlation; negative = U(0,1) per graph")
+    t.set_defaults(fn=cmd_train)
 
     r = sub.add_parser("test-real", parents=[common])
     r.add_argument("--model", required=True)

@@ -143,3 +143,42 @@ def valid_action_mask(g, state: EnvState) -> torch.Tensor:
     deg = torch.zeros(live.shape[:-1] + (g.pad_n,), dtype=torch.int64, device=g.device)
     deg.scatter_add_(-1, g.src, live.to(torch.int64))
     return (~state.covered) & g.node_mask & (deg[:, 0] > 0) & (deg[:, 1] > 0)
+
+
+def batched_valid_mask(g, state: EnvState) -> torch.Tensor:
+    """valid_action_mask of a batch (the JAX package's vmapped form; the
+    port's valid_action_mask is batched already)."""
+    return valid_action_mask(g, state)
+
+
+def is_terminal(state: EnvState) -> torch.Tensor:
+    return state.terminal
+
+
+def random_action(g, state: EnvState, u: torch.Tensor) -> torch.Tensor:
+    """Uniform over each graph's valid actions (reference randomAction,
+    mvc_env.py:89-101), int64[B]: graph b takes its floor(u[b]·count)-th
+    valid node in index order, for draws u f32/f64[B] in [0, 1) on g's
+    device; a graph with no valid action gets node 0 (a masked no-op on a
+    terminal env).
+
+    The JAX package draws with jax.random.categorical over 0/-inf logits
+    from a jax.random key.  The port does not import JAX and cannot
+    reproduce that key stream: its draws are uniforms from a
+    torch.Generator (batched_random_actions), the same distribution with
+    other numbers."""
+    mask = valid_action_mask(g, state)
+    cnt = mask.sum(dim=1)
+    k = torch.minimum((u * cnt).to(torch.int64), (cnt - 1).clamp(min=0))
+    pos = torch.cumsum(mask.to(torch.int64), dim=1) - 1
+    return torch.argmax((mask & (pos == k[:, None])).to(torch.int8), dim=1)
+
+
+def batched_random_actions(g, state: EnvState,
+                           generator: torch.Generator) -> torch.Tensor:
+    """random_action with one uniform a graph drawn from `generator`, a
+    torch.Generator on the CPU: the draws are made there and moved to g's
+    device, so a run on the card and one on the CPU take the same actions
+    from the same generator state."""
+    u = torch.rand(state.covered.shape[0], generator=generator, dtype=torch.float64)
+    return random_action(g, state, u.to(g.device))

@@ -16,7 +16,7 @@ AUDC = Σ_t rank_t/(max_rank·N): the area under the normalised-LMCC curve.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -209,6 +209,7 @@ def dismantle_greedy_banded(
     stats: Optional[Dict[str, float]] = None,
     precise: bool = True,
     act_dtype: torch.dtype = torch.float32,
+    shadow: Optional[Callable] = None,
 ) -> Tuple[List[int], float, List[float]]:
     """Greedy Q rollout on a large BandedDuplex with a host env.
 
@@ -237,13 +238,22 @@ def dismantle_greedy_banded(
     their total seconds (forward + top-k + the fetch that ends them), and
     the mode (fuse_sage, precise, act_dtype).
 
+    shadow, when given, watches a batch_env rollout (step > 1) without
+    changing it: each model call, before its batch is taken, it is called
+    as shadow(env, q, covered, acts) with the host env, the call's Q and
+    covered mask (on the device) and the nodes the batch takes
+    (chip_smoke.py holds the main path to the CPU's forward through it).
+    Its seconds are kept out of model_call_s and given as stats["shadow_s"].
+
     Returns (solution in banded ids, score = AUDC, curve)."""
+    if shadow is not None and not (batch_env and step > 1):
+        raise ValueError("shadow watches batch_env rollouts with step > 1")
     fuse = banded.spill_free if fuse_sage is None else bool(fuse_sage)
     device = banded.device
     pad_n, n = banded.pad_n, env.n
     max_steps = max_steps or n
     sol: List[int] = []
-    calls, call_s = 0, 0.0
+    calls, call_s, shadow_s = 0, 0.0, 0.0
 
     def apply(layer: int, ns: np.ndarray) -> None:
         # a cascade report of any size, the t≈0 one of a badly coupled graph
@@ -261,10 +271,10 @@ def dismantle_greedy_banded(
         with matmul_precision(precise):
             q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
                                     precise=precise, act_dtype=act_dtype)
-        out = top_k_stable(q, k)
+        vals, order = top_k_stable(q, k)
         call_s += time.perf_counter() - t0
         calls += 1
-        return out
+        return vals, order, q
 
     # sync the band with the edges the env severed at reset (the t=0
     # cascade usually severs some: the two layers' partitions rarely agree)
@@ -277,7 +287,7 @@ def dismantle_greedy_banded(
     ).to(device)
 
     if step == 1 and not batch_env:
-        vals, order = q_top(covered, 1)
+        vals, order, _ = q_top(covered, 1)
         while not env.terminal and len(sol) < max_steps:
             v, a = float(vals[0]), int(order[0])
             if not np.isfinite(v) or env.covered[a]:
@@ -289,16 +299,20 @@ def dismantle_greedy_banded(
             for layer in range(2):
                 apply(layer, new_sev[layer])
             covered[a] = True
-            vals, order = q_top(covered, 1)
+            vals, order, _ = q_top(covered, 1)
     else:
         while not env.terminal and len(sol) < max_steps:
-            vals, order = q_top(covered, step)
+            vals, order, q = q_top(covered, step)
             if batch_env and step > 1:
                 # ONE cascade for the whole batch; keep the valid prefix of
                 # the top-k, as the sequential loop does
                 ok = np.isfinite(vals) & ~env.covered[order]
                 cut = int(np.argmin(ok)) if not ok.all() else len(ok)
                 acts = order[:cut][: max_steps - len(sol)]
+                if shadow is not None:
+                    t0 = time.perf_counter()
+                    shadow(env, q, covered, acts)
+                    shadow_s += time.perf_counter() - t0
                 if len(acts) == 0:
                     break
                 _, new_sev, _ = env.step_many(acts)
@@ -318,6 +332,6 @@ def dismantle_greedy_banded(
                 for layer in range(2):
                     apply(layer, new_sev[layer])
     if stats is not None:
-        stats.update(model_calls=calls, model_call_s=call_s, fuse_sage=fuse,
+        stats.update(model_calls=calls, model_call_s=call_s, shadow_s=shadow_s, fuse_sage=fuse,
                      precise=precise, act_dtype=str(act_dtype).replace("torch.", ""))
     return sol, float(env.score), list(env.curve)

@@ -50,6 +50,7 @@ def evaluate_real(
     engine: str = "auto",
     stats: Optional[Dict] = None,
     precise: bool = True,
+    shadow=None,
 ) -> Tuple[list, float, float]:
     """Dismantle one real dataset with a unit-cost DuplexQNet; returns
     (solution in original ids, solve_time, score).
@@ -64,7 +65,8 @@ def evaluate_real(
     ignores it, as the JAX package's does.  stats, when
     given, receives the rollout's model-call counts and times, and on the
     large-graph path the host engine and the build's spill and mirror
-    sizes."""
+    sizes.  shadow: the large-graph rollout's observer
+    (dismantle_greedy_banded)."""
     device = resolve_device(device)
     if dataset in REAL_DATASETS:
         fname, n_default, pair_default = REAL_DATASETS[dataset]
@@ -92,7 +94,7 @@ def evaluate_real(
         t0 = time.time()
         sol, score, curve = dismantle_greedy_banded(
             net, banded, env, step=step, batch_env=batch_env, fuse_sage=fuse_sage,
-            stats=stats, precise=precise,
+            stats=stats, precise=precise, shadow=shadow,
         )
         solve_time = time.time() - t0
         sol = [int(perm[v]) for v in sol]  # back to original node ids

@@ -232,3 +232,83 @@ class GraphPool:
 
     def get(self, gid: int) -> DuplexGraph:
         return self._graphs[gid]
+
+
+class EpochGraphRing:
+    """Device-resident ring of the last K training-pool epochs (the JAX
+    package's graphs/duplex.EpochGraphRing).
+
+    The reference's replay stores graph objects, so old transitions stay
+    bound to their graph across the pool regenerations (reference
+    gen_new_graphs :151-160 and nstep_replay_mem).  A replay of plain pool
+    indices would re-bind old transitions to the new pool's graphs after a
+    regeneration.  The ring keeps the last K pools stacked as one batch on
+    the device; the replay stores absolute slot ids and the slot's epoch
+    tag, so stale references are found at sample time (slots_live).
+
+    The ring's tensors are allocated once, at the first epoch (the pool
+    tiled K times); each later epoch is an in-place indexed copy into its
+    window [base, base + pool_size), where the JAX package's writer is a
+    jitted donated update.
+    """
+
+    def __init__(self, epochs: int = 8):
+        self.k = epochs
+        self.epoch = -1
+        self.pool_size = 0
+        self._g: Optional[DuplexGraph] = None
+        self._s0 = None
+        self.slot_epoch: Optional[np.ndarray] = None
+        self._s0_sever_host: Optional[np.ndarray] = None
+
+    def __len__(self):
+        return self.pool_size if self.epoch >= 0 else 0
+
+    @property
+    def base(self) -> int:
+        """Slot offset of the current epoch's pool."""
+        return (self.epoch % self.k) * self.pool_size
+
+    @property
+    def stacked(self) -> DuplexGraph:
+        return self._g
+
+    @property
+    def stacked_s0(self):
+        return self._s0
+
+    @property
+    def s0_sever_host(self) -> np.ndarray:
+        """Host copy of every slot's t=0 sever masks, bool[K·P, 2, E]."""
+        return self._s0_sever_host
+
+    def write_epoch(self, graphs: List[DuplexGraph]) -> None:
+        """Install a freshly generated pool as the new current epoch."""
+        from mdcommunity_tpu_torch.env.env import batched_reset
+
+        p = len(graphs)
+        batch = stack_graphs(graphs)
+        s0 = batched_reset(batch)
+        if self._g is None or self.pool_size != p:
+            self.pool_size = p
+            self.epoch = 0
+            tile = lambda x: torch.cat([x] * self.k, dim=0)  # noqa: E731
+            self._g = batch.map(tile)
+            self._s0 = s0.map(tile)
+            self.slot_epoch = np.full(self.k * p, -1, np.int64)
+            self._s0_sever_host = np.zeros((self.k * p,) + tuple(s0.sever.shape[1:]), bool)
+        else:
+            self.epoch += 1
+        base = self.base
+        for ring, new in ((self._g, batch), (self._s0, s0)):
+            for f in dataclasses.fields(new):
+                getattr(ring, f.name)[base: base + p].copy_(getattr(new, f.name))
+        self.slot_epoch[base: base + p] = self.epoch
+        self._s0_sever_host[base: base + p] = s0.sever.cpu().numpy()
+
+    def sample_slots(self, rng: np.random.Generator, k: int) -> np.ndarray:
+        return self.base + rng.integers(0, self.pool_size, size=k)
+
+    def slots_live(self, slots: np.ndarray, epochs: np.ndarray) -> np.ndarray:
+        """bool[k]: slot still holds the graph from `epochs` (not overwritten)."""
+        return self.slot_epoch[slots] == epochs

@@ -1,5 +1,5 @@
-"""Loading the JAX package's committed checkpoints (weights only), and
-saving the port's weights in the same layout.
+"""Loading the JAX package's committed checkpoints (weights only), saving
+the port's weights in the same layout, and the DQN agent's full-state file.
 
 A `models_tpu/*/best_model.ckpt` is a pickle of the JAX agent's full state:
 params, target params, the optax optimizer state, the RNG state and the
@@ -8,6 +8,13 @@ importing optax would import jax.  The unpickler below lets numpy, builtins
 and collections through and turns every other class into a stub tuple, so
 the params (plain dicts of f32 numpy arrays) load with neither jax nor optax
 imported.
+
+The agent's file (save_agent_state) is a pickle of numpy arrays and Python
+values: params and target_params in the JAX package's layout, so both this
+module's loaders and the JAX package's DQNAgent.load(path, weights_only=True)
+read it, and the port's own keys for the rest of its state
+(rl/dqn.DQNAgent._state_dict).  The JAX package's Orbax store
+(save_orbax/load_orbax) has no counterpart: Orbax is a JAX library.
 """
 
 from __future__ import annotations
@@ -58,3 +65,19 @@ def save_params(path: str, net) -> None:
 
     with open(path, "wb") as f:
         pickle.dump({"params": to_jax_params(net)}, f)
+
+
+def save_agent_state(path: str, state: Dict[str, Any]) -> None:
+    """Pickle an agent's full state (numpy arrays and Python values only)."""
+    import os
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(state, f)
+
+
+def load_agent_state(path: str) -> Dict[str, Any]:
+    """An agent file as a dict: the port's, or the JAX package's (its optax
+    state then loads as stubs; params and target_params are numpy)."""
+    with open(path, "rb") as f:
+        return _WeightsUnpickler(f).load()

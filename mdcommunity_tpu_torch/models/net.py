@@ -97,7 +97,10 @@ class DuplexQNet(nn.Module):
 
 
 def _param(a) -> nn.Parameter:
-    t = torch.as_tensor(np.asarray(a, np.float32))
+    # a copy: a parameter that aliased the source array (a JAX array's host
+    # buffer, a checkpoint's numpy array) would write an optimizer's steps
+    # into it
+    t = torch.tensor(np.asarray(a, np.float32))
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -486,11 +489,15 @@ def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate) -> torch.Tensor:
     package's net.laplacian_regularizer; reference calc_loss,
     MultiDismantler_torch.py:410-431).
 
-    tr(HᵀLH) = Σ_v deg_v·||H_v||² - Σ_{(u,v) directed} H_u·H_v.
-    h_f: per-layer [pad_n, D]; deg [2, pad_n] live degrees;
-    aggregate(layer, h) = A_l @ h over the live subgraph.  Sharded: h_f's
-    entries and deg are lists of shard pieces, whose f32 partial sums are
-    added in shard order."""
+    tr(HᵀLH) = Σ_v deg_v·||H_v||² - Σ_{(u,v) directed} H_u·H_v, and |E_l|,
+    the directed live-edge count, is Σ_v deg_v (integer-valued, exact in
+    f32).  h_f: per-layer [pad_n, D]; deg [2, pad_n] live degrees;
+    aggregate(layer, h) = A_l @ h over the live subgraph.  A batch of padded
+    graphs is one block-diagonal graph: h_f per-layer [B, N, D] and deg
+    [2, B, N] (env/batch's deg with its layer axis first), as the JAX
+    package's batched form takes (h_f, g, inputs); train_step passes that.
+    Sharded: h_f's entries and deg are lists of shard pieces, whose f32
+    partial sums are added in shard order."""
     total = 0.0
     for layer in range(2):
         hs, pools = _pieces(h_f[layer]), _pieces(aggregate(layer, h_f[layer]))
@@ -511,16 +518,22 @@ def banded_train_loss(
     alpha: float = 1e-3,
     remat: bool = True,
     mesh=None,
+    precise: bool = True,
 ) -> torch.Tensor:
     """DQN loss on one large BandedDuplex: MSE(Q[actions], targets) +
     alpha·Laplacian embedding regularizer (the JAX package's
-    net.banded_train_loss, unit cost, precise).
+    net.banded_train_loss, unit cost).
 
     actions: int [K] node ids, targets: f32 [K].  Every aggregation of the
     embedding and of the regularizer runs through BandSpmm, so its gradient
     is kernel K1 with swapped scales; the degree passes of the inputs run
-    without grad.  The fit runs in f32 (the caller keeps TF32 off,
-    utils/device.set_precise_matmul).
+    without grad, precise in either mode (their operands are 0/1 and their
+    sums integers, so the JAX package's bf16 passes give the same values).
+    precise=True runs the fit in f32 (the caller keeps TF32 off,
+    utils/device.matmul_precision(True)); precise=False is the bf16 fit:
+    every aggregation is K1's bf16 mode (bf16(col ⊙ h), f32 sums) both
+    ways, as the JAX package's banded_train_loss(precise=False), and the
+    caller runs the dense layers under matmul_precision(False).
 
     remat=True recomputes the embedding in the backward instead of storing
     its activations (torch.utils.checkpoint, as the JAX package's
@@ -531,16 +544,17 @@ def banded_train_loss(
     mesh, or a sharded bdx, runs it gp-sharded as banded_test_forward does
     (the JAX package's banded_train_loss(mesh=...)): every aggregation is
     parallel/band_partition.ShardedBandSpmm (kernel K3, and K3 with swapped
-    scales for its gradient), the actions' rows are gathered from the
-    shards that own them, and the loss lies on the first shard's device."""
+    scales for its gradient; their bf16 modes at precise=False), the
+    actions' rows are gathered from the shards that own them, and the loss
+    lies on the first shard's device."""
     bdx, mesh = _on_mesh(bdx, mesh)
     with torch.no_grad():
         node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered, mesh)
     if mesh is None:
-        agg = _banded_aggregate(bdx, live, spmm_dense_band_grad)
+        agg = _banded_aggregate(bdx, live, spmm_dense_band_grad, precise)
     else:
         def agg(layer, hs):
-            return spmm_band_sharded_grad(mesh, bdx.dbg(layer), live, live, hs)
+            return spmm_band_sharded_grad(mesh, bdx.dbg(layer), live, live, hs, precise)
 
     def embed():
         return _embed(net, node_input, active, agg)

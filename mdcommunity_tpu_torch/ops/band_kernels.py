@@ -71,12 +71,15 @@ _NIB = ("", "_nib")
 
 # kernel launches on CUDA tensors, by kernel name; band_spmm_bwd counts the
 # launches of K1 that compute a gradient (ops/dense_band.BandSpmm.backward),
-# band_halo_bwd those of K3 (parallel/band_partition.ShardedBandSpmm)
+# band_halo_bwd those of K3 (parallel/band_partition.ShardedBandSpmm), and
+# band_spmm_bf16_bwd, band_halo_bf16_bwd those of their bf16 modes (the bf16
+# fit, precise=False)
 launches = {
     f"{k}{m}{n}": 0 for k in ("band_spmm", "band_sage", "band_sage_bf16epi", "band_halo")
     for m in _MODES for n in _NIB
 }
-launches.update({f"{k}{n}": 0 for k in ("band_spmm_bwd", "band_halo_bwd") for n in _NIB})
+launches.update({f"{k}{m}_bwd{n}": 0 for k in ("band_spmm", "band_halo")
+                 for m in _MODES[:2] for n in _NIB})
 launches.update({f"band_spmm{m}_diag_{d}": 0 for m in _MODES[:2] for d in DIAGS})
 
 _lib: Optional[ctypes.CDLL] = None

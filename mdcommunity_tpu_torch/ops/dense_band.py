@@ -391,25 +391,30 @@ class BandSpmm(torch.autograd.Function):
     hold both directions of every edge, and a sever zeroes both), so with
     (R·A·C)ᵀ = C·A·R the backward is the same operator with row and col
     swapped: kernel K1 again (its nibble mode on a nibble graph), counted
-    under launches["band_spmm_bwd"] (band_spmm_bwd_nib).  Its
+    under launches["band_spmm_bwd"] (band_spmm_bwd_nib).  precise=False
+    runs K1's bf16 mode both ways, the backward on bf16(row ⊙ g) as the JAX
+    package's VJP at precise=False (dense_band.py:321-343,
+    band_pallas.py:811-829), counted under band_spmm_bf16_bwd[_nib].  Its
     mirror and spill parts reuse the sorted segment sums, so the gradient is
     deterministic.  dbg, row and col are graph constants; the backward
     raises if the band operands or the scales were edited since the
     forward."""
 
     @staticmethod
-    def forward(ctx, dbg, row, col, h):
+    def forward(ctx, dbg, row, col, h, precise=True):
         ctx.dbg = dbg
+        ctx.precise = precise
         ctx.versions = band_versions(dbg)
         ctx.save_for_backward(row, col)  # autograd checks their versions
-        return spmm_dense_band(dbg, row, col, h.contiguous())
+        return spmm_dense_band(dbg, row, col, h.contiguous(), precise=precise)
 
     @staticmethod
     def backward(ctx, g):
         check_band_versions(ctx.dbg, ctx.versions)
         row, col = ctx.saved_tensors
-        dh = spmm_dense_band(ctx.dbg, col, row, g.contiguous(), "band_spmm_bwd")
-        return None, None, None, dh
+        name = "band_spmm_bwd" if ctx.precise else "band_spmm_bf16_bwd"
+        dh = spmm_dense_band(ctx.dbg, col, row, g.contiguous(), name, ctx.precise)
+        return None, None, None, dh, None
 
 
 class _BandGuard(torch.autograd.Function):
@@ -438,10 +443,12 @@ def guard_band_operands(dbgs, *xs):
 
 
 def spmm_dense_band_grad(
-    dbg: DenseBandGraph, row: torch.Tensor, col: torch.Tensor, h: torch.Tensor
+    dbg: DenseBandGraph, row: torch.Tensor, col: torch.Tensor, h: torch.Tensor,
+    precise: bool = True,
 ) -> torch.Tensor:
-    """spmm_dense_band with a gradient for h (BandSpmm).  row and col must
-    not require grad: the operator has no gradient for its scales."""
+    """spmm_dense_band with a gradient for h (BandSpmm), in either mode.
+    row and col must not require grad: the operator has no gradient for its
+    scales."""
     if row.requires_grad or col.requires_grad:
         raise ValueError("the band operator is differentiable in h only")
-    return BandSpmm.apply(dbg, row, col, h)
+    return BandSpmm.apply(dbg, row, col, h, precise)

@@ -186,21 +186,25 @@ class ShardedBandSpmm(torch.autograd.Function):
     """The sharded band operator, differentiable in h (the custom VJPs of
     the JAX package's sharded engines): the backward is the same sharded
     operator with row and col swapped, kernel K3 counted under
-    launches["band_halo_bwd"].  apply(sdbg, *row, *col, *h) with gp pieces
-    each; returns the gp output pieces.  It raises in the backward if a
-    shard's band operands were edited since the forward (ops/dense_band.
-    BandSpmm's guard; shard bases that are views share their storage's
-    edit counter, so a sever through the whole graph's base is seen)."""
+    launches["band_halo_bwd"]; with precise=False both run K3's bf16 mode,
+    the backward counted under band_halo_bf16_bwd (the JAX package's VJP,
+    band_partition.py:312-327).  apply(sdbg, precise, *row, *col, *h) with
+    gp pieces each; returns the gp output pieces.  It raises in the
+    backward if a shard's band operands were edited since the forward
+    (ops/dense_band.BandSpmm's guard; shard bases that are views share
+    their storage's edit counter, so a sever through the whole graph's base
+    is seen)."""
 
     @staticmethod
-    def forward(ctx, sdbg, *tensors):
+    def forward(ctx, sdbg, precise, *tensors):
         gp = sdbg.mesh.gp
         row, col, h = tensors[:gp], tensors[gp:2 * gp], tensors[2 * gp:]
         ctx.sdbg = sdbg
+        ctx.precise = precise
         ctx.versions = band_versions(sdbg)
         ctx.save_for_backward(*row, *col)  # autograd checks their versions
         return tuple(spmm_band_sharded(sdbg.mesh, sdbg, list(row), list(col),
-                                       [x.contiguous() for x in h]))
+                                       [x.contiguous() for x in h], precise))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -208,19 +212,20 @@ class ShardedBandSpmm(torch.autograd.Function):
         check_band_versions(sdbg, ctx.versions)
         gp = sdbg.mesh.gp
         saved = ctx.saved_tensors
+        name = "band_halo_bwd" if ctx.precise else "band_halo_bf16_bwd"
         dh = spmm_band_sharded(sdbg.mesh, sdbg, list(saved[gp:]), list(saved[:gp]),
-                               [g.contiguous() for g in gs], counter="band_halo_bwd")
-        return (None,) * (1 + 2 * gp) + tuple(dh)
+                               [g.contiguous() for g in gs], ctx.precise, counter=name)
+        return (None,) * (2 + 2 * gp) + tuple(dh)
 
 
 def spmm_band_sharded_grad(mesh: GpMesh, sdbg: ShardedBandGraph, row: Parts, col: Parts,
-                           h: Parts) -> Parts:
-    """spmm_band_sharded (precise) with a gradient for h (ShardedBandSpmm).
-    row and col must not require grad."""
+                           h: Parts, precise: bool = True) -> Parts:
+    """spmm_band_sharded with a gradient for h (ShardedBandSpmm), in either
+    mode.  row and col must not require grad."""
     _check_mesh(mesh, sdbg, row, col, h)
     if any(t.requires_grad for t in (*row, *col)):
         raise ValueError("the band operator is differentiable in h only")
-    return list(ShardedBandSpmm.apply(sdbg, *row, *col, *h))
+    return list(ShardedBandSpmm.apply(sdbg, precise, *row, *col, *h))
 
 
 # ---------------------------------------------------------------- severs

@@ -11,11 +11,15 @@ warm-up ones: selection, host cascade, severs, target forward and the fit
 time, the device's busy share and the kernel launches.  --fast times the
 model call of the fast eval (K1's and K2's bf16 modes, TF32 dense layers),
 with h stored in --act-dtype (the counterpart of the JAX package's
-scripts/bench_model_level.py act_dtype=bf16 runs).
+scripts/bench_model_level.py act_dtype=bf16 runs).  With --dqn it profiles
+the small-graph DQN trainer at Config()'s width instead (rl/dqn.DQNAgent,
+after its pools and warm-up games): --calls fits, then one play_games(10)
+at eps 0.9, each window on its own.
 
     python -m mdcommunity_tpu_torch.profile_forward --sizes 18222 1048576
     python -m mdcommunity_tpu_torch.profile_forward --fit --sizes 1048576
     python -m mdcommunity_tpu_torch.profile_forward --fast --act-dtype bfloat16
+    python -m mdcommunity_tpu_torch.profile_forward --dqn --calls 50
 """
 
 from __future__ import annotations
@@ -39,7 +43,11 @@ def main(argv=None):
                     help="the fast eval's model call (precise=False)")
     ap.add_argument("--act-dtype", default="float32", choices=["float32", "bfloat16"],
                     help="storage of h in the fast eval")
+    ap.add_argument("--dqn", action="store_true",
+                    help="profile the small-graph DQN trainer's fit and play")
     args = ap.parse_args(argv)
+    if args.dqn:
+        return profile_dqn(args.calls, args.top)
     if args.fit and args.fast:
         ap.error("--fit profiles the precise trainer; --fast is for model calls")
     if args.act_dtype == "bfloat16" and not args.fast:
@@ -113,6 +121,57 @@ def main(argv=None):
         print(prof.key_averages().table(sort_by="self_device_time_total",
                                         row_limit=args.top), flush=True)
         del banded
+
+
+def _profiled(fn, reps):
+    """(host-clock s, device kernel µs, kernel launches, profile) of fn()
+    run reps times under torch.profiler, after a synchronise."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    return (wall, sum(e.self_device_time_total for e in events),
+            sum(e.count for e in events), prof)
+
+
+def profile_dqn(fits: int, top: int):
+    """The DQN trainer's fit and play windows (module doc): host ms, device
+    busy ms and share, kernel launches, and the host-side operator count
+    (aten calls) of one fit."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from mdcommunity_tpu_torch.rl.dqn import DQNAgent
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    agent = DQNAgent(dataclasses.replace(Config(), max_iteration=1), device=None)
+    with tempfile.TemporaryDirectory() as d:
+        agent.train(save_dir=d, log=lambda *a: None)
+    for _ in range(3):
+        agent.fit()
+    for what, fn, reps in (("fit", agent.fit, fits),
+                           ("play", lambda: agent.play_games(10, 0.9), 1)):
+        wall, busy_us, launches, prof = _profiled(fn, reps)
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith("aten::"))
+        print(json.dumps(dict(
+            dqn=what, reps=reps, host_ms=1e3 * wall / reps,
+            device_busy_ms=busy_us / 1e3 / reps, busy_share=busy_us / 1e6 / wall,
+            kernel_launches=launches / reps, aten_calls=ops / reps,
+            device=torch.cuda.get_device_name(0))), flush=True)
+        print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=top),
+              flush=True)
 
 
 if __name__ == "__main__":

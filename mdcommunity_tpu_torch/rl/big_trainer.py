@@ -17,6 +17,9 @@ removed together, and one host cascade advances the environment.
 
 Selection and targets run the eval forward (kernels K1 and K2); the fit
 runs models/net.banded_train_loss, whose gradient is K1 with swapped scales.
+precise=False is the bf16 fit: the fast forward (K1's and K2's bf16 modes)
+selects and bootstraps, the loss aggregates through K1's bf16 mode both
+ways, and the dense layers run under utils/device.matmul_precision(False).
 
 The JAX package's operands are values, so its pre-step state is still at
 hand when it fits after applying the next state's severs.  Here severs edit
@@ -54,7 +57,7 @@ from mdcommunity_tpu_torch.models.net import (
     banded_test_forward,
     banded_train_loss,
 )
-from mdcommunity_tpu_torch.utils.device import set_precise_matmul
+from mdcommunity_tpu_torch.utils.device import matmul_precision
 
 
 def _apply_severs(banded, layer: int, ns: np.ndarray) -> None:
@@ -137,15 +140,15 @@ def train_banded_loop(
     stay on the first shard's device; the host env is unchanged and its
     severs are routed to the shards that own them.
 
-    The JAX package's pack_G (a TPU layout) is not ported; precise=False
-    (the bf16 fit) neither."""
+    precise=False: the bf16 fit (module doc; the JAX package's
+    train_banded_loop(precise=False)); with a mesh its gradient is K3's
+    bf16 mode with swapped scales.  The dense layers' TF32 flags are set
+    for each forward and fit and restored after it.  The JAX package's
+    pack_G (a TPU layout) is not ported."""
     if variant != "unit_cost":
         raise NotImplementedError(f"variant {variant!r}: only unit_cost is ported")
-    if not precise:
-        raise NotImplementedError("the bf16 (precise=False) fit is not ported")
     if mesh is not None:
         banded0 = shard_banded_duplex(mesh, banded0)
-    set_precise_matmul()
     device = banded0.device
     rng = np.random.default_rng(seed)
     n, pad_n = env.n, banded0.pad_n
@@ -175,8 +178,9 @@ def train_banded_loop(
         eps = eps_start + (eps_end - eps_start) * it / max(iters - 1, 1)
 
         # --- action selection: device top-k, host eps mixing ------------
-        vals, order = top_k_stable(
-            banded_test_forward(net, cur, covered, fuse_sage=fuse, precise=precise), k)
+        with matmul_precision(precise):
+            q = banded_test_forward(net, cur, covered, fuse_sage=fuse, precise=precise)
+        vals, order = top_k_stable(q, k)
         ok = np.isfinite(vals) & ~env.covered[order]
         cut = int(np.argmin(ok)) if not ok.all() else len(ok)
         acts = order[:cut].astype(np.int64)
@@ -219,8 +223,9 @@ def train_banded_loop(
             targets = rewards
             maxq = 0.0
         else:
-            q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse,
-                                         precise=precise)
+            with matmul_precision(precise):
+                q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse,
+                                             precise=precise)
             maxq = float(q_next.max())
             targets = rewards + gamma * maxq
         t4 = time.perf_counter()
@@ -231,9 +236,10 @@ def train_banded_loop(
             tgts_dev = torch.from_numpy(targets.astype(np.float32)).to(device)
             for _ in range(fits_per_step):
                 opt.zero_grad(set_to_none=True)
-                loss = banded_train_loss(net, prev, prev_covered, acts_dev,
-                                         tgts_dev, alpha=alpha_recon)
-                loss.backward()
+                with matmul_precision(precise):
+                    loss = banded_train_loss(net, prev, prev_covered, acts_dev,
+                                             tgts_dev, alpha=alpha_recon, precise=precise)
+                    loss.backward()
                 opt.step()
             loss_v = loss.item()
         t5 = time.perf_counter()

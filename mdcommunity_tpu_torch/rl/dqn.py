@@ -1,25 +1,85 @@
-"""Greedy Q rollouts and validation over batches of padded graphs.
+"""The small-graph DQN agent: rollouts, the train step, validation,
+checkpoints (the JAX package's rl/dqn.py).
 
-The JAX package's rl/dqn.py, its evaluation part: `predict_q` (batch
-operands + forward, reference Predict :247-302), `greedy_rollout` (every
-env to terminal with argmax actions, reference Test :738-755) and
-`validate`, the agent's validation score over a seeded pool (score +
-remaining/(max_rank·N), DQNAgent.validate).  The trainer, the replay and the
-agent class come with the training slice.
+Reference: class MultiDismantler (MultiDismantler_torch.py).  Structural map:
+
+  Train                :433-547   -> DQNAgent.train (the same schedule: pool
+                                     regeneration / play / validate /
+                                     snapshot / fit)
+  Run_simulator        :183-208   -> DQNAgent.play_games, over a vector of
+                                     num_env environments stepped on the
+                                     device (rollout_autoreset)
+  Predict/SetuppredAll :247-302   -> predict_q (batch operands + forward)
+  Fit/fit/calc_loss    :315-431   -> train_step (target + loss + Adam)
+  TakeSnapShot         :312-313   -> target <- net
+  Test                 :738-755   -> validate (every validation env rolled
+                                     out in one batched greedy sweep)
+  SaveModel/LoadModel  :787-797   -> save / load (the full training state:
+                                     true resume, where the reference keeps
+                                     weights only)
+
+Epsilon schedule: eps_end + max(0, (eps_start-eps_end)·(eps_step-iter)/eps_step)
+(reference :501).
+
+The JAX package jits its steps and scans its rollouts (lax.scan,
+lax.while_loop); here they are Python loops over batched tensor ops on the
+agent's device, with no host sync inside a rollout chunk.  The dense engine
+(a batched matmul with the live adjacency) does every aggregation, as in the
+JAX package: no hand kernel runs on this path.  The JAX agent draws its
+exploration from a jax.random key; the port cannot import JAX, so it draws
+from a torch.Generator on the CPU seeded from the agent's seed (the same
+distributions, other numbers), while the pools, the environment slots and
+the replay batches come from the agent's np.random.Generator in the JAX
+package's order, so the same seed gives the same graphs and batches.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mdcommunity_tpu_torch.env.batch import make_batch_inputs
-from mdcommunity_tpu_torch.env.env import EnvState, batched_reset, batched_step
-from mdcommunity_tpu_torch.graphs.duplex import GraphPool
+from mdcommunity_tpu_torch.env.env import (
+    EnvState,
+    batched_reset,
+    batched_step,
+    random_action,
+)
+from mdcommunity_tpu_torch.graphs.duplex import EpochGraphRing, GraphPool, index_graphs
 from mdcommunity_tpu_torch.graphs.gmm import generate_pool
-from mdcommunity_tpu_torch.models.net import test_forward
+from mdcommunity_tpu_torch.models.checkpoint import load_agent_state, save_agent_state
+from mdcommunity_tpu_torch.models.net import (
+    _aggregate,
+    from_jax_params,
+    init_params,
+    laplacian_regularizer,
+    test_forward,
+    to_jax_params,
+    train_forward,
+)
 from mdcommunity_tpu_torch.utils.config import Config
-from mdcommunity_tpu_torch.utils.device import resolve_device, set_precise_matmul
+from mdcommunity_tpu_torch.utils.device import (
+    matmul_precision,
+    resolve_device,
+    set_precise_matmul,
+)
+from mdcommunity_tpu_torch.utils.profiling import ThroughputMeter, device_timer
+
+_PORTED = ("unit_cost", "degree_cost")
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in _PORTED:
+        raise NotImplementedError(
+            f"variant {variant!r} is not ported yet: its prior, model and "
+            "batch inputs come with slice D")
 
 
 @torch.no_grad()
@@ -32,6 +92,177 @@ def predict_q(net, g, covered, sever, variant: str = "unit_cost", dense: bool = 
     return test_forward(net, g, inputs, max_bp_iter=max_bp_iter, aggregate_fn=aggregate_fn)
 
 
+def train_step(
+    net,
+    target_net,
+    optimizer: Optional[torch.optim.Optimizer],
+    g,
+    covered_st: torch.Tensor,
+    sever_st: torch.Tensor,
+    actions: torch.Tensor,
+    rewards: torch.Tensor,
+    covered_sp: torch.Tensor,
+    sever_sp: torch.Tensor,
+    terminal: torch.Tensor,
+    is_weights: Optional[torch.Tensor] = None,
+    variant: str = "unit_cost",
+    gamma: float = 1.0,
+    alpha_recon: float = 1e-3,
+    use_double_dqn: bool = False,
+    use_huber: bool = False,
+    max_bp_iter: int = 3,
+):
+    """One SGD step (reference Fit -> fit -> calc_loss, :315-431; the JAX
+    package's train_step): the n-step target r + gamma·max_a' Q_target(s',
+    a') (0 at terminal; with use_double_dqn the argmax is the online net's),
+    the loss mean(w·(target - Q(s, a))²), or w·Huber with δ = 1, plus
+    alpha_recon × the batched Laplacian regularizer, then one step of
+    `optimizer`.  g is the batch's graphs, every tensor on net's device.
+
+    Returns (loss, mse, recon, td = target - Q(s, a)), detached, without a
+    host sync.  optimizer=None leaves the gradients in the parameters'
+    .grad and takes no step."""
+    with torch.no_grad():
+        inputs_sp = make_batch_inputs(g, covered_sp, sever_sp, dense=True, variant=variant)
+        q_sp_t = test_forward(target_net, g, inputs_sp, max_bp_iter=max_bp_iter)
+        if use_double_dqn:
+            q_sp_o = test_forward(net, g, inputs_sp, max_bp_iter=max_bp_iter)
+            a_star = torch.argmax(q_sp_o, dim=1)
+            max_q = torch.gather(q_sp_t, 1, a_star[:, None])[:, 0]
+        else:
+            max_q = torch.amax(q_sp_t, dim=1)
+        max_q = torch.where(terminal, torch.zeros_like(max_q), max_q)
+        target = rewards + gamma * max_q
+
+    inputs_st = make_batch_inputs(g, covered_st, sever_st, dense=True, variant=variant)
+    q, h_f = train_forward(net, g, inputs_st, actions, max_bp_iter=max_bp_iter)
+    if use_huber:
+        per = F.huber_loss(q, target, reduction="none", delta=1.0)
+    else:
+        per = torch.square(target - q)
+    mse = torch.mean(per if is_weights is None else is_weights * per)
+    recon = laplacian_regularizer(
+        h_f, inputs_st.deg.transpose(0, 1),
+        lambda layer, h: _aggregate(g, inputs_st, layer, h))
+    loss = mse + alpha_recon * recon
+    net.zero_grad(set_to_none=True)
+    loss.backward()
+    if optimizer is not None:
+        optimizer.step()
+    return loss.detach(), mse.detach(), recon.detach(), (target - q).detach()
+
+
+def _pack_bits_u8(x: torch.Tensor) -> torch.Tensor:
+    """bool[..., M] (M % 8 == 0) -> uint8[..., M // 8], np.packbits' layout
+    (most significant bit first), so the host can np.unpackbits it."""
+    b = x.reshape(x.shape[:-1] + (x.shape[-1] // 8, 8)).to(torch.int32)
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=x.device)
+    return (b * w).sum(-1).to(torch.uint8)
+
+
+# the history fields of a rollout chunk and their dtypes on the host
+_HIST = (("gid", np.int32), ("actions", np.int32), ("rewards", np.float32),
+         ("valid", np.bool_), ("done", np.bool_), ("covered", np.bool_),
+         ("sever", np.uint8))
+
+
+def fetch_history(hist: Dict[str, torch.Tensor], gids: torch.Tensor):
+    """(history as numpy arrays [n_steps, B, ...], final gids [B]) in ONE
+    device-to-host transfer: every field is laid out as bytes side by side
+    in one uint8 tensor on the device, copied once, and cut apart on the
+    host (the JAX package's single jax.device_get of the chunk)."""
+    n_steps, B = hist["actions"].shape
+    parts, widths = [], []
+    fields = [(k, hist[k], dt) for k, dt in _HIST] + [
+        ("final_gid", gids[None].expand(n_steps, B), np.int32)]
+    for _, t, dt in fields:
+        t = t.to(getattr(torch, np.dtype(dt).name) if dt is not np.bool_ else torch.uint8)
+        if t.dim() == 2:
+            t = t[..., None]
+        t = t.contiguous().view(torch.uint8).reshape(n_steps, B, -1)
+        parts.append(t)
+        widths.append(t.shape[-1])
+    buf = torch.cat(parts, dim=-1).cpu().numpy()
+    out, o = {}, 0
+    for (name, _, dt), w in zip(fields, widths):
+        raw = np.ascontiguousarray(buf[..., o:o + w])
+        o += w
+        if dt is np.bool_:
+            out[name] = raw.astype(bool)
+        else:
+            out[name] = raw.view(dt)
+        if name not in ("covered", "sever"):
+            out[name] = out[name].reshape(n_steps, B)
+    final = out.pop("final_gid")[-1].astype(np.int64)
+    return out, final
+
+
+@torch.no_grad()
+def rollout_autoreset(
+    net,
+    pool_g,
+    pool_s0: EnvState,
+    gids: torch.Tensor,
+    g,
+    state: EnvState,
+    generator: torch.Generator,
+    eps: float,
+    gid_lo: int = 0,
+    gid_hi: Optional[int] = None,
+    n_steps: int = 8,
+    variant: str = "unit_cost",
+    degree_cost: bool = False,
+):
+    """n_steps eps-greedy env steps over the env vector, with auto-reset on
+    the device (the JAX package's rollout_autoreset): an env that goes
+    terminal draws a fresh pool graph, uniform in [gid_lo, gid_hi), and its
+    precomputed t=0 state (pool_s0), so every step of every env is
+    experience and the host never drives resets.
+
+    One exploration draw a step decides for the whole vector (reference
+    Run_simulator :200-208): greedy if u >= eps, else each env's uniform
+    valid action.  Every draw of the chunk (1 + 2B uniforms a step) comes
+    from `generator`, a torch.Generator on the CPU, in one block before the
+    loop and one copy to the device: the loop body has no host sync.  The
+    JAX package's lax.scan is the Python loop.
+
+    Returns ((gids, g, state) carry, history dict of [n_steps, B, ...]
+    device tensors: gid, actions, rewards, covered, sever (bit-packed as
+    _pack_bits_u8), valid, done); fetch_history brings it to the host."""
+    if gid_hi is None:
+        gid_hi = pool_g.node_mask.shape[0]
+    B = gids.shape[0]
+    draws = torch.rand((n_steps, 1 + 2 * B), generator=generator,
+                       dtype=torch.float64).to(g.device)
+    span = gid_hi - gid_lo
+    hist: Dict[str, List[torch.Tensor]] = {k: [] for k, _ in _HIST}
+    for s in range(n_steps):
+        d = draws[s]
+        q = predict_q(net, g, state.covered, state.sever, variant)
+        greedy = torch.argmax(q, dim=1)
+        rand = random_action(g, state, d[1:1 + B])
+        actions = torch.where(d[0] >= eps, greedy, rand)
+        valid = ~state.terminal  # False only for an s0-terminal fresh graph
+        new_state, rewards = batched_step(g, state, actions, degree_cost)
+        done = new_state.terminal
+        for k, v in (("gid", gids), ("actions", actions), ("rewards", rewards),
+                     ("covered", new_state.covered),
+                     ("sever", _pack_bits_u8(new_state.sever.reshape(B, -1))),
+                     ("valid", valid), ("done", done)):
+            hist[k].append(v)
+        new_gids = gid_lo + torch.clamp((d[1 + B:] * span).to(torch.int64), max=span - 1)
+        gids = torch.where(done, new_gids, gids)
+        g = pool_g.map(lambda x: x[gids])
+
+        def pick(s0, cur):
+            return torch.where(done.reshape((-1,) + (1,) * (cur.dim() - 1)), s0[gids], cur)
+
+        state = EnvState(**{f.name: pick(getattr(pool_s0, f.name), getattr(new_state, f.name))
+                            for f in dataclasses.fields(EnvState)})
+    return (gids, g, state), {k: torch.stack(v) for k, v in hist.items()}
+
+
+@torch.no_grad()
 def greedy_rollout(net, g, state: EnvState, variant: str = "unit_cost",
                    degree_cost: bool = False, max_steps: int = 0) -> EnvState:
     """Roll every env of the batch to terminal with greedy argmax actions
@@ -50,8 +281,7 @@ def make_valid_pool(cfg: Config, device=None) -> GraphPool:
     """The validation pool of cfg: n_valid GMM graphs drawn from
     np.random.default_rng(cfg.seed), as DQNAgent seeds and draws it
     (DQNAgent.__init__ then prepare_valid_data), on `device`."""
-    if cfg.variant not in ("unit_cost", "degree_cost"):
-        raise NotImplementedError(f"variant {cfg.variant!r}: its prior is not ported yet")
+    _check_variant(cfg.variant)
     device = resolve_device(device)
     pool = GraphPool()
     for g in generate_pool(
@@ -63,16 +293,402 @@ def make_valid_pool(cfg: Config, device=None) -> GraphPool:
     return pool
 
 
-def validate(net, pool: GraphPool, variant: str = "unit_cost") -> float:
-    """Mean normalised dismantling cost over the pool: a batched greedy
-    rollout, score + remaining/(max_rank·N) per graph (reference Test
-    :738-755; the JAX package's DQNAgent.validate), in true f32."""
-    set_precise_matmul()
-    g = pool.stacked
-    state = greedy_rollout(net, g, batched_reset(g), variant,
-                           degree_cost=variant == "degree_cost")
+def validation_score(net, g, variant: str = "unit_cost",
+                     degree_cost: bool = False) -> float:
+    """Mean normalised dismantling cost over a batch of graphs: a batched
+    greedy rollout, score + remaining/(max_rank·N) per graph (reference
+    Test :738-755; the JAX package's DQNAgent.validate), at the matmul
+    precision the caller set."""
+    state = greedy_rollout(net, g, batched_reset(g), variant, degree_cost=degree_cost)
     covered_cnt = torch.sum(state.covered & g.node_mask, dim=1)
     remain = (g.n_nodes - covered_cnt).to(torch.float32)
     n_f = g.n_nodes.to(torch.float32)
     score = state.score + remain / (g.max_rank.to(torch.float32) * n_f)
     return float(torch.mean(score))
+
+
+def validate(net, pool: GraphPool, variant: str = "unit_cost") -> float:
+    """validation_score over the pool, in true f32 (TF32 off)."""
+    set_precise_matmul()
+    return validation_score(net, pool.stacked, variant, variant == "degree_cost")
+
+
+# ---------------------------------------------------------------------------
+# the agent
+# ---------------------------------------------------------------------------
+
+
+class DQNAgent:
+    """The small-graph DQN trainer on one device (CUDA unless `device` names
+    another).  The JAX agent's `mesh=` (data-parallel replicas) is not
+    ported yet.  cfg.dtype == "bfloat16" runs the dense layers (and the
+    dense aggregation, a matmul) under utils/device.matmul_precision(False),
+    which on the card is TF32 (10-bit mantissas, f32 sums) for f32 tensors;
+    "float32" runs them in true f32.  cfg.debug_nans turns on
+    torch.autograd.set_detect_anomaly, process-wide."""
+
+    def __init__(self, cfg: Config, seed: Optional[int] = None, device=None):
+        _check_variant(cfg.variant)
+        if cfg.fusion != "bitwise_logis":
+            raise NotImplementedError(f"fusion {cfg.fusion!r} is not ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if cfg.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        self.precise = cfg.dtype != "bfloat16"
+        seed = cfg.seed if seed is None else seed
+        self.nprng = np.random.default_rng(seed)
+        self.generator = torch.Generator().manual_seed(seed)
+        params = init_params(
+            self.generator, embedding_size=cfg.embedding_size, reg_hidden=cfg.reg_hidden,
+            aux_dim=cfg.aux_dim, node_feat_dim=cfg.node_feat_dim,
+            gate_hidden=cfg.gate_hidden, w_init_std=cfg.w_init_std,
+        )
+        self.net = from_jax_params(params, self.device).requires_grad_(True)
+        self.target_net = copy.deepcopy(self.net).requires_grad_(False)
+        self.optimizer = torch.optim.Adam(self.net.parameters(), lr=cfg.learning_rate,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        if cfg.use_prioritized:
+            from mdcommunity_tpu_torch.rl.replay_prioritized import PrioritizedNStepReplay
+
+            self.replay = PrioritizedNStepReplay(
+                cfg.memory_size, cfg.pad_nodes, cfg.pad_edges, cfg.n_step)
+        else:
+            from mdcommunity_tpu_torch.rl.replay import NStepReplay
+
+            self.replay = NStepReplay(cfg.memory_size, cfg.pad_nodes, cfg.pad_edges,
+                                      cfg.n_step)
+        self.train_pool = EpochGraphRing(cfg.pool_ring_epochs)
+        self.valid_pool = GraphPool()
+        self.iteration = 0
+        self._env_state: Optional[EnvState] = None
+        self._env_gids: Optional[np.ndarray] = None
+        self._env_graphs = None
+        self._traj: List[dict] = []
+        self._pending_prio = None  # deferred (tree_idx, td on the device, write_gen)
+
+    # -- data ----------------------------------------------------------------
+    @property
+    def degree_cost(self) -> bool:
+        return self.cfg.variant == "degree_cost"
+
+    def _prec(self):
+        return matmul_precision(self.precise)
+
+    def _pool(self, count: int) -> List:
+        c = self.cfg
+        return generate_pool(self.nprng, count, c.num_min, c.num_max, c.pad_nodes,
+                             c.pad_edges, self.degree_cost, g_corr=c.gmm_g,
+                             device=self.device)
+
+    def gen_new_graphs(self):
+        """Refresh the training pool (reference gen_new_graphs :151-160) as a
+        new EpochGraphRing epoch: earlier epochs' graphs stay on the device,
+        so replayed transitions keep referring to their graphs."""
+        self.train_pool.write_epoch(self._pool(self.cfg.n_train))
+        # envs hold ids into the old pool; force a re-reset
+        self._env_state = None
+
+    def prepare_valid_data(self):
+        self.valid_pool.clear()
+        for g in self._pool(self.cfg.n_valid):
+            self.valid_pool.insert(g)
+
+    # -- rollouts -------------------------------------------------------------
+    def _new_traj(self, gid: int) -> dict:
+        return {"gid": gid, "covered": [np.zeros(self.cfg.pad_nodes, bool)],
+                "sever": [self.train_pool.s0_sever_host[gid]], "actions": [],
+                "rewards": []}
+
+    def _reset_envs(self):
+        """Full env-vector reset (pool changed, or the first call);
+        mid-training resets happen on the device in rollout_autoreset."""
+        self._env_gids = self.train_pool.sample_slots(self.nprng, self.cfg.num_env)
+        gids = torch.as_tensor(self._env_gids, device=self.device)
+        self._env_graphs = index_graphs(self.train_pool.stacked, gids)
+        self._env_state = self.train_pool.stacked_s0.map(lambda x: x[gids])
+        self._traj = [self._new_traj(int(gid)) for gid in self._env_gids]
+
+    def play_games(self, n_traj: int, eps: float):
+        """Collect >= n_traj finished episodes into the replay (reference
+        Run_simulator).  Each turn is one rollout chunk over every env and
+        one transfer of its history; episodes beyond n_traj that finish in
+        the same chunk are kept."""
+        if len(self.train_pool) == 0:
+            self.gen_new_graphs()
+        if self._env_state is None:
+            self._reset_envs()
+        pool = self.train_pool
+        done, guard = 0, 0
+        with self._prec():
+            while done < n_traj and guard < 10000:
+                guard += 1
+                (gids, g, state), hist = rollout_autoreset(
+                    self.net, pool.stacked, pool.stacked_s0,
+                    torch.as_tensor(self._env_gids, device=self.device),
+                    self._env_graphs, self._env_state, self.generator, eps,
+                    gid_lo=pool.base, gid_hi=pool.base + pool.pool_size,
+                    n_steps=self.cfg.rollout_chunk, variant=self.cfg.variant,
+                    degree_cost=self.degree_cost,
+                )
+                hist, self._env_gids = fetch_history(hist, gids)
+                self._env_graphs, self._env_state = g, state
+                done += self._record(hist)
+
+    def _record(self, hist) -> int:
+        """Slice the chunk's history into the env trajectories; flush each
+        finished episode into the replay.  Returns the episodes flushed."""
+        pad_e = self.cfg.pad_edges
+        sever = np.unpackbits(hist["sever"], axis=-1, count=2 * pad_e)
+        sever = sever.reshape(*sever.shape[:-1], 2, pad_e).astype(bool)
+        n_steps, n_env = hist["actions"].shape
+        done = 0
+        for s in range(n_steps):
+            for i in range(n_env):
+                t = self._traj[i]
+                if hist["valid"][s, i]:
+                    t["actions"].append(int(hist["actions"][s, i]))
+                    t["rewards"].append(float(hist["rewards"][s, i]))
+                    t["covered"].append(hist["covered"][s, i])
+                    t["sever"].append(sever[s, i])
+                if hist["done"][s, i]:
+                    if t["actions"]:
+                        self.replay.add_episode(
+                            t["gid"], t["covered"], t["sever"], t["actions"],
+                            t["rewards"], graph_epoch=self.train_pool.epoch)
+                        done += 1
+                    # the device already reset env i; the next row's gid
+                    # (or the final carry) names its graph
+                    ngid = int(hist["gid"][s + 1, i] if s + 1 < n_steps
+                               else self._env_gids[i])
+                    self._traj[i] = self._new_traj(ngid)
+        return done
+
+    # -- fitting ---------------------------------------------------------------
+    def take_snapshot(self):
+        self.target_net.load_state_dict(self.net.state_dict())
+
+    def sample_batch(self):
+        """(replay batch, tree indices or None, IS weights or None, write
+        generations or None), drawn from the agent's numpy generator."""
+        if self.cfg.use_prioritized:
+            pb = self.replay.sample_prioritized(
+                self.nprng, self.cfg.batch_size, slots_live=self.train_pool.slots_live)
+            return (pb.batch, pb.tree_idx, pb.is_weights,
+                    self.replay.write_gen[pb.tree_idx].copy())
+        batch = self.replay.sample(self.nprng, self.cfg.batch_size,
+                                   slots_live=self.train_pool.slots_live)
+        return batch, None, None, None
+
+    def step_args(self, batch, is_weights=None) -> dict:
+        """train_step's batch arguments on the agent's device."""
+        dev = self.device
+
+        def t(x):
+            return torch.as_tensor(np.asarray(x), device=dev)
+
+        return dict(
+            g=index_graphs(self.train_pool.stacked,
+                           t(batch.graph_ids.astype(np.int64))),
+            covered_st=t(batch.covered_st), sever_st=t(batch.sever_st),
+            actions=t(batch.actions.astype(np.int64)), rewards=t(batch.rewards),
+            covered_sp=t(batch.covered_sp), sever_sp=t(batch.sever_sp),
+            terminal=t(batch.terminal),
+            is_weights=None if is_weights is None else t(is_weights),
+        )
+
+    def step_options(self) -> dict:
+        c = self.cfg
+        return dict(variant=c.variant, gamma=c.gamma, alpha_recon=c.alpha_recon,
+                    use_double_dqn=c.use_double_dqn, use_huber=c.use_huber,
+                    max_bp_iter=c.max_bp_iter)
+
+    def fit(self) -> torch.Tensor:
+        """One train_step on a replay batch; returns the loss as a device
+        scalar, not synced (a host read would fence the queue every
+        iteration)."""
+        batch, tree_idx, iw, tree_gen = self.sample_batch()
+        with self._prec():
+            loss, _, _, td = train_step(self.net, self.target_net, self.optimizer,
+                                        **self.step_args(batch, iw), **self.step_options())
+        if tree_idx is not None:
+            # the previous fit's priorities, one step deferred: its td has
+            # finished by now, so reading it does not wait; the write
+            # generations skip slots the ring overwrote in between
+            self._flush_priorities()
+            self._pending_prio = (tree_idx, td, tree_gen)
+        return loss
+
+    def _flush_priorities(self):
+        if self._pending_prio is not None:
+            p_idx, p_td, p_gen = self._pending_prio
+            self.replay.update_priorities(p_idx, p_td.cpu().numpy(), write_gen=p_gen)
+            self._pending_prio = None
+
+    # -- evaluation ------------------------------------------------------------
+    def validate(self) -> float:
+        """Mean normalised dismantling cost over the validation pool
+        (validation_score) at the agent's matmul precision."""
+        with self._prec():
+            return validation_score(self.net, self.valid_pool.stacked, self.cfg.variant,
+                                    self.degree_cost)
+
+    # -- persistence -----------------------------------------------------------
+    def _state_dict(self) -> dict:
+        """The full training state as numpy and Python values: params and
+        target_params in the JAX package's layout (so its loaders and
+        DQNAgent.load(weights_only=True) read them), and under the port's
+        own keys the Adam moments by parameter name, the step count and the
+        torch generator's state."""
+        names = [k for k, _ in self.net.named_parameters()]
+        st = self.optimizer.state_dict()["state"]
+        step = int(st[0]["step"]) if st else 0
+        return {
+            "params": to_jax_params(self.net),
+            "target_params": to_jax_params(self.target_net),
+            "iteration": self.iteration,
+            "nprng": self.nprng.bit_generator.state,
+            "config": dataclasses.asdict(self.cfg),
+            "adam_step": step,
+            "adam_m": {n: st[i]["exp_avg"].cpu().numpy() for i, n in enumerate(names)}
+            if st else {},
+            "adam_v": {n: st[i]["exp_avg_sq"].cpu().numpy() for i, n in enumerate(names)}
+            if st else {},
+            "torch_rng": self.generator.get_state().numpy(),
+        }
+
+    def save(self, path: str):
+        save_agent_state(path, self._state_dict())
+
+    def load(self, path: str, weights_only: bool = False):
+        """Restore an agent file: the port's (full state) or, with
+        weights_only=True, also the JAX package's (params and target only)."""
+        self._restore(load_agent_state(path), weights_only)
+
+    def _restore(self, state: dict, weights_only: bool = False):
+        for net, key in ((self.net, "params"), (self.target_net, "target_params")):
+            net.load_state_dict(from_jax_params(state[key], "cpu").state_dict())
+        if weights_only:
+            return
+        if "adam_step" not in state:
+            raise ValueError("not a full agent state of the port (its Adam state "
+                             "is missing); load it with weights_only=True")
+        names = [k for k, _ in self.net.named_parameters()]
+        opt = self.optimizer.state_dict()
+        opt["state"] = {} if not state["adam_step"] else {
+            i: {"step": torch.tensor(float(state["adam_step"])),
+                "exp_avg": torch.from_numpy(state["adam_m"][n]),
+                "exp_avg_sq": torch.from_numpy(state["adam_v"][n])}
+            for i, n in enumerate(names)}
+        self.optimizer.load_state_dict(opt)
+        self.iteration = state["iteration"]
+        self.nprng.bit_generator.state = state["nprng"]
+        self.generator.set_state(torch.from_numpy(np.asarray(state["torch_rng"], np.uint8)))
+
+    def load_torch(self, path: str):
+        """Load a reference-format torch checkpoint (weights only)."""
+        from mdcommunity_tpu_torch.models.torch_convert import load_torch_checkpoint
+
+        src = load_torch_checkpoint(path, device="cpu")
+        self.net.load_state_dict(src.state_dict())
+        self.take_snapshot()
+
+    # -- the training loop -------------------------------------------------------
+    def train(self, save_dir: str = "./models_tpu", resume: bool = False,
+              log=print, stats: Optional[dict] = None) -> str:
+        """The reference's Train() schedule: pools, warm-up games at eps = 1,
+        then each iteration a pool regeneration every save_frequency, ten
+        episodes of play every 10, validation and checkpoints every
+        save_frequency, a target snapshot every update_time, and one fit.
+        stats, when given, receives the seconds of the pools (pools_s), the
+        warm-up (warmup_s), all play and all fits (play_s, fit_s, each
+        synchronised with the card), the fits' count (fit_iters), and each
+        validation's seconds and VC (valid_s, vcs)."""
+        cfg = self.cfg
+        st = {} if stats is None else stats
+        st.update(warmup_s=0.0, play_s=0.0, fit_s=0.0, fit_iters=0, valid_s=[], vcs=[])
+        os.makedirs(save_dir, exist_ok=True)
+        vc_file = os.path.join(save_dir, f"ModelVC_{cfg.num_min}_{cfg.num_max}.csv")
+
+        start_iter = 0
+        if resume and os.path.isfile(os.path.join(save_dir, "latest.ckpt")):
+            self.load(os.path.join(save_dir, "latest.ckpt"))
+            start_iter = self.iteration
+            log(f"resumed from iter {start_iter}")
+            vc_out = open(vc_file, "a")
+        else:
+            vc_out = open(vc_file, "w")
+
+        t0 = time.perf_counter()
+        self.prepare_valid_data()
+        self.gen_new_graphs()
+        st["pools_s"] = time.perf_counter() - t0
+        with device_timer("warmup_s", sink=st):
+            for _ in range(cfg.warmup_games):
+                self.play_games(cfg.warmup_traj, 1.0)
+        self.take_snapshot()
+
+        best = float("inf")
+        t_window = time.perf_counter()
+        # per-window device-fenced timing and throughput counters
+        # (reference observability: wall-clock prints :497,510-523)
+        prof: dict = {}
+        fit_meter = ThroughputMeter("fit-iters")
+        try:
+            for it in range(start_iter, cfg.max_iteration):
+                self.iteration = it
+                if it and it % cfg.save_frequency == 0:
+                    self.gen_new_graphs()
+                eps = cfg.eps_end + max(
+                    0.0, (cfg.eps_start - cfg.eps_end) * (cfg.eps_step - it) / cfg.eps_step)
+                if it % 10 == 0:
+                    with device_timer("play", sink=prof), device_timer("play_s", sink=st):
+                        self.play_games(10, eps)
+                if it % cfg.save_frequency == 0:
+                    t0 = time.time()
+                    frac = self.validate()
+                    st["valid_s"].append(time.time() - t0)
+                    st["vcs"].append(frac)
+                    if frac < best:
+                        best = frac
+                        self.save(os.path.join(save_dir, "best_model.ckpt"))
+                    vc_out.write(f"{frac:.16f}\n")
+                    vc_out.flush()
+                    fit_meter.add(cfg.save_frequency if it else 0, prof.pop("fit", 0.0))
+                    log(
+                        f"iter {it}, eps {eps:.4f}, mean vc {frac:.6f} "
+                        f"(valid {time.time()-t0:.1f}s, window "
+                        f"{time.perf_counter()-t_window:.1f}s, "
+                        f"play {prof.pop('play', 0.0):.1f}s, "
+                        f"fit {fit_meter.rate:.1f} it/s)"
+                    )
+                    t_window = time.perf_counter()
+                    self.save(os.path.join(save_dir, "latest.ckpt"))
+                    self.save(os.path.join(
+                        save_dir, f"nrange_{cfg.num_min}_{cfg.num_max}_iter_{it}.ckpt"))
+                if it % cfg.update_time == 0:
+                    self.take_snapshot()
+                with device_timer("fit", sink=prof), device_timer("fit_s", sink=st):
+                    self.fit()
+                st["fit_iters"] += 1
+        finally:
+            # the last fit's deferred priority update
+            self._flush_priorities()
+            self.iteration = cfg.max_iteration
+            self.save(os.path.join(save_dir, "latest.ckpt"))
+            vc_out.close()
+        return save_dir
+
+
+def find_model(save_dir: str, num_min: int = 30, num_max: int = 50,
+               save_frequency: int = 1000, burn_in: int = 33) -> str:
+    """The checkpoint at the argmin of the validation-cost curve after a
+    burn-in (reference findModel :551-560; its 500-iteration spacing is
+    save_frequency here).  Falls back to burn_in=0 for short runs."""
+    vc_file = os.path.join(save_dir, f"ModelVC_{num_min}_{num_max}.csv")
+    vc = [float(line) for line in open(vc_file)]
+    if len(vc) <= burn_in:
+        burn_in = 0
+    best_row = burn_in + int(np.argmin(np.asarray(vc[burn_in:])))
+    it = best_row * save_frequency
+    return os.path.join(save_dir, f"nrange_{num_min}_{num_max}_iter_{it}.ckpt")

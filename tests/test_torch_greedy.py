@@ -217,12 +217,119 @@ def _full_run(models, edges, n, engine):
     return dict(audc=score, removed=len(sol))
 
 
+class _JaxShadow:
+    """The shadow of the port's batched rollout (dismantle_greedy_banded's
+    `shadow`): at each model call the JAX forward on its own band, severed
+    as the env reports, until the first call whose valid top-k prefix
+    differs from the batch the port takes; `parting` then holds the first
+    differing position's two candidates and their Q in both engines and in
+    the port's f64 forward (on a port band of its own)."""
+
+    def __init__(self, models, n, edges, step):
+        self.params, self.net = models
+        self.jb = jax_build(n, *edges)[0]
+        self.tb = build_banded_duplex(n, *edges, device="cpu")[0]
+        self.step, self.seen, self.removed, self.calls = step, None, 0, 0
+        self.parting = None
+        self.fwd = jax.jit(lambda p, b, c: jax_forward(p, b, c, precise=True))
+
+    def sever(self, layer, ns):
+        k = 8
+        while k < len(ns):
+            k *= 2
+        s, d, v = np.zeros(k, np.int32), np.zeros(k, np.int32), np.zeros(k, bool)
+        s[: len(ns)], d[: len(ns)], v[: len(ns)] = ns[:, 0], ns[:, 1], True
+        self.jb = jax_apply_severs(self.jb, layer, jnp.asarray(s), jnp.asarray(d),
+                                   jnp.asarray(v))
+        e = torch.from_numpy(np.asarray(ns, np.int64))
+        apply_severs(self.tb, layer, e[:, 0], e[:, 1], torch.ones(len(ns), dtype=torch.bool))
+
+    def __call__(self, env, q, covered, acts):
+        import jax.lax as lax
+
+        if self.parting is not None:
+            return
+        if self.seen is None:
+            self.seen = [np.zeros_like(m) for m in env.sever]
+        for layer in range(2):
+            ns = env.edges[layer][env.sever[layer] & ~self.seen[layer]]
+            if len(ns):
+                self.sever(layer, ns)
+            self.seen[layer] = env.sever[layer].copy()
+        covered = covered.numpy()
+        qj = np.asarray(self.fwd(self.params, self.jb, jnp.asarray(covered)))
+        vj, oj = (np.asarray(x) for x in lax.top_k(jnp.asarray(qj), self.step))
+        ok = np.isfinite(vj) & ~env.covered[oj]
+        aj = oj[: int(np.argmin(ok)) if not ok.all() else len(ok)]
+        if not np.array_equal(aj, acts):
+            i = next((i for i, (x, y) in enumerate(zip(aj, acts)) if x != y),
+                     min(len(aj), len(acts)))
+            a, b = int(aj[min(i, len(aj) - 1)]), int(acts[min(i, len(acts) - 1)])
+            q64 = banded_test_forward(copy.deepcopy(self.net).double(), self.tb,
+                                      torch.from_numpy(covered), fuse_sage=False).numpy()
+            qt = q.numpy()
+            scale = float(np.abs(qj[np.isfinite(qj)]).max())
+            self.parting = dict(
+                call=self.calls, removal=self.removed + i, jax_takes=a, port_takes=b,
+                q_jax=[float(qj[a]), float(qj[b])], q_port=[float(qt[a]), float(qt[b])],
+                q_port_f64=[float(q64[a]), float(q64[b])],
+                gap_jax=float(qj[a] - qj[b]), gap_port=float(qt[b] - qt[a]),
+                max_abs_q=scale,
+                gap_share_jax=float(qj[a] - qj[b]) / scale,
+                gap_share_port=float(qt[b] - qt[a]) / scale,
+                tie=bool(qj[a] >= qj[b] and qt[b] >= qt[a]
+                         and qj[a] - qj[b] <= TIE * scale and qt[b] - qt[a] <= TIE * scale))
+        self.removed += len(acts)
+        self.calls += 1
+
+
+def main_path_runs(models, n, seed, step_ratio, out_dir):
+    """The configuration of chip_smoke.py's main path on the CPU: the
+    shuffled large_graph_demo graph through each package's evaluate_real
+    (StepRatio batches, one cascade a batch, the port's native host engine,
+    fused K2 only on a spill-free build), and the two runs' first parting
+    (the port's run holds its own trajectory to the JAX forward through
+    _JaxShadow)."""
+    import os
+    import time
+
+    from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
+
+    e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(seed))
+    name = f"synthetic_{n}_multiplex.edges"
+    os.makedirs(out_dir, exist_ok=True)
+    write_edges(os.path.join(out_dir, name), e0, e1)
+    kw = dict(n_nodes=n, layers=(1, 2), step_ratio=step_ratio, blocked_threshold=0,
+              batch_env=True)
+    res = {}
+    t0 = time.perf_counter()
+    jsol, _, jscore = jax_evaluate_real(models[0], out_dir, name,
+                                        os.path.join(out_dir, "jax"), precise=True, **kw)
+    res["jax"] = dict(audc=jscore, removed=len(jsol), wall_s=time.perf_counter() - t0)
+    raw = read_multiplex_edges(os.path.join(out_dir, name), n)
+    shadow = _JaxShadow(models, n, (raw[1], raw[2]), max(int(step_ratio * n), 1))
+    stats = {}
+    t0 = time.perf_counter()
+    tsol, _, tscore = evaluate_real(models[1], out_dir, name, os.path.join(out_dir, "port"),
+                                    device="cpu", engine="native", stats=stats,
+                                    shadow=shadow, **kw)
+    res["port"] = dict(audc=tscore, removed=len(tsol), wall_s=time.perf_counter() - t0,
+                       shadow_s=stats["shadow_s"])
+    res["identical_removals"] = jsol == tsol
+    res["parting"] = shadow.parting
+    return res
+
+
 def main(argv=None):
     """Find where the two engines' StepRatio-0 dismantlings of one
     large_graph_demo graph first differ, and show both candidates' Q in
     both engines (f32) and in the port's f64 forward:
 
         PYTHONPATH=. python tests/test_torch_greedy.py --n 18222 --removals 400
+
+    With --main-path: chip_smoke.py's main-path configuration (StepRatio
+    0.001, one cascade a batch) through both packages on the CPU, their
+    AUDCs and removal counts and their first parting (main_path_runs).
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=18222)
@@ -232,12 +339,20 @@ def main(argv=None):
                     help="instead: run one engine to terminal and print its "
                          "AUDC; port-f32-sums sums graph-wide features in "
                          "f32, in row order, as the JAX engine does")
+    ap.add_argument("--main-path", metavar="OUT_DIR",
+                    help="instead: the main-path configuration's runs, files in OUT_DIR")
+    ap.add_argument("--step-ratio", type=float, default=0.001)
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     agent = DQNAgent(Config(variant="unit_cost"), seed=0)
     agent.load(CKPT)
     models = (agent.params, load_model(CKPT, device="cpu"))
+    if args.main_path:
+        print(json.dumps(dict(n=args.n, seed=args.seed, step_ratio=args.step_ratio,
+                              **main_path_runs(models, args.n, args.seed,
+                                               args.step_ratio, args.main_path))))
+        return
     edges = synth_duplex_edges(args.n, 6, np.random.default_rng(args.seed))
     n = args.n
     e0, e1 = edges

@@ -31,7 +31,8 @@ def test_import_leaves_jax_out():
               "env.batch", "rl.dqn", "eval.synthetic", "parallel.mesh",
               "parallel.band_partition", "ops.probe_kernels", "graphs.synth",
               "utils.timing", "probe_f32_epi", "bench_nibble", "tune_band",
-              "probe_hbm_roof"):
+              "probe_hbm_roof", "rl.replay", "rl.replay_prioritized",
+              "utils.profiling", "cli"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -143,3 +144,21 @@ def test_small_graph_entry_points_need_cuda_unless_cpu_asked(monkeypatch, tmp_pa
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert build_duplex(4, e, e, 8, 128, device="cpu").device.type == "cpu"
+
+
+def test_trainer_entry_points_need_cuda_unless_cpu_asked(monkeypatch, tmp_path):
+    """The DQN agent and `cli train` resolve their device as the other entry
+    points do: CUDA unless the caller passes device="cpu" or --cpu."""
+    import dataclasses
+
+    from mdcommunity_tpu_torch.cli import main
+    from mdcommunity_tpu_torch.rl.dqn import DQNAgent
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(Config().smoke, max_iteration=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DQNAgent(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["train", "--smoke", "--save-dir", str(tmp_path / "x")])
+    assert DQNAgent(cfg, device="cpu").device.type == "cpu"

@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which raises (and so exits non-zero) on any failure:
   1. build the band kernels (nvcc, sm_90a) and the native host engine (g++)
-     from the checkout's sources, in parallel;
+     from the checkout's sources, in parallel, while the host makes the
+     variants' structures (phase 12's Louvain);
   2. check kernels K1 (band_spmm, D=64 and D=2) and K2 (band_sage) against
      their plain PyTorch versions on the card, on seeded banded graphs of
      2^16 nodes with live mirror lanes (and, for K2, no spill), and K1's
@@ -83,7 +84,22 @@ Phases, each of which raises (and so exits non-zero) on any failure:
  11. the small-graph DQN trainer at Config()'s full width: DQNAgent.train
      for DQN_ITERS iterations (warm-up, play, validation, fit rate, VCs,
      peak memory), a resume from latest.ckpt, and one train_step on the
-     card against the CPU's.
+     card against the CPU's;
+ 12. the variants (variant_phase): degree cost, CE and HCA, each with its
+     committed *_100k_r5 checkpoint, dismantling the main path's graph
+     through evaluate_real(variant=...) (the CE prior and the HCA
+     communities by the port's Louvain; HCA's pooling and community pass on
+     K1), each first forward on the card held to the CPU's, precise and
+     fast (at the fast rows' tolerances, CE's less the shift common to all
+     its nodes; HCA relaunched for the same bits), the first VARIANT_LOCKSTEP
+     model calls of each run held to the CPU forward (Lockstep), counts set
+     to 0 just before and read just after each run; K1 at the community
+     pass's widths (D = 128, 256 and a 512-wide pass in two launches, in
+     both precise modes; bit-equal on one-hot operands, relaunched for the
+     same bits) and timed at c_pad beside its bound, plain version and
+     torch.bmm; and each variant's synthetic rows (sizes 32, 64, 128) and
+     32-graph validation VC on the card against the CPU (identical rows,
+     VCs within 1e-4).
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -96,6 +112,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import sys
 import threading
 import time
@@ -128,7 +145,7 @@ LOCKSTEP_CALLS = 100     # main-path model calls held to the CPU's trajectory
 # than for the whole graph's (sharded_forward_phase logs the dense layer's
 # difference), and those last-bit differences pass through three rounds
 SHARD_Q_TOL = 1e-5
-BLOCKED_STEPS = 720      # removals of the blocked path's run (step 18): about a minute
+BLOCKED_STEPS = 180      # removals of the blocked path's run (step 18): 10 model calls
 GOLDEN_VC = 0.1194451824  # tests/test_golden_models.py, unit cost, 32 graphs
 GOLDEN_SYN = os.path.join(HERE, "results_tpu", "golden_synthetic", "golden.json")
 
@@ -1475,7 +1492,7 @@ def bf16_fit_phase(device, banded, edges, k, gp=GP, iters=5):
 
 # ---------------------------------------------------------------- the DQN trainer
 
-DQN_ITERS = 1001   # validations at iterations 0 and 1,000 (save_frequency)
+DQN_ITERS = 201    # validations at iterations 0 and 200 (save_frequency DQN_ITERS - 1)
 DQN_MORE = 5       # the resumed run's iterations
 LEAF_FLOOR = 1e-6  # about f32 rounding of the largest gradient leaf: a leaf under it is held against it
 
@@ -1505,7 +1522,7 @@ def dqn_phase(device, cfg=None, iters=DQN_ITERS, more=DQN_MORE):
     from mdcommunity_tpu_torch.utils.config import Config
     from mdcommunity_tpu_torch.utils.device import matmul_precision
 
-    cfg = dataclasses.replace(cfg or Config(), max_iteration=iters)
+    cfg = dataclasses.replace(cfg or Config(save_frequency=iters - 1), max_iteration=iters)
     save_dir = os.path.join(OUT, "dqn")
     shutil.rmtree(save_dir, ignore_errors=True)
     on_card = device != "cpu"
@@ -2007,6 +2024,20 @@ def blocked_gradient_phase(bd, net):
 # ---------------------------------------------------------------- main path
 
 
+def main_graph_file(n):
+    """Write the graph of `large_graph_demo --sizes n` (the generator's first
+    draw) as OUT/synthetic_<n>_multiplex.edges; returns its name."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges, write_edges
+
+    e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0))
+    os.makedirs(OUT, exist_ok=True)
+    name = f"synthetic_{n}_multiplex.edges"
+    write_edges(os.path.join(OUT, name), e0, e1)
+    return name
+
+
 def main_path(device, n, step_ratio):
     import numpy as np
     import torch
@@ -2102,23 +2133,28 @@ def main_path(device, n, step_ratio):
 class Lockstep:
     """The main path's own rollout held to the port's CPU forward (the
     plain versions): the shadow of dismantle_greedy_banded.  At each of the
-    first `calls` model calls it runs the CPU forward on its own band
-    (built from the same edge file, severed as the env reports) and
-    compares its valid top-`step` prefix with the batch the card's call takes,
-    until the first call where they differ.  A parting must be a near-tie
-    (blocked_phase's rule: each side ranks its own pick first, within TIE
-    of max|Q|), else this raises; it is logged with its removal index and
+    first `calls` model calls it runs the CPU forward of `variant` on its
+    own band (built from the same edge file with the variant's structure
+    `extra`, severed as the env reports) and compares its valid top-`step`
+    prefix with the batch the card's call takes, until the first call where
+    they differ.  A parting must be a near-tie (near_tie: each side ranks
+    its own pick first, within TIE of the scale eval/metrics.tie_scale
+    reads, max|Q| over the Q above -1e8, which is every Q of the base
+    variants, or for two of HCA's unselected nodes at -1e9·w their own
+    magnitude), else this raises; it is logged with its removal index and
     gap."""
 
-    def __init__(self, net, path, n, step, calls=LOCKSTEP_CALLS):
+    def __init__(self, net, path, n, step, calls=LOCKSTEP_CALLS, variant="unit_cost",
+                 extra=None):
         import copy
 
-        from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
         from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
 
         raw = read_multiplex_edges(path, n)
-        self.band, _, _ = build_banded_duplex(n, raw[1], raw[2], device="cpu")
+        self.band, self.hd = variant_band(variant, n, raw[1], raw[2], extra or {}, "cpu")
         self.net = copy.deepcopy(net).to("cpu")
+        self.variant = variant
+        self.label = "main path" if variant == "unit_cost" else variant
         self.step, self.calls, self.left = step, 0, calls
         self.removed, self.seen, self.parting, self.t = 0, None, None, 0.0
 
@@ -2128,7 +2164,6 @@ class Lockstep:
 
         from mdcommunity_tpu_torch.eval.metrics import top_k_stable
         from mdcommunity_tpu_torch.graphs.banded import apply_severs
-        from mdcommunity_tpu_torch.models.net import banded_test_forward
 
         if self.left == 0:
             return
@@ -2142,8 +2177,7 @@ class Lockstep:
                 apply_severs(self.band, layer, e[:, 0], e[:, 1],
                              torch.ones(len(e), dtype=torch.bool))
             self.seen[layer] = env.sever[layer].copy()
-        qh = banded_test_forward(self.net, self.band, covered.cpu(),
-                                 fuse_sage=self.band.spill_free)
+        qh = variant_forward(self.variant, self.net, self.band, self.hd, covered.cpu())
         vals, order = top_k_stable(qh, self.step)
         ok = np.isfinite(vals) & ~env.covered[order]
         a_h = order[: int(np.argmin(ok)) if not ok.all() else len(ok)]
@@ -2156,29 +2190,29 @@ class Lockstep:
         self.t += time.perf_counter() - t0
 
     def report(self, a_c, a_h, qc, qh):
-        import numpy as np
+        from mdcommunity_tpu_torch.eval.metrics import tie_scale
 
         i = next((i for i, (x, y) in enumerate(zip(a_c, a_h)) if x != y),
                  min(len(a_c), len(a_h)))
         x, y = int(a_c[min(i, len(a_c) - 1)]), int(a_h[min(i, len(a_h) - 1)])
-        scale = float(np.abs(qh[np.isfinite(qh)]).max())
-        tie = TIE * scale
+        s_c, s_h = tie_scale(qc, x, y), tie_scale(qh, x, y)
+        scale = s_h or float("nan")
         self.parting = dict(
             call=self.calls - 1, removal=self.removed + i, card_takes=x, cpu_takes=y,
             q_card=[float(qc[x]), float(qc[y])], q_cpu=[float(qh[x]), float(qh[y])],
             gap_card=float(qc[x] - qc[y]), gap_cpu=float(qh[y] - qh[x]),
-            gap_card_share=float(qc[x] - qc[y]) / scale,
-            gap_cpu_share=float(qh[y] - qh[x]) / scale, tie=tie)
-        log("main path lockstep, card vs CPU: first parting " + json.dumps(self.parting))
-        if not (qc[x] >= qc[y] and qh[y] >= qh[x]
-                and qc[x] - qc[y] <= tie and qh[y] - qh[x] <= tie):
-            raise AssertionError("the card's main path parts from the CPU's at a "
+            gap_card_share=float(qc[x] - qc[y]) / (s_c or float("nan")),
+            gap_cpu_share=float(qh[y] - qh[x]) / scale, tie=TIE * scale,
+            scale_read="|Q| of the two (HCA unselected)" if qh[x] <= -1e8 else "max|Q| above -1e8")
+        log(f"{self.label} lockstep, card vs CPU: first parting " + json.dumps(self.parting))
+        if not near_tie(qc, qh, x, y):
+            raise AssertionError(f"the card's {self.label} parts from the CPU's at a "
                                  "decision that is not a near-tie")
 
     def summary(self):
         out = dict(calls=self.calls, removals=self.removed, parted=self.parting is not None,
                    wall_s=self.t)
-        log("main path lockstep, card vs CPU: " + json.dumps(out))
+        log(f"{self.label} lockstep, card vs CPU: " + json.dumps(out))
         return dict(out, parting=self.parting)
 
 
@@ -2708,10 +2742,10 @@ def time_slice6(device, banded, nib, nib_clean, label):
 
 def probe_phase(device, small=False):
     """The slice's path: the four probe entry points through their mains,
-    probe_f32_epi at 18,222 nodes and bench_nibble, tune_band --diag and
-    probe_hbm_roof at 2^20 (few repetitions), every launch count set to 0
-    just before and read just after.  small: the CPU rehearsal's sizes.
-    Returns the counts."""
+    probe_f32_epi at 18,222 nodes and bench_nibble (its check at 2^16
+    rows), tune_band --diag and probe_hbm_roof at 2^20 (few repetitions),
+    every launch count set to 0 just before and read just after.  small:
+    the CPU rehearsal's sizes.  Returns the counts."""
     from mdcommunity_tpu_torch import bench_nibble, probe_f32_epi, probe_hbm_roof, tune_band
 
     import torch
@@ -2721,7 +2755,8 @@ def probe_phase(device, small=False):
         quick += ["--device", "cpu"]
     runs = [
         (probe_f32_epi, ["--n", "2048"] if small else []),
-        (bench_nibble, ["--n-check", "4096", "--n", "4096"] if small else []),
+        (bench_nibble, ["--n-check", "4096", "--n", "4096"] if small else
+         ["--n-check", str(1 << 16)]),
         (tune_band, ["--diag"] + (["--n", "4096"] if small else [])),
         (probe_hbm_roof, ["--n", "4096"] if small else []),
     ]
@@ -2762,6 +2797,412 @@ SLICE6 += [("stream_sum", "scripts/probe_pallas_stream.py:20", "make_stream"),
 
 
 # ---------------------------------------------------------------- driver
+
+
+# ---------------------------------------------------------------- variants
+
+# the committed checkpoint of each variant beside unit cost
+VARIANT_CKPTS = (("degree_cost", "degree_100k_r5"), ("ce", "ce_100k_r5"),
+                 ("hca", "hca_100k_r5"))
+VARIANT_LOCKSTEP = 20    # model calls of each variant's run held to the CPU's forward
+COMM_D = (128, 256)      # K1's widths for the HCA community pass; 512 is chunked
+STRUCTURES = {}          # variant -> (structure, seconds): variant_structures
+
+
+def near_tie(qc, qh, x, y):
+    """Whether the card taking x and the CPU taking y (Q vectors qc, qh of
+    one state) is an f32 near-tie: each ranks its own pick first, by a gap
+    of at most TIE of the scale eval/metrics.tie_scale reads on its side."""
+    from mdcommunity_tpu_torch.eval.metrics import tie_scale
+
+    s_c, s_h = tie_scale(qc, x, y), tie_scale(qh, x, y)
+    if s_c is None or s_h is None:
+        return False
+    return bool(qc[x] >= qc[y] and qh[y] >= qh[x] and qc[x] - qc[y] <= TIE * s_c
+                and qh[y] - qh[x] <= TIE * s_h)
+
+
+def variant_structure_timed(variant, n):
+    """The variant's structure (graphs/io.variant_structure) of the main
+    path's graph and the host seconds it took (Louvain and features); CE's
+    prior goes through evaluate_real's cache, written here afresh (a cache
+    of an earlier run would skip the Louvain being timed)."""
+    from mdcommunity_tpu_torch.graphs.io import (
+        read_multiplex_edges,
+        real_cache_id,
+        variant_structure,
+    )
+
+    path = os.path.join(OUT, main_graph_file(n))
+    raw = read_multiplex_edges(path, n)
+    cache = os.path.join(OUT, f"results_{variant}", "real_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    extra = variant_structure(n, raw[1], raw[2], variant == "degree_cost",
+                              "boundary" if variant == "ce" else None,
+                              (cache, real_cache_id(path, (1, 2))), hca=variant == "hca")
+    return extra, time.perf_counter() - t0
+
+
+def variant_structures(n):
+    """Every variant's structure into STRUCTURES (main runs this on the host
+    while nvcc builds the kernels); a variant missing there is made by
+    variant_path itself."""
+    for variant, _ in VARIANT_CKPTS:
+        STRUCTURES[variant] = variant_structure_timed(variant, n)
+
+
+def variant_ckpt(variant):
+    return os.path.join(HERE, "models_tpu", dict(VARIANT_CKPTS)[variant], "best_model.ckpt")
+
+
+def variant_band(variant, n, e0, e1, extra, device):
+    """The variant's banded build of (e0, e1) on `device` with the
+    structure `extra` (graphs/io.variant_structure, original ids), and for
+    HCA its HcaBandData, as evaluate_real builds them."""
+    from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
+    from mdcommunity_tpu_torch.models.hca_banded import make_hca_band_data
+
+    banded, perm, _ = build_banded_duplex(n, e0, e1, max_rank=0, device=device,
+                                          weights=extra.get("weights"),
+                                          node_feat=extra.get("node_feat"))
+    hd = None
+    if variant == "hca":
+        hd = make_hca_band_data(extra["comm_id"], extra["n_comms"], extra["hca_feat"], perm,
+                                banded.pad_n, device=device)
+    return banded, hd
+
+
+def variant_forward(variant, net, banded, hd, covered, precise=True, tf32=None):
+    """The variant's banded Q forward as dismantle_greedy_banded runs it:
+    the fused step on a spill-free build (not HCA), the dense layers at the
+    mode's matmul precision (TF32 for the fast mode), or in f32 with
+    tf32=False."""
+    from mdcommunity_tpu_torch.models.hca_banded import banded_hca_forward
+    from mdcommunity_tpu_torch.models.net import banded_test_forward
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    with matmul_precision(not (tf32 if tf32 is not None else not precise)):
+        if variant == "hca":
+            return banded_hca_forward(net, banded, hd, covered, precise=precise)
+        return banded_test_forward(net, banded, covered, fuse_sage=banded.spill_free,
+                                   precise=precise, variant=variant)
+
+
+def hold_q(label, q, ref, tol, within=None, shift=False):
+    """A Q vector on the card against the CPU's: the same -inf, the same
+    nodes selected (above eval/metrics.SENTINEL: every node of the base
+    variants, HCA's selected ones), the selected nodes within tol of their
+    max|ref| (and, with within = (t, f), a share f of them within t), and
+    HCA's unselected nodes (-1e9·w) within tol relative.  The selected
+    nodes' errors are read twice: as they are, and less the common shift
+    (the median of q - ref over them), which moves every Q alike and so no
+    pick of the greedy dismantler; shift=True holds the second reading.
+    Returns the readings, in units of max|ref| over the selected nodes."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.eval.metrics import SENTINEL
+
+    q, ref = q.double().cpu().numpy(), ref.double().cpu().numpy()
+    fin = np.isfinite(ref)
+    if not np.array_equal(np.isfinite(q), fin) or not fin.any():
+        raise AssertionError(f"{label}: -inf masks differ")
+    sel, sel_q = fin & (ref > SENTINEL), fin & (q > SENTINEL)
+    low = fin & ~sel & ~sel_q
+    scale = float(np.abs(ref[sel]).max()) if sel.any() else 1.0
+    d = q[sel] - ref[sel] if sel.any() else np.zeros(1)
+    c = float(np.median(d))
+    out = dict(shift=c / scale)
+    for key, e in (("", np.abs(d) / scale), ("_less_shift", np.abs(d - c) / scale)):
+        out["err" + key] = float(e.max())
+        if within:
+            out["within" + key] = float(np.mean(e <= within[0]))
+    rel_low = float((np.abs(q[low] - ref[low]) / np.abs(ref[low])).max()) if low.any() else 0.0
+    agree = bool(np.array_equal(sel, sel_q))
+    log(f"{label}: of max|Q| {scale:.3e}: max err {out['err']:.3e}"
+        + (f", {out['within']:.4f} of the nodes within {within[0]:.0e}" if within else "")
+        + f"; less the common shift {out['shift']:.3e}: max err {out['err_less_shift']:.3e}"
+        + (f", {out['within_less_shift']:.4f} within" if within else "")
+        + f"; selection the same on all {int(fin.sum())} live nodes {agree}, "
+        f"unselected rel err {rel_low:.3e}")
+    key = "_less_shift" if shift else ""
+    if (not agree or out["err" + key] > tol or rel_low > tol
+            or (within and out["within" + key] < within[1])):
+        raise AssertionError(f"{label}: the card's forward disagrees with the CPU's")
+    return out
+
+
+def variant_path(device, variant, n, step_ratio, lockstep=VARIANT_LOCKSTEP):
+    """One variant's large-graph dismantling on the main path's graph: its
+    first forward on the card against the CPU's, precise and fast (HCA:
+    relaunched, bit-equal), then evaluate_real(variant=...) with the counts
+    set to 0 just before and read just after, its first `lockstep` model
+    calls held to the CPU forward (Lockstep).  Returns (counts, result,
+    the variant's structure: graphs/io.variant_structure)."""
+    import torch
+
+    from mdcommunity_tpu_torch.eval.real import evaluate_real
+    from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+
+    name = main_graph_file(n)
+    path = os.path.join(OUT, name)
+    raw = read_multiplex_edges(path, n)
+    out = os.path.join(OUT, f"results_{variant}")
+    extra, prior_s = STRUCTURES.pop(variant, None) or variant_structure_timed(variant, n)
+    net = load_model(variant_ckpt(variant), device=device)
+    # (precise, TF32 dense layers): the precise forward; the fast one as it
+    # runs; the fast one with f32 dense layers, where only the order of the
+    # f32 sums separates the card's bf16 kernels from their plain versions
+    modes = ((True, False), (False, True), (False, False))
+    qs, c_pad = {}, None
+    for dev in (device, "cpu"):
+        band, hd = variant_band(variant, n, raw[1], raw[2], extra, dev)
+        net = net.to(dev)
+        qs[dev] = [variant_forward(variant, net, band, hd, ~band.node_mask, p, t).cpu()
+                   for p, t in modes]
+        if dev == device and hd is not None:
+            c_pad = hd.c_pad
+            again = variant_forward(variant, net, band, hd, ~band.node_mask).cpu()
+            if not torch.equal(again, qs[dev][0]):
+                raise AssertionError("HCA forward relaunched: not bit-equal")
+        del band, hd
+    net = net.to(device)
+    hold_q(f"{variant} first forward vs CPU", qs[device][0], qs["cpu"][0], 1e-4)
+    # The fast forward at the fast rows' tolerances (fast_forward_phase).
+    # CE is held less the shift common to its nodes: the Q head scales each
+    # node's hidden term by the graph-level y_f . cross_product, which
+    # cancels more in CE's model than in the others, so TF32's rounding of
+    # y_f moves it by a few 1e-3 relative and every node's Q by nearly the
+    # same amount, about 1e-2 of CE's max|Q|; a common shift changes no pick
+    shift = variant == "ce"
+    fast = dict(
+        tf32=hold_q(f"{variant} fast first forward vs CPU, TF32 dense layers",
+                    qs[device][1], qs["cpu"][1], FAST_Q_TOL, shift=shift),
+        f32=hold_q(f"{variant} fast first forward vs CPU, f32 dense layers", qs[device][2],
+                   qs["cpu"][2], FLIP_Q_TOL, (F32_Q_TOL, F32_Q_SHARE), shift=shift))
+
+    step = max(int(step_ratio * n), 1)
+    shadow = Lockstep(net, path, n, step, lockstep, variant, extra)
+    stats = {}
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    sol, solve_s, score = evaluate_real(
+        net, OUT, name, out, n_nodes=n, layers=(1, 2), step_ratio=step_ratio,
+        batch_env=True, blocked_threshold=0, device=device, engine="native",
+        stats=stats, shadow=shadow, variant=variant)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    counts = dict(bk.launches)
+    lock = shadow.summary()
+    mean_fwd = 1e3 * stats["model_call_s"] / max(stats["model_calls"], 1)
+    k12 = {k: v for k, v in counts.items() if v and k.startswith(("band_spmm", "band_sage"))}
+    result = dict(variant=variant, n=n, step_ratio=step_ratio, audc=score, removed=len(sol),
+                  solve_s=solve_s, wall_s=time.perf_counter() - t0,
+                  model_calls=stats["model_calls"], mean_model_call_ms=mean_fwd,
+                  prior_s=prior_s, prior_s_in_run=stats["prior_s"], c_pad=c_pad,
+                  fuse_sage=stats["fuse_sage"], host_env=stats["host_env"],
+                  lockstep_s=stats["shadow_s"], launches=k12, fast_first_forward=fast,
+                  first_parting=lock["parting"])
+    log(f"variant {variant}: " + json.dumps(result))
+    if stats["host_env"] != "native":
+        raise AssertionError("the variant paths must run the native host engine")
+    if not (0.0 < score < 1.0) or not sol or len(set(sol)) != len(sol):
+        raise AssertionError(f"{variant}: result out of range")
+    if not all(0 <= v < n for v in sol):
+        raise AssertionError(f"{variant}: solution ids out of range")
+    tag = os.path.join(out, f"StepRatio_{step_ratio:.4f}")
+    files = ["Soluion", "NormalizedLMCC"] + (["Cost"] if variant == "degree_cost" else [])
+    for f in files:
+        if not os.path.isfile(os.path.join(tag, f"{f}_synthetic_{n}_multiplex_12.txt")):
+            raise AssertionError(f"{variant}: no {f} file")
+    need = ("band_spmm", "band_spmm_comm") if variant == "hca" else ("band_spmm", "band_sage")
+    if device != "cpu":
+        for k in need:
+            if counts[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the {variant} path")
+        if variant == "hca" and counts["band_sage"]:
+            raise AssertionError("the HCA forward runs K1 only")
+    return counts, result, extra
+
+
+def variant_small_phase(device, sizes=(32, 64, 128), n_graphs=5, n_valid=32):
+    """Each variant's small-graph paths on the card against the CPU: the
+    synthetic evaluation at `sizes` (n_graphs GMM graphs each, with the
+    variant's structure) through evaluate_synthetic_generated, whose rows
+    must be identical, and the validation VC of the committed checkpoint on
+    the n_valid-graph pool, card within 1e-4 of the CPU.  Every variant runs
+    before a failure raises.  Returns the VCs by variant."""
+    import dataclasses
+
+    from mdcommunity_tpu_torch.eval.synthetic import evaluate_synthetic_generated
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.rl.dqn import make_valid_pool, validate
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    out, bad = {}, []
+    for variant, _ in VARIANT_CKPTS:
+        nets = [load_model(variant_ckpt(variant), device=d) for d in (device, "cpu")]
+        t0 = time.perf_counter()
+        rows = [evaluate_synthetic_generated(net, list(sizes), n_graphs=n_graphs,
+                                             variant=variant, seed=0, device=d)
+                for net, d in zip(nets, (device, "cpu"))]
+        keys = ("score_mean", "score_std", "cost_mean")
+        same = all(a[k] == b[k] for a, b in zip(*rows) for k in keys)
+        for a, b in zip(*rows):
+            log(f"{variant} synthetic row: " + json.dumps(dict(
+                size=a["size"], score_mean=a["score_mean"], cpu_score_mean=b["score_mean"],
+                score_std=a["score_std"], cpu_score_std=b["score_std"],
+                cost_mean=a["cost_mean"], cpu_cost_mean=b["cost_mean"],
+                time_mean_s=a["time_mean"])))
+        log(f"{variant} synthetic rows: card = CPU {same}, {time.perf_counter() - t0:.2f} s")
+        if not same:
+            bad.append(f"{variant}: the synthetic rows on the card differ from the CPU's")
+
+        cfg = dataclasses.replace(Config(variant=variant), n_valid=n_valid)
+        vcs = [validate(net, make_valid_pool(cfg, device=d), variant)
+               for net, d in zip(nets, (device, "cpu"))]
+        out[variant] = dict(card=vcs[0], cpu=vcs[1])
+        log(f"{variant} validation VC ({n_valid} graphs): " + json.dumps(out[variant]))
+        if abs(vcs[0] - vcs[1]) > 1e-4:
+            bad.append(f"{variant}: validation VC on the card is off the CPU's")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def comm_operands(dbg, n_comms, seed, device):
+    """A one-hot membership [pad_n, n_comms] (a seeded community a node,
+    padding rows 0) and live scales, the community pass's operands."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    cid = torch.randint(0, n_comms, (dbg.pad_n,), generator=g)
+    onehot = torch.nn.functional.one_hot(cid, n_comms).float()
+    live = (torch.rand(dbg.pad_n, generator=g) > 0.1).float()
+    live[dbg.n:] = 0
+    return onehot.to(device).contiguous(), live.to(device), cid
+
+
+def check_comm_widths(device, banded, cpu_banded):
+    """K1 at the community pass's widths on the main graph's 18,432 rows, in
+    both precise modes: random operands at D = 128 and 256 against the
+    plain version (REL_TOL), one-hot operands (integer sums) bit-equal to
+    it, every launch twice for the same bits; and the whole community pass
+    at c_pad = 512 (two K1 launches of 256 columns, community sums in a
+    fixed order) on the card bit-equal to the CPU's plain pass (on
+    cpu_banded, the same build on the CPU) and to a relaunch.  Returns the
+    worst error by counter."""
+    import torch
+
+    from mdcommunity_tpu_torch.models.hca_banded import HcaBandData, community_graph
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+
+    dbg, errs = banded.dbg0, {}
+    for precise in (True, False):
+        counter = "band_spmm_comm" if precise else "band_spmm_comm_bf16"
+        for D in COMM_D:
+            h, live = operands(dbg, D, 20 + D, device)
+            oh, live_c, _ = comm_operands(dbg, D, 30 + D, device)
+            for label, x, s in (("random", h, live), ("one-hot", oh, live_c)):
+                sub = mirror_sub(dbg, s, x, precise)
+                got = bk.spmm_band(dbg, s, s, x, sub, counter, precise)
+                again = bk.spmm_band(dbg, s, s, x, sub, counter, precise)
+                ref = bk.spmm_band_plain(dbg, s, s, x, sub, precise)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K1 D={D} relaunched: not bit-equal")
+                err = compare(f"K1 D={D} {label} precise={precise}", got, ref)
+                if label == "one-hot" and err:
+                    raise AssertionError(f"K1 D={D} on a one-hot operand is not exact")
+                errs[counter] = max(errs.get(counter, 0.0), err)
+        # the chunked pass at c_pad = 512, card against the CPU's plain pass
+        _, live, cid = comm_operands(dbg, 500, 40, "cpu")
+        order = torch.argsort(cid, stable=True)
+        lengths = torch.bincount(cid, minlength=512)
+
+        def data(dev):
+            return HcaBandData(comm_id=torch.stack([cid, cid]).to(dev), n_comms=(500, 500),
+                               hca_feat=torch.zeros(dbg.pad_n, 3, device=dev), c_pad=512,
+                               order=torch.stack([order, order]).to(dev),
+                               lengths=torch.stack([lengths, lengths]).to(dev))
+
+        ref = community_graph(cpu_banded, data("cpu"), 0, live, precise)
+        got = community_graph(banded, data(device), 0, live.to(device), precise)
+        again = community_graph(banded, data(device), 0, live.to(device), precise)
+        if not (torch.equal(got.cpu(), ref) and torch.equal(got, again)):
+            raise AssertionError(f"community pass at c_pad=512 (precise={precise}): "
+                                 "not bit-equal to the plain pass or to a relaunch")
+        log(f"check community pass c_pad=512 precise={precise}: bit-equal to the CPU's "
+            f"plain pass and to a relaunch ({int(ref.sum().item())} live directed edges)")
+    return errs
+
+
+def time_comm(device, banded, hd, label):
+    """K1 at the community pass's width c_pad on the HCA path's operands
+    (layer 0's one-hot membership, every node live), beside its plain
+    version, its bound and torch.bmm of the widened band against the
+    materialised windows (the same product without the mirror lanes)."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.band_kernels import _windows
+    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+
+    dbg = banded.dbg0
+    live = banded.node_mask.float()
+    ids = torch.arange(hd.c_pad, device=live.device)
+    x = (hd.comm_id[0][:, None] == ids[None, :]).float().contiguous()
+    sub = mirror_sub(dbg, live, x)
+    kern = lambda: bk.spmm_band(dbg, live, live, x, sub, "band_spmm_comm")  # noqa: E731
+    plain = lambda: bk.spmm_band_plain(dbg, live, live, x, sub)  # noqa: E731
+    err = compare(f"{label} K1 D={hd.c_pad} community pass", kern(), plain())
+    base_f = widened(dbg, torch.float32)
+    win = _windows(x * live[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
+    lib_ms = time_ms(lambda: torch.bmm(base_f, win))
+    lib_dev = device_time_ms(lambda: torch.bmm(base_f, win))
+    del base_f, win
+    bound_ms, bound_by = bounds(dbg, hd.c_pad, False)
+    res = dict(ms=time_ms(kern), device_ms=device_time_ms(kern), plain_ms=time_ms(plain),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+               library_device_ms=lib_dev, max_abs_err=err, D=hd.c_pad)
+    log(f"time {label} band_spmm_comm: pad_n={dbg.pad_n} C={dbg.C} " + json.dumps(res))
+    return res
+
+
+def variant_phase(device, n=18222, step_ratio=0.001, lockstep=VARIANT_LOCKSTEP,
+                  small=None):
+    """Slice D1's phase: the three variants' large-graph dismantlings
+    (variant_path), K1 at the community pass's widths (check_comm_widths)
+    and timed at c_pad on the HCA path's structure (time_comm), and the
+    small-graph paths (variant_small_phase; `small` its keyword arguments).
+    Returns (counts by variant, results by variant, the community row's
+    numbers)."""
+    from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
+
+    counts, results, extras = {}, {}, {}
+    for variant, _ in VARIANT_CKPTS:
+        t0 = time.perf_counter()
+        counts[variant], results[variant], extras[variant] = variant_path(
+            device, variant, n, step_ratio, lockstep)
+        log(f"variant phase: the {variant} path took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    extra = extras["hca"]
+    raw = read_multiplex_edges(os.path.join(OUT, main_graph_file(n)), n)
+    band, hd = variant_band("hca", n, raw[1], raw[2], extra, device)
+    cpu_band = variant_band("hca", n, raw[1], raw[2], extra, "cpu")[0]
+    comm = time_comm(device, band, hd, f"{band.pad_n:,} rows")
+    comm["max_abs_err"] = max(comm["max_abs_err"],
+                              *check_comm_widths(device, band, cpu_band).values())
+    del band, hd, cpu_band
+    log(f"variant phase: the community pass's K1 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    variant_small_phase(device, **(small or {}))
+    log(f"variant phase: the small graphs took {time.perf_counter() - t0:.1f} s")
+    log("variant paths: " + json.dumps({v: dict(audc=r["audc"], removed=r["removed"])
+                                        for v, r in results.items()}))
+    return counts, results, comm
 
 
 def main(argv=None):
@@ -2823,14 +3264,26 @@ def main(argv=None):
 
         dqn_phase("cpu", dataclasses.replace(Config().smoke, save_frequency=5,
                                              update_time=5), iters=11, more=2)
+        variant_phase("cpu", 2048, 0.01, lockstep=5,
+                      small=dict(sizes=(32, 48), n_graphs=2, n_valid=8))
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: chip_smoke.py needs one GPU")
     device = "cuda"
+    t_start = time.perf_counter()
+
+    def lap(phase):
+        log(f"phase {phase}: done {time.perf_counter() - t_start:.1f} s after the start")
+
     log(gpu_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    # the variants' Louvain runs on the host while nvcc builds the kernels
+    structures = threading.Thread(target=variant_structures, args=(18222,))
+    structures.start()
     build_all()
+    structures.join()
+    lap("build")
     errs = check_kernels(device, 1 << 16)
     errs.update(check_bf16_kernels(device, 1 << 16))
     for more in (check_edges(device), check_split(device)):
@@ -2842,6 +3295,7 @@ def main(argv=None):
         "least share of rows held): "
         + json.dumps({k: [float(f"{x:.3e}") for x in v] for k, v in F64.items()}))
 
+    lap("kernel checks")
     main_graph = synth_banded(18222, True, 0, device)
     errs["band_spmm_bf16_bwd"] = check_bf16_backward(device, main_graph, "18,432 rows")
     times = time_kernels(device, main_graph, "18,432 rows")
@@ -2852,6 +3306,7 @@ def main(argv=None):
     times.update(time_slice6(device, main_graph, synth_banded(18222, True, 0, device, nibble=True),
                              synth_banded(18222, False, 0, device, nibble=True), "18,432 rows"))
     del main_graph, clean18
+    lap("18,432-row timings")
     big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
                                   with_edges=True)
     time_kernels(device, big, "2^20 rows")
@@ -2860,23 +3315,28 @@ def main(argv=None):
     time_slice6(device, big, big_nib, big_nib, "2^20 rows")
     del big_nib
     torch.cuda.empty_cache()
+    lap("2^20-row timings")
     blocked_errs, blocked_times = blocked_kernel_phases(device)
+    lap("blocked kernels")
 
     counts, result = main_path(device, 18222, 0.001)
     for k in ("band_spmm", "band_sage"):
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     log(f"main path AUDC {result['audc']:.6f} after {result['removed']} removals")
+    lap("main path")
     fast_counts = fast_main_path(device, 18222, 0.001, result)[0]
     fwd_counts = fast_forward_phase(device, 18222)
     fast_counts = {k: fast_counts[k] + fwd_counts[k] for k in fast_counts}
     for name, _, _ in BF16_MODES:
         if fast_counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the fast path")
+    lap("fast paths")
 
     fit_err = check_fit(device, 18222)
     train_counts = trainer_phase(device, big, big_edges, 1048)
     fit_memory(device, big, 1048)
+    lap("trainer")
     time_halo_kernels(device, big, "2^20 rows")
     halo_counts = sharded_forward_phase(device, big)
     shard_train_counts = sharded_trainer_phase(device, big, big_edges, 1048)
@@ -2884,16 +3344,20 @@ def main(argv=None):
     for name in ("band_halo", "band_halo_bf16", "band_halo_bf16_act", "band_halo_bwd"):
         if halo_counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the sharded path")
-    bf16_fit_counts = bf16_fit_phase(device, big, big_edges, 1048, iters=10)
+    lap("sharded paths")
+    bf16_fit_counts = bf16_fit_phase(device, big, big_edges, 1048)
     del big
     torch.cuda.empty_cache()
+    lap("bf16 fit")
 
     probe_counts = probe_phase(device)
     for name, _, _ in SLICE6:
         if probe_counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the probes' path")
 
+    lap("probes")
     small_graph_phase(device)
+    lap("small-graph phase")
     bd, net, blocked_counts = blocked_phase(device, 18222, 18, BLOCKED_STEPS)
     grad_counts, grad_err = blocked_gradient_phase(bd, net)
     blocked_errs["sddmm_block"] = max(blocked_errs["sddmm_block"], grad_err)
@@ -2901,7 +3365,11 @@ def main(argv=None):
                     ("sddmm_block", grad_counts)):
         if c[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its path")
+    lap("blocked path")
     dqn = dqn_phase(device)
+    lap("dqn trainer")
+    variant_counts, variants, comm = variant_phase(device)
+    lap("variants")
 
     kernels = []
     for name, launched, replaces in (
@@ -2962,6 +3430,18 @@ def main(argv=None):
             name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/blocked.cu",
             replaces=f"mdcommunity_tpu/ops/pallas_spmm.py:{replaces}",
             launches=launched[name], **t))
+    kernels.append(dict(
+        name="band_spmm_comm", route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
+        replaces="mdcommunity_tpu/ops/band_pallas.py:259",
+        mode=f"K1 as the HCA community pass (models/hca_banded.py; JAX hca_banded.py:"
+             f"141-146, the XLA engine's band operator): the one-hot membership at "
+             f"D = c_pad = {comm['D']}",
+        launches=variant_counts["hca"]["band_spmm_comm"],
+        **{k: comm[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "library_device_ms")}))
+    for row in kernels:
+        if row["name"] in ("band_spmm", "band_sage"):
+            row["launches_variants"] = {v: c[row["name"]] for v, c in variant_counts.items()}
     log(f"fit gradient vs CPU f64: worst leaf error {fit_err:.3e} of its max |grad|")
     log("dqn trainer: " + json.dumps(dqn))
     log(gpu_line())

@@ -5,8 +5,8 @@ Usage:
   python -m mdcommunity_tpu_torch.cli train --variant unit_cost [--smoke] [--resume] \\
       [--save-dir DIR] [--seed S] [--max-iteration N] [--prioritized] [--gmm-g G]
   python -m mdcommunity_tpu_torch.cli test-real --model M --data DIR -o OUT \\
-      [--datasets ...] [--step-ratio R] [--batch-env] [--packed] [--fast]
-  python -m mdcommunity_tpu_torch.cli test-synthetic --model M [--sizes 32 64 ...]
+      [--variant V] [--datasets ...] [--step-ratio R] [--batch-env] [--packed] [--fast]
+  python -m mdcommunity_tpu_torch.cli test-synthetic --model M [--variant V] [--sizes 32 64 ...]
   python -m mdcommunity_tpu_torch.cli test-synthetic --model M --sizes 128 \\
       --sweep-param g --sweep-values 0.1 0.5 0.9
 
@@ -14,8 +14,10 @@ A model is a JAX-package checkpoint (`models_tpu/*/best_model.ckpt`) or a
 reference torch checkpoint.  Everything runs on the CUDA card unless --cpu
 is given, which runs the plain PyTorch versions on the CPU.  The JAX
 package's baseline, analyze, summarize-edges, check-features and draw
-subcommands are not ported yet; train takes the unit_cost and degree_cost
-variants (ce and hca raise until they are ported).
+subcommands are not ported yet.  test-real and test-synthetic run every
+variant (unit_cost, degree_cost, ce, hca; --variant names the model's);
+train takes unit_cost and degree_cost (ce and hca raise until their
+training is ported).
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ def cmd_test_real(args):
                 # spill; without it every round runs K1
                 fuse_sage=None if args.packed else False,
                 device=device, precise=not args.fast, stats=stats,
+                variant=args.variant,
             )
             calls = stats["model_calls"]
             print(f"{name}: audc={score:.6f} time={t:.2f}s removed={len(sol)} "
@@ -151,7 +154,9 @@ def main(argv=None):
     r.add_argument("-o", "--output", required=True)
     r.add_argument("--datasets", nargs="*", default=None)
     r.add_argument("--step-ratio", type=float, default=0.0)
-    r.add_argument("--variant", default="unit_cost", choices=["unit_cost"])
+    r.add_argument("--variant", default="unit_cost",
+                   choices=["unit_cost", "degree_cost", "ce", "hca"],
+                   help="the model's variant (its checkpoint's)")
     r.add_argument("--packed", action="store_true",
                    help="large-graph path: the fused SAGE step (kernel K2) "
                         "when the build has no spill")
@@ -172,7 +177,9 @@ def main(argv=None):
     s.add_argument("--sizes", type=int, nargs="*",
                    default=[32, 64, 128, 256, 512, 1024])
     s.add_argument("--n-graphs", type=int, default=20)
-    s.add_argument("--variant", default="unit_cost", choices=["unit_cost"])
+    s.add_argument("--variant", default="unit_cost",
+                   choices=["unit_cost", "degree_cost", "ce", "hca"],
+                   help="the model's variant (its checkpoint's)")
     s.add_argument("-o", "--output", default=None)
     s.add_argument("--sweep-param", default=None, choices=["g", "gamma", "k"],
                    help="sweep a generator parameter instead of sizes "

@@ -81,7 +81,10 @@ def removal_cost(g, a: torch.Tensor, degree_cost: bool) -> torch.Tensor:
     """Per-action cost factor in the reward, f32[B] (module docstring);
     g batched, a int[B]."""
     if degree_cost:
-        wsum = torch.sum(g.weights * g.node_mask[:, None, :], dim=-1)  # [B, 2]
+        # summed in f64 (exact for these weights) and rounded once, so the
+        # card and the CPU give the same bits whatever their sum order
+        wsum = torch.sum(g.weights * g.node_mask[:, None, :], dim=-1,
+                         dtype=torch.float64).to(torch.float32)  # [B, 2]
         wa = torch.gather(g.weights, 2, a.reshape(-1, 1, 1).expand(-1, 2, 1))[..., 0]
         return 0.5 * (wa[:, 0] / wsum[:, 0] + wa[:, 1] / wsum[:, 1])
     return 1.0 / g.n_nodes.to(torch.float32)

@@ -8,7 +8,8 @@ removal; the MaxCCList curve starts at [1]).
 `dismantle_greedy` runs a padded graph with the cascade on the device: the
 dense engine (pad_n <= 2048), the segment engine, or over a BlockedDuplex
 the blocked-pair kernel K4.  `dismantle_greedy_banded` runs a large
-BandedDuplex with the cascade on the host.
+BandedDuplex with the cascade on the host.  Both run every variant (unit
+cost, degree cost, CE, HCA) through the JAX package's routes.
 
 AUDC = Σ_t rank_t/(max_rank·N): the area under the normalised-LMCC curve.
 """
@@ -25,6 +26,7 @@ from mdcommunity_tpu_torch.env.env import batched_reset, batched_step
 from mdcommunity_tpu_torch.graphs.banded import BandedDuplex, apply_severs
 from mdcommunity_tpu_torch.graphs.blocked import BlockedDuplex
 from mdcommunity_tpu_torch.graphs.duplex import DuplexGraph, stack_graphs
+from mdcommunity_tpu_torch.models.hca_banded import banded_hca_forward
 from mdcommunity_tpu_torch.models.net import (
     DuplexQNet,
     banded_test_forward,
@@ -65,6 +67,8 @@ def dismantle_greedy(
     Returns (solution node list, score = AUDC, MaxCCList curve from 1.0)."""
     set_precise_matmul()
     aggregate_fn = None
+    if isinstance(g, BlockedDuplex) and variant == "hca":
+        raise ValueError("the blocked engine runs the base model's aggregation, not HCA's")
     if isinstance(g, BlockedDuplex):
         aggregate_fn = make_blocked_aggregate(g)
         g = g.g
@@ -190,6 +194,25 @@ def reinsert_solution(g: DuplexGraph, solution: List[int], each_step: int = 1) -
     return inserted
 
 
+SENTINEL = -1e8  # below it, an HCA node the decoder left unselected (Q = -1e9·w)
+
+
+def tie_scale(q: np.ndarray, i: int, j: int) -> Optional[float]:
+    """The scale a gap between q[i] and q[j] is read against, to tell an
+    f32 near-tie (a gap under about 1e-5 of it) from a real difference:
+    max|Q| over the finite Q above SENTINEL when both lie above it (every
+    Q of the base variants), |Q| itself when both lie below it (HCA's
+    unselected nodes at -1e9·w, where the f32 spacing is 32-64 and a gap
+    of a few spacings is rounding), None (no tie) when they straddle it."""
+    qi, qj = float(q[i]), float(q[j])
+    if qi > SENTINEL and qj > SENTINEL:
+        fin = np.isfinite(q) & (q > SENTINEL)
+        return float(np.abs(q[fin]).max())
+    if qi <= SENTINEL and qj <= SENTINEL:
+        return max(abs(qi), abs(qj))
+    return None
+
+
 def top_k_stable(q: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
     """The k largest values of q and their indices, equal values lowest
     index first (jax.lax.top_k's order; torch.topk on CUDA promises no order
@@ -210,6 +233,8 @@ def dismantle_greedy_banded(
     precise: bool = True,
     act_dtype: torch.dtype = torch.float32,
     shadow: Optional[Callable] = None,
+    variant: str = "unit_cost",
+    hca_data=None,
 ) -> Tuple[List[int], float, List[float]]:
     """Greedy Q rollout on a large BandedDuplex with a host env.
 
@@ -245,10 +270,21 @@ def dismantle_greedy_banded(
     (chip_smoke.py holds the main path to the CPU's forward through it).
     Its seconds are kept out of model_call_s and given as stats["shadow_s"].
 
+    variant: "unit_cost", "degree_cost" and "ce" run banded_test_forward
+    with that variant's inputs (the band holds the weights and the prior);
+    degree cost also scores each removal by its cost (env.step(a,
+    degree_cost=True)).  "hca" needs hca_data (models/hca_banded.HcaBandData
+    in banded order) and runs banded_hca_forward: K1 for its pooling and its
+    community pass, never the fused step, f32 storage only.
+
     Returns (solution in banded ids, score = AUDC, curve)."""
     if shadow is not None and not (batch_env and step > 1):
         raise ValueError("shadow watches batch_env rollouts with step > 1")
-    fuse = banded.spill_free if fuse_sage is None else bool(fuse_sage)
+    hca = variant == "hca"
+    if hca and (hca_data is None or act_dtype != torch.float32 or fuse_sage):
+        raise ValueError("variant='hca' needs hca_data, f32 storage and no fused step")
+    degree_cost = variant == "degree_cost"
+    fuse = (not hca) and (banded.spill_free if fuse_sage is None else bool(fuse_sage))
     device = banded.device
     pad_n, n = banded.pad_n, env.n
     max_steps = max_steps or n
@@ -269,8 +305,12 @@ def dismantle_greedy_banded(
         nonlocal calls, call_s
         t0 = time.perf_counter()
         with matmul_precision(precise):
-            q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
-                                    precise=precise, act_dtype=act_dtype)
+            if hca:
+                q = banded_hca_forward(net, banded, hca_data, covered, precise=precise)
+            else:
+                q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
+                                        precise=precise, act_dtype=act_dtype,
+                                        variant=variant)
         vals, order = top_k_stable(q, k)
         call_s += time.perf_counter() - t0
         calls += 1
@@ -292,7 +332,7 @@ def dismantle_greedy_banded(
             v, a = float(vals[0]), int(order[0])
             if not np.isfinite(v) or env.covered[a]:
                 break
-            _, new_sev = env.step(a)
+            _, new_sev = env.step(a, degree_cost=degree_cost)
             sol.append(a)
             if env.terminal or len(sol) >= max_steps:
                 break
@@ -315,7 +355,7 @@ def dismantle_greedy_banded(
                     shadow_s += time.perf_counter() - t0
                 if len(acts) == 0:
                     break
-                _, new_sev, _ = env.step_many(acts)
+                _, new_sev, _ = env.step_many(acts, degree_cost=degree_cost)
                 sol.extend(int(a) for a in acts)
                 covered[torch.from_numpy(acts.astype(np.int64)).to(device)] = True
                 for layer in range(2):
@@ -326,12 +366,13 @@ def dismantle_greedy_banded(
                     break
                 if not np.isfinite(v) or env.covered[a]:
                     break
-                _, new_sev = env.step(int(a))
+                _, new_sev = env.step(int(a), degree_cost=degree_cost)
                 sol.append(int(a))
                 covered[int(a)] = True
                 for layer in range(2):
                     apply(layer, new_sev[layer])
     if stats is not None:
         stats.update(model_calls=calls, model_call_s=call_s, shadow_s=shadow_s, fuse_sage=fuse,
-                     precise=precise, act_dtype=str(act_dtype).replace("torch.", ""))
+                     precise=precise, act_dtype=str(act_dtype).replace("torch.", ""),
+                     variant=variant)
     return sol, float(env.score), list(env.curve)

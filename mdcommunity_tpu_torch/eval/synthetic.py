@@ -30,6 +30,24 @@ def _row(size, scores, times, costs) -> dict:
                 cost_mean=stat(np.mean, costs))
 
 
+def variant_options(variant: str) -> dict:
+    """duplex_from_layers' options for a variant's graphs: degree cost its
+    costs, CE its community prior (Config().comm_prior_feature, as
+    evaluate_real attaches "boundary"), HCA its communities.  The JAX
+    package's synthetic evaluation builds CE and HCA graphs without them, so
+    its CE model reads a zero prior column and its HCA model sees no
+    community (every Q the same -1e9 sentinel); the port does not copy
+    that."""
+    from mdcommunity_tpu_torch.rl.dqn import VARIANTS
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    return dict(degree_cost=variant == "degree_cost",
+                prior_feature=Config().comm_prior_feature if variant == "ce" else None,
+                hca=variant == "hca")
+
+
 def evaluate_synthetic_generated(
     net,
     sizes: List[int],
@@ -42,8 +60,9 @@ def evaluate_synthetic_generated(
     device=None,
 ) -> List[dict]:
     """GMM graphs generated from `seed` (graphs whose intact LMCC is 1 are
-    skipped), dismantled greedily on `device` (CUDA unless named); one
-    result row per size."""
+    skipped), each with its variant's structure (variant_options),
+    dismantled greedily on `device` (CUDA unless named); one result row per
+    size."""
     device = resolve_device(device)
     net = net.to(device)
     rng = np.random.default_rng(seed)
@@ -54,8 +73,7 @@ def evaluate_synthetic_generated(
             e0, e1 = gmm_duplex_edges(
                 n, rng, g=g_corr, gamma1=gamma, gamma2=gamma, kbar1=kbar, kbar2=kbar
             )
-            g = duplex_from_layers(n, e0, e1, degree_cost=(variant == "degree_cost"),
-                                   device=device)
+            g = duplex_from_layers(n, e0, e1, device=device, **variant_options(variant))
             if int(g.max_rank) <= 1:
                 continue
             t0 = time.time()

@@ -46,6 +46,9 @@ class BandedDuplex:
     n_nodes   : real node count
     n_edges   : undirected edge count per layer
     max_rank  : intact LMCC size
+    weights   : f32 [2, pad_n] per-layer node costs (degree cost; ones else)
+    node_feat : f32 [2, pad_n] per-layer prior feature (CE; zeros else)
+    both in banded order, padding rows at the defaults
     """
 
     dbg0: DenseBandGraph
@@ -54,6 +57,8 @@ class BandedDuplex:
     n_nodes: int
     n_edges: Tuple[int, int]
     max_rank: int
+    weights: torch.Tensor
+    node_feat: torch.Tensor
 
     @property
     def pad_n(self) -> int:
@@ -77,7 +82,8 @@ class BandedDuplex:
 class ShardedBandedDuplex:
     """A BandedDuplex split over a gp mesh (shard_banded_duplex): both
     layers' operators as ShardedBandGraphs and node_mask as its shard
-    pieces.  It has no spill (the sharded operator refuses it)."""
+    pieces, and weights and node_feat as their pieces [2, local_n].  It has
+    no spill (the sharded operator refuses it)."""
 
     mesh: GpMesh
     dbg0: ShardedBandGraph
@@ -86,6 +92,8 @@ class ShardedBandedDuplex:
     n_nodes: int
     n_edges: Tuple[int, int]
     max_rank: int
+    weights: List[torch.Tensor]
+    node_feat: List[torch.Tensor]
 
     @property
     def pad_n(self) -> int:
@@ -117,6 +125,8 @@ def shard_banded_duplex(mesh: GpMesh, banded: BandedDuplex) -> ShardedBandedDupl
         n_nodes=banded.n_nodes,
         n_edges=banded.n_edges,
         max_rank=banded.max_rank,
+        weights=[p.T for p in split_nodes(mesh, banded.weights.T)],
+        node_feat=[p.T for p in split_nodes(mesh, banded.node_feat.T)],
     )
 
 
@@ -130,6 +140,8 @@ def build_banded_duplex(
     max_rank: Optional[int] = None,
     device=None,
     nibble: bool = False,
+    weights: Optional[np.ndarray] = None,
+    node_feat: Optional[np.ndarray] = None,
 ) -> Tuple[BandedDuplex, np.ndarray, Tuple[np.ndarray, np.ndarray]]:
     """Build from undirected edge arrays [M, 2] (original node ids).
 
@@ -140,7 +152,10 @@ def build_banded_duplex(
     nibble=True stores both layers' bases in nibbles (ops/dense_band.py; the
     counterpart of the JAX package's pack_duplex(nibble=True), the port
     having no pack step): a band value above 7 raises ValueError.  Severs,
-    shard_banded_duplex, fork_banded and restore_banded carry it."""
+    shard_banded_duplex, fork_banded and restore_banded carry it.
+    weights and node_feat ([2, n_nodes], original ids: the degree-cost
+    variant's node costs, the CE variant's prior) are permuted into banded
+    order (padding rows 0), ones and zeros where they are not given."""
     device = resolve_device(device)
     edges0 = np.asarray(edges0, np.int64).reshape(-1, 2)
     edges1 = np.asarray(edges1, np.int64).reshape(-1, 2)
@@ -180,6 +195,13 @@ def build_banded_duplex(
 
         max_rank = make_host_env(n_nodes, ordered[0], ordered[1]).max_rank
 
+    def node_rows(x, default):
+        # given: zero padding rows, as the JAX package pads them
+        out = np.full((2, pad_n), default if x is None else 0.0, np.float32)
+        if x is not None:
+            out[:, :n_nodes] = np.asarray(x, np.float32)[..., perm]
+        return torch.from_numpy(out).to(device)
+
     banded = BandedDuplex(
         dbg0=dbgs[0],
         dbg1=dbgs[1],
@@ -187,6 +209,8 @@ def build_banded_duplex(
         n_nodes=int(n_nodes),
         n_edges=(len(edges0), len(edges1)),
         max_rank=int(max_rank),
+        weights=node_rows(weights, 1.0),
+        node_feat=node_rows(node_feat, 0.0),
     )
     return banded, perm, (ordered[0], ordered[1])
 

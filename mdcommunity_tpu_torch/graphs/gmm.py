@@ -174,22 +174,23 @@ def generate_training_graph(
     """One padded training DuplexGraph with size ~ U[num_min, num_max], or
     None when it does not fit pad_edges (callers retry).  Its max_rank is a
     0 placeholder: generate_pool computes the intact LMCCs of a whole
-    candidate batch in one cascade call."""
+    candidate batch in one cascade call.  prior_feature "boundary" or
+    "participation" attaches the CE variant's Louvain prior and boundary
+    set, "hca" the HCA communities and features (reference: CEMultiDismantler
+    gen_graph -> _attach_static_comm_prior; HCA calculate_hca_features)."""
     from mdcommunity_tpu_torch.graphs.duplex import build_duplex
+    from mdcommunity_tpu_torch.graphs.io import variant_structure
 
-    if prior_feature != "none":
-        raise NotImplementedError(
-            f"prior_feature={prior_feature!r}: the CE and HCA priors are not "
-            "ported yet"
-        )
     n = int(rng.integers(num_min, num_max + 1))
     kw = dict(kbar1=6.0, kbar2=6.0) if degree_cost else {}
     e0, e1 = gmm_duplex_edges(n, rng, g=g_corr, **kw)
     if 2 * max(len(e0), len(e1)) > pad_edges:
         return None
-    weights = _degree_weights(n, e0, e1) if degree_cost else None
-    return build_duplex(n, e0, e1, pad_nodes, pad_edges, weights=weights,
-                        max_rank=0, device=device)
+    hca = prior_feature == "hca"
+    extra = variant_structure(n, e0, e1, degree_cost,
+                              None if hca else prior_feature, hca=hca)
+    return build_duplex(n, e0, e1, pad_nodes, pad_edges, max_rank=0, device=device,
+                        **extra)
 
 
 def _degree_weights(n: int, e0: np.ndarray, e1: np.ndarray) -> np.ndarray:

@@ -9,6 +9,7 @@ File formats follow the reference:
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -56,6 +57,38 @@ REAL_DATASETS = {
 }
 
 
+def variant_structure(n_nodes: int, edges_a: np.ndarray, edges_b: np.ndarray,
+                      degree_cost: bool = False, prior_feature: Optional[str] = None,
+                      prior_cache: Optional[Tuple[str, str]] = None,
+                      hca: bool = False) -> Dict[str, np.ndarray]:
+    """The per-node arrays a variant attaches to a graph, in original ids
+    (build_duplex's keyword arguments): degree_cost the deg/maxdeg costs
+    (weights); prior_feature ("boundary" or "participation") the CE
+    community prior (node_feat [2, n], boundary [n]), through the npz cache
+    when prior_cache = (cache_dir, cache_id); hca the HCA communities and
+    features (comm_id, n_comms, hca_feat)."""
+    from mdcommunity_tpu_torch.graphs.gmm import _degree_weights
+
+    out: Dict[str, np.ndarray] = {}
+    if degree_cost:
+        out["weights"] = _degree_weights(n_nodes, edges_a, edges_b)
+    if hca:
+        from mdcommunity_tpu_torch.graphs.hca import hca_communities_and_features
+
+        out["comm_id"], out["n_comms"], out["hca_feat"] = hca_communities_and_features(
+            n_nodes, edges_a, edges_b)
+    if prior_feature and prior_feature != "none":
+        from mdcommunity_tpu_torch.graphs.community import cached_duplex_prior, duplex_prior
+
+        if prior_cache:
+            out["node_feat"], out["boundary"] = cached_duplex_prior(
+                prior_cache[0], prior_cache[1], n_nodes, edges_a, edges_b, prior_feature)
+        else:
+            out["node_feat"], out["boundary"] = duplex_prior(
+                n_nodes, edges_a, edges_b, prior_feature)
+    return out
+
+
 def duplex_from_layers(
     n_nodes: int,
     edges_a: np.ndarray,
@@ -63,25 +96,38 @@ def duplex_from_layers(
     pad_nodes: Optional[int] = None,
     pad_edges: Optional[int] = None,
     degree_cost: bool = False,
+    prior_feature: Optional[str] = None,
+    prior_cache: Optional[Tuple[str, str]] = None,
+    hca: bool = False,
     max_rank: Optional[int] = None,
     device=None,
 ) -> DuplexGraph:
     """Two undirected edge arrays -> padded DuplexGraph on `device` (CUDA
     unless named; reference: Graph_test, graph.py:69-84): nodes padded to a
     multiple of 8, directed edges to a multiple of 128, as the JAX package
-    pads them.  degree_cost attaches the deg/maxdeg node costs; max_rank
-    None computes it by the cascade.  (The CE prior and HCA features come
-    with their variants.)"""
-    from mdcommunity_tpu_torch.graphs.gmm import _degree_weights
-
+    pads them.  degree_cost attaches the deg/maxdeg node costs,
+    prior_feature the CE community prior (reference
+    _attach_static_comm_prior, CEMultiDismantler/MultiDismantler_torch.py:743;
+    prior_cache = (cache_dir, cache_id) reads and writes its npz cache), hca
+    the HCA communities and features (variant_structure); max_rank None
+    computes it by the cascade."""
     def up(x, m):
         return ((max(int(x), 1) + m - 1) // m) * m
 
     pad_nodes = pad_nodes or up(n_nodes, 8)
     pad_edges = pad_edges or up(2 * max(len(edges_a), len(edges_b), 1), 128)
-    weights = _degree_weights(n_nodes, edges_a, edges_b) if degree_cost else None
+    extra = variant_structure(n_nodes, edges_a, edges_b, degree_cost, prior_feature,
+                              prior_cache, hca)
     return build_duplex(n_nodes, edges_a, edges_b, pad_nodes, pad_edges,
-                        weights=weights, max_rank=max_rank, device=device)
+                        max_rank=max_rank, device=device, **extra)
+
+
+def real_cache_id(path: str, layer_pair: Tuple[int, int]) -> str:
+    """The CE prior cache's id of a real dataset's layer pair, the JAX
+    package's: '-' separates the layer ids, since f"{a}{b}" is ambiguous
+    ((1, 11) and (11, 1) both give "111")."""
+    a, b = layer_pair
+    return f"{os.path.basename(path).split('.')[0]}_layers{a}-{b}"
 
 
 def load_real_duplex(
@@ -89,15 +135,23 @@ def load_real_duplex(
     n_nodes: int,
     layer_pair: Tuple[int, int],
     degree_cost: bool = False,
+    prior_feature: Optional[str] = None,
+    prior_cache_dir: Optional[str] = None,
+    hca: bool = False,
     max_rank: Optional[int] = None,
     device=None,
 ) -> DuplexGraph:
-    """Load a real multiplex network and select the two coupled layers."""
+    """Load a real multiplex network and select the two coupled layers;
+    with prior_cache_dir the CE prior goes through its npz cache there."""
     layers = read_multiplex_edges(path, n_nodes)
     a, b = layer_pair
     ea = layers.get(a, np.zeros((0, 2), np.int32))
     eb = layers.get(b, np.zeros((0, 2), np.int32))
+    cache = None
+    if prior_cache_dir and prior_feature and prior_feature != "none":
+        cache = (prior_cache_dir, real_cache_id(path, layer_pair))
     return duplex_from_layers(n_nodes, ea, eb, degree_cost=degree_cost,
+                              prior_feature=prior_feature, prior_cache=cache, hca=hca,
                               max_rank=max_rank, device=device)
 
 

@@ -51,7 +51,8 @@ def load_params(path: str) -> Dict[str, Any]:
 
 def load_model(path: str, device=None):
     """load_params composed with models.net.from_jax_params: the module on
-    `device`, CUDA unless the caller names one."""
+    `device`, CUDA unless the caller names one; a DuplexQNet, or an HcaQNet
+    for an HCA checkpoint (its params hold w_macro)."""
     from mdcommunity_tpu_torch.models.net import from_jax_params
 
     return from_jax_params(load_params(path), device=device)

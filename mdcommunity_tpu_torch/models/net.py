@@ -107,7 +107,13 @@ def _param(a) -> nn.Parameter:
 def from_jax_params(params: Mapping, device=None) -> DuplexQNet:
     """The port's module from the JAX package's parameter tree (numpy
     arrays, as in a checkpoint's `params`), on `device`: CUDA unless the
-    caller names one."""
+    caller names one.  A tree with the HCA heads (w_macro) gives a
+    models/hca.HcaQNet, any other a DuplexQNet (unit and degree cost take
+    w_n2l [2, D], CE [3, D])."""
+    if "w_macro" in params:
+        from mdcommunity_tpu_torch.models.hca import HcaQNet
+
+        return HcaQNet(params).to(resolve_device(device))
     return DuplexQNet(params).to(resolve_device(device))
 
 
@@ -120,6 +126,9 @@ def to_jax_params(net: DuplexQNet) -> Dict[str, Union[np.ndarray, Dict[str, np.n
 
     tree: Dict = {k: leaf(getattr(net, k)) for k in _DENSE}
     tree["fusion"] = {k: leaf(v) for k, v in net.fusion.items()}
+    for k in ("w_macro", "w_comm_score", "w_micro_score"):
+        if hasattr(net, k):
+            tree[k] = leaf(getattr(net, k))
     return tree
 
 
@@ -208,10 +217,14 @@ def _on_mesh(bdx, mesh):
     return shard_banded_duplex(mesh, bdx), mesh
 
 
-def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None):
-    """Per-layer model inputs of a BandedDuplex + covered mask (unit cost):
-    (node_input [2, pad_n, 2], aux [2, 4], active [pad_n], live [pad_n],
-    deg [2, pad_n] live degrees).
+def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None,
+                   variant: str = "unit_cost"):
+    """Per-layer model inputs of a BandedDuplex + covered mask:
+    (node_input [2, pad_n, F], aux [2, 4], active [pad_n], live [pad_n],
+    deg [2, pad_n] live degrees).  node_input is the variant's (the JAX
+    package's _banded_inputs): unit cost [deg/maxdeg] twice (F = 2), degree
+    cost [weight, 1] (F = 2), CE the unit-cost pair and the prior (F = 3),
+    each zero on inactive nodes.
 
     One unit-scale band pass per layer, with D = 2 ([live, mask] as the
     right-hand side), gives both the live degree and the unsevered degree;
@@ -221,16 +234,21 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None):
 
     With a mesh, bdx is a ShardedBandedDuplex over it: the degree passes
     run through the sharded operator, every node tensor comes back as the
-    list of its shard pieces (node_input [2, local_n, 2] each), and aux on
+    list of its shard pieces (node_input [2, local_n, F] each), and aux on
     the first shard's device."""
+    if variant not in ("unit_cost", "degree_cost", "ce"):
+        raise ValueError(f"the banded forward runs unit_cost, degree_cost and ce, not "
+                         f"{variant!r} (HCA: models/hca_banded.banded_hca_forward)")
     dt = net.w_n2l.dtype
     if mesh is None:
         covered, masks = [covered], [bdx.node_mask]
+        weights, prior = [bdx.weights], [bdx.node_feat]
 
         def spmm(layer, r, c, h):
             return [spmm_dense_band(bdx.dbg(layer), r[0], c[0], h[0])]
     else:
         covered, masks = split_nodes(mesh, covered), bdx.node_mask
+        weights, prior = bdx.weights, bdx.node_feat
 
         def spmm(layer, r, c, h):
             return spmm_band_sharded(mesh, bdx.dbg(layer), r, c, h)
@@ -251,14 +269,22 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None):
     active = [x & (d[0] > 0) for x, d in zip(live, deg)]
 
     zero = torch.zeros((), dtype=dt, device=dev)
-    maxdeg = functools.reduce(torch.maximum, [
-        torch.amax(torch.where(a[None, :], d, zero.to(d.device)), dim=1).to(dev)
-        for a, d in zip(active, deg)])
     node_input = []
-    for a, d in zip(active, deg):
-        nd = d / torch.clamp(maxdeg.to(d.device), min=1e-12)[:, None]
-        nd = torch.where(a[None, :], nd, zero.to(d.device))
-        node_input.append(torch.stack([nd, nd], dim=-1))
+    if variant == "degree_cost":
+        for a, w in zip(active, weights):
+            base = torch.stack([w.to(dt), torch.ones_like(w, dtype=dt)], dim=-1)
+            node_input.append(torch.where(a[None, :, None], base, zero.to(w.device)))
+    else:
+        maxdeg = functools.reduce(torch.maximum, [
+            torch.amax(torch.where(a[None, :], d, zero.to(d.device)), dim=1).to(dev)
+            for a, d in zip(active, deg)])
+        for a, d, p in zip(active, deg, prior):
+            z = zero.to(d.device)
+            nd = d / torch.clamp(maxdeg.to(d.device), min=1e-12)[:, None]
+            feats = [torch.where(a[None, :], nd, z)] * 2
+            if variant == "ce":
+                feats.append(torch.where(a[None, :], p.to(dt), z))
+            node_input.append(torch.stack(feats, dim=-1))
 
     n_f = float(bdx.n_nodes)
     cov_frac = _add([torch.sum(c & m) for c, m in zip(covered, masks)]).to(dt) / n_f
@@ -426,6 +452,7 @@ def banded_test_forward(
     act_dtype: torch.dtype = torch.float32,
     mesh=None,
     f32_epi: bool = True,
+    variant: str = "unit_cost",
 ) -> torch.Tensor:
     """Q(s, ·) over all nodes of a BandedDuplex: [pad_n]; dead nodes -inf.
     `covered` is bool [pad_n] (padding rows True).  It computes in the
@@ -459,7 +486,11 @@ def banded_test_forward(
     dense layers run per shard, and Q is gathered to the first shard's
     device.  An unsharded bdx is sharded on the way in (views where the
     shards share its device).  The fused step needs mesh=None.  The net
-    lies on the first shard's device."""
+    lies on the first shard's device.
+
+    variant "degree_cost" or "ce" takes that variant's inputs
+    (_banded_inputs; the JAX package's banded_test_forward(variant=)):
+    the same embedding and Q head, other input columns."""
     bdx, mesh = _on_mesh(bdx, mesh)
     if fuse_sage and mesh is not None:
         raise ValueError("fuse_sage needs mesh=None (the fused step is single-device)")
@@ -472,7 +503,7 @@ def banded_test_forward(
     if precise and act_dtype != torch.float32:
         raise ValueError("precise=True requires act_dtype=float32")
     store = None if act_dtype == torch.float32 else act_dtype
-    node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered, mesh)
+    node_input, aux, active, live, _ = _banded_inputs(net, bdx, covered, mesh, variant)
     if mesh is None:
         agg = _banded_aggregate(bdx, live, precise=precise, store=store)
     else:

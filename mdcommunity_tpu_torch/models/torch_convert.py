@@ -7,6 +7,8 @@ The reference saves `state_dict()`s (MultiDismantler_torch.SaveModel
   cross_product, w_layer1, w_layer2,
   layerNodeAttention_weight.{trans, bias, logis.parameter.weight, logis.parameter.bias}.
 `last_w` aliases `h2_weight` when reg_hidden > 0 (net :69) and is dropped.
+An HCA net's state_dict adds w_macro, w_comm_score and w_micro_score,
+carried both ways (the JAX package's converter reads them and writes none).
 The logistic head is a torch Linear ([out, in] weight), transposed to the
 matmul convention of the JAX package's parameter tree, which the port's
 models/net.from_jax_params takes.  The mapping is the JAX package's
@@ -32,9 +34,6 @@ _HCA = ("w_macro", "w_comm_score", "w_micro_score")
 def state_dict_to_params(sd: Mapping) -> Dict:
     """A reference state_dict -> the JAX package's parameter tree, as f32
     numpy arrays (fusion leaves under "fusion")."""
-    if any(k in sd for k in _HCA):
-        raise NotImplementedError("HCA checkpoints: the HCA variant is not ported")
-
     def arr(k):
         v = sd[k]
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
@@ -47,6 +46,9 @@ def state_dict_to_params(sd: Mapping) -> Dict:
         "logis_w": np.ascontiguousarray(arr(f"{_PREFIX}.logis.parameter.weight").T),
         "logis_b": arr(f"{_PREFIX}.logis.parameter.bias"),
     }
+    # an HCA net's heads (HCA net __init__: w_n2l [3, 64] and the macro and
+    # decoder weights)
+    params.update({k: arr(k) for k in _HCA if k in sd})
     return params
 
 
@@ -63,11 +65,13 @@ def params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     out[f"{_PREFIX}.bias"] = t(fusion["bias"])
     out[f"{_PREFIX}.logis.parameter.weight"] = t(np.asarray(fusion["logis_w"]).T)
     out[f"{_PREFIX}.logis.parameter.bias"] = t(fusion["logis_b"])
+    out.update({k: t(params[k]) for k in _HCA if k in params})
     return out
 
 
 def state_dict_to_net(sd: Mapping, device=None):
-    """A reference state_dict -> DuplexQNet on `device` (CUDA unless named)."""
+    """A reference state_dict -> DuplexQNet (HcaQNet for an HCA net's) on
+    `device` (CUDA unless named)."""
     from mdcommunity_tpu_torch.models.net import from_jax_params
 
     return from_jax_params(state_dict_to_params(sd), device=device)

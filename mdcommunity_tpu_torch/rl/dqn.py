@@ -72,14 +72,26 @@ from mdcommunity_tpu_torch.utils.device import (
 )
 from mdcommunity_tpu_torch.utils.profiling import ThroughputMeter, device_timer
 
-_PORTED = ("unit_cost", "degree_cost")
+_TRAINED = ("unit_cost", "degree_cost")
+VARIANTS = ("unit_cost", "degree_cost", "ce", "hca")
 
 
 def _check_variant(variant: str) -> None:
-    if variant not in _PORTED:
+    """The agent trains unit and degree cost; CE's action pruning and HCA's
+    bridge reward and train step come with slice D2 (the variants'
+    training).  Validation and dismantling run every variant."""
+    if variant not in _TRAINED:
         raise NotImplementedError(
-            f"variant {variant!r} is not ported yet: its prior, model and "
-            "batch inputs come with slice D")
+            f"training variant {variant!r} is not ported yet: CE's action pruning and "
+            "HCA's bridge reward and train step come with slice D2")
+
+
+def prior_feature(cfg: Config) -> str:
+    """The graph structure a variant's pools carry (the JAX agent's
+    _prior_feature): CE its community prior, HCA its communities."""
+    if cfg.variant == "ce":
+        return cfg.comm_prior_feature
+    return "hca" if cfg.variant == "hca" else "none"
 
 
 @torch.no_grad()
@@ -87,7 +99,14 @@ def predict_q(net, g, covered, sever, variant: str = "unit_cost", dense: bool = 
               max_bp_iter: int = 3, aggregate_fn=None) -> torch.Tensor:
     """Batched Q(s, ·) [B, N] with dead and covered nodes at -inf;
     aggregate_fn replaces the dense or segment aggregation
-    (models/net.make_blocked_aggregate)."""
+    (models/net.make_blocked_aggregate).  HCA runs models/hca.hca_forward
+    on its dense inputs with c_pad = pad_n, as the JAX package's
+    predict_q."""
+    if variant == "hca":
+        from mdcommunity_tpu_torch.models.hca import hca_forward, make_hca_inputs
+
+        return hca_forward(net, make_hca_inputs(g, covered, sever, c_pad=g.pad_n),
+                           max_bp_iter=max_bp_iter)[0]
     inputs = make_batch_inputs(g, covered, sever, dense=dense, variant=variant)
     return test_forward(net, g, inputs, max_bp_iter=max_bp_iter, aggregate_fn=aggregate_fn)
 
@@ -280,14 +299,16 @@ def greedy_rollout(net, g, state: EnvState, variant: str = "unit_cost",
 def make_valid_pool(cfg: Config, device=None) -> GraphPool:
     """The validation pool of cfg: n_valid GMM graphs drawn from
     np.random.default_rng(cfg.seed), as DQNAgent seeds and draws it
-    (DQNAgent.__init__ then prepare_valid_data), on `device`."""
-    _check_variant(cfg.variant)
+    (DQNAgent.__init__ then prepare_valid_data), with the variant's prior
+    (prior_feature), on `device`."""
+    if cfg.variant not in VARIANTS:
+        raise ValueError(f"unknown variant {cfg.variant!r}")
     device = resolve_device(device)
     pool = GraphPool()
     for g in generate_pool(
         np.random.default_rng(cfg.seed), cfg.n_valid, cfg.num_min, cfg.num_max,
         cfg.pad_nodes, cfg.pad_edges, cfg.variant == "degree_cost",
-        g_corr=cfg.gmm_g, device=device,
+        prior_feature(cfg), g_corr=cfg.gmm_g, device=device,
     ):
         pool.insert(g)
     return pool

@@ -260,7 +260,7 @@ def test_cli_test_synthetic_sweep_matches_jax(models, tmp_path, capsys):
 def test_torch_convert_round_trip(models, tmp_path):
     """The JAX package's params_to_state_dict (the reference's layout), read
     by the port's loader, gives the net from_jax_params gives: same Q; and
-    the port writes the same state_dict back."""
+    the port writes the same state_dict back, an HCA net's too."""
     params, _ = models
     sd = jax_convert.params_to_state_dict(params)
     net = torch_convert.state_dict_to_net(sd, device="cpu")
@@ -284,6 +284,22 @@ def test_torch_convert_round_trip(models, tmp_path):
     assert set(back) == set(sd)
     for k in sd:
         assert torch.equal(back[k], sd[k]), k
-    with pytest.raises(NotImplementedError, match="HCA"):
-        torch_convert.state_dict_to_params({**sd, "w_macro": sd["w_n2l"]})
+    # an HCA net's reference state_dict (w_n2l [3, 64] and the three heads):
+    # read into an HcaQNet, written back the same; the JAX package's
+    # converter reads the same arrays from it
+    from mdcommunity_tpu_torch.models.checkpoint import load_params
+    from mdcommunity_tpu_torch.models.hca import HCA_HEADS, HcaQNet
+
+    hca_params = load_params("models_tpu/hca_100k_r5/best_model.ckpt")
+    sd_hca = torch_convert.params_to_state_dict(hca_params)
+    assert set(sd_hca) == set(sd) | set(HCA_HEADS)
+    hca_net = torch_convert.state_dict_to_net(sd_hca, device="cpu")
+    assert isinstance(hca_net, HcaQNet) and hca_net.w_n2l.shape == (3, 64)
+    back = torch_convert.net_to_state_dict(hca_net)
+    assert set(back) == set(sd_hca)
+    for k in sd_hca:
+        assert torch.equal(back[k], sd_hca[k]), k
+    jax_hca = jax_convert.state_dict_to_params(sd_hca)
+    for k in HCA_HEADS + ("w_n2l", "p_node_conv"):
+        np.testing.assert_array_equal(np.asarray(jax_hca[k]), hca_params[k])
     assert os.path.getsize(path) > 0

@@ -283,13 +283,14 @@ class _JaxShadow:
         self.calls += 1
 
 
-def main_path_runs(models, n, seed, step_ratio, out_dir):
+def main_path_runs(models, n, seed, step_ratio, out_dir, variant="unit_cost"):
     """The configuration of chip_smoke.py's main path on the CPU: the
     shuffled large_graph_demo graph through each package's evaluate_real
     (StepRatio batches, one cascade a batch, the port's native host engine,
     fused K2 only on a spill-free build), and the two runs' first parting
     (the port's run holds its own trajectory to the JAX forward through
-    _JaxShadow)."""
+    _JaxShadow, or for the other variants tests/variant_cases.JaxShadow,
+    whose tie rule reads HCA's unselected nodes by their own magnitude)."""
     import os
     import time
 
@@ -304,19 +305,27 @@ def main_path_runs(models, n, seed, step_ratio, out_dir):
     res = {}
     t0 = time.perf_counter()
     jsol, _, jscore = jax_evaluate_real(models[0], out_dir, name,
-                                        os.path.join(out_dir, "jax"), precise=True, **kw)
+                                        os.path.join(out_dir, f"jax_{variant}"), precise=True,
+                                        variant=variant, **kw)
     res["jax"] = dict(audc=jscore, removed=len(jsol), wall_s=time.perf_counter() - t0)
     raw = read_multiplex_edges(os.path.join(out_dir, name), n)
-    shadow = _JaxShadow(models, n, (raw[1], raw[2]), max(int(step_ratio * n), 1))
+    step = max(int(step_ratio * n), 1)
+    if variant == "unit_cost":
+        shadow = _JaxShadow(models, n, (raw[1], raw[2]), step)
+    else:
+        from variant_cases import JaxShadow
+
+        shadow = JaxShadow(variant, os.path.join(out_dir, name), step, n=n)
     stats = {}
     t0 = time.perf_counter()
-    tsol, _, tscore = evaluate_real(models[1], out_dir, name, os.path.join(out_dir, "port"),
-                                    device="cpu", engine="native", stats=stats,
-                                    shadow=shadow, **kw)
+    tsol, _, tscore = evaluate_real(models[1], out_dir, name,
+                                    os.path.join(out_dir, f"port_{variant}"), device="cpu",
+                                    engine="native", stats=stats, shadow=shadow,
+                                    variant=variant, **kw)
     res["port"] = dict(audc=tscore, removed=len(tsol), wall_s=time.perf_counter() - t0,
-                       shadow_s=stats["shadow_s"])
+                       shadow_s=stats["shadow_s"], prior_s=stats.get("prior_s"))
     res["identical_removals"] = jsol == tsol
-    res["parting"] = shadow.parting
+    res["parting"] = shadow.parting if variant == "unit_cost" else shadow.detail
     return res
 
 
@@ -329,7 +338,11 @@ def main(argv=None):
 
     With --main-path: chip_smoke.py's main-path configuration (StepRatio
     0.001, one cascade a batch) through both packages on the CPU, their
-    AUDCs and removal counts and their first parting (main_path_runs).
+    AUDCs and removal counts and their first parting (main_path_runs);
+    --variant degree_cost, ce or hca runs that variant's committed
+    *_100k_r5 checkpoint instead (chip_smoke.py's variant paths):
+
+        PYTHONPATH=.:tests python tests/test_torch_greedy.py --main-path DIR --variant hca
     """
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=18222)
@@ -342,9 +355,24 @@ def main(argv=None):
     ap.add_argument("--main-path", metavar="OUT_DIR",
                     help="instead: the main-path configuration's runs, files in OUT_DIR")
     ap.add_argument("--step-ratio", type=float, default=0.001)
+    ap.add_argument("--variant", default="unit_cost",
+                    choices=["unit_cost", "degree_cost", "ce", "hca"],
+                    help="with --main-path: the variant (its *_100k_r5 checkpoint)")
     args = ap.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
+    if args.main_path and args.variant != "unit_cost":
+        from variant_cases import ckpt
+
+        from mdcommunity_tpu_torch.models.checkpoint import load_params
+
+        path = ckpt(args.variant)
+        models = (load_params(path), load_model(path, device="cpu"))
+        print(json.dumps(dict(n=args.n, seed=args.seed, step_ratio=args.step_ratio,
+                              variant=args.variant, **main_path_runs(
+                                  models, args.n, args.seed, args.step_ratio,
+                                  args.main_path, args.variant))))
+        return
     agent = DQNAgent(Config(variant="unit_cost"), seed=0)
     agent.load(CKPT)
     models = (agent.params, load_model(CKPT, device="cpu"))

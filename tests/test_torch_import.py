@@ -1,5 +1,5 @@
-"""The port imports neither jax, optax nor the JAX package, and its entry
-points run on the card unless the caller asks for the CPU."""
+"""The port imports neither jax, optax, networkx nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
 
 import os
 import pkgutil
@@ -24,7 +24,9 @@ def _submodules():
 
 def test_import_leaves_jax_out():
     """A fresh interpreter (conftest.py imports jax in this one) imports the
-    package and every submodule, and the checkpoint loader runs."""
+    package and every submodule, the checkpoint loader runs (every variant's
+    committed checkpoints) and so do the CE prior and the HCA structure,
+    with neither jax nor networkx imported."""
     mods = _submodules()
     for m in ("ops.band_kernels", "rl.big_trainer", "train_1m", "ops.blocked_kernels",
               "graphs.duplex", "graphs.gmm", "graphs.blocked", "env.cascade", "env.env",
@@ -32,15 +34,22 @@ def test_import_leaves_jax_out():
               "parallel.band_partition", "ops.probe_kernels", "graphs.synth",
               "utils.timing", "probe_f32_epi", "bench_nibble", "tune_band",
               "probe_hbm_roof", "rl.replay", "rl.replay_prioritized",
-              "utils.profiling", "cli"):
+              "utils.profiling", "cli", "graphs.louvain", "graphs.community",
+              "graphs.hca", "models.hca", "models.hca_banded"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "from mdcommunity_tpu_torch.models.checkpoint import load_params\n"
+        "from mdcommunity_tpu_torch.models.checkpoint import load_model, load_params\n"
         "load_params('models_tpu/unit_cost_full_r1/best_model.ckpt')\n"
+        "for d in ('degree_100k_r5', 'ce_100k_r5', 'hca_100k_r5', 'degree_cost_full_r1',\n"
+        "          'ce_full_r1', 'hca_full_r1'):\n"
+        "    load_model(f'models_tpu/{d}/best_model.ckpt', device='cpu')\n"
+        "from mdcommunity_tpu_torch.graphs.io import duplex_from_layers\n"
+        "e = [(0, 1), (1, 2), (2, 0), (3, 4)]\n"
+        "duplex_from_layers(5, e, e, prior_feature='boundary', hca=True, device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'mdcommunity_tpu')]\n"
+        "('jax', 'jaxlib', 'optax', 'networkx', 'mdcommunity_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -55,7 +64,7 @@ def test_import_leaves_jax_out():
 
 
 _BAD_IMPORT = re.compile(
-    r"^\s*(import|from)\s+(jax|jaxlib|optax|mdcommunity_tpu)(\s|\.|$)", re.M
+    r"^\s*(import|from)\s+(jax|jaxlib|optax|networkx|mdcommunity_tpu)(\s|\.|$)", re.M
 )
 
 

@@ -27,7 +27,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
   3. time K1, K2, K1's backward, the bf16 modes, their plain versions and a
      library yardstick (torch.bmm of the widened band against materialised
      windows, in bf16 for the bf16 modes) at the main path's shapes, 18,432
-     and 2^20 rows with D=64, each beside its bound;
+     rows with D=64, each beside its bound; then hold the same kernels (and
+     phase 9's modes, on a nibble build) against their plain versions at
+     2^20 rows, the shapes the training paths give them, untimed (their
+     2^20-row times are mdcommunity_tpu_torch/time_band_rows.py's);
   4. drive the main path: large-graph greedy dismantling of the 18,222-node
      shuffled synthetic duplex of `large_graph_demo --sizes 18222` by the
      committed unit-cost checkpoint, through eval.real.evaluate_real
@@ -70,14 +73,17 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      K2's bf16 epilogue (f32_epi=False) within EPI_TOL of its plain version;
      K1's diag variants (noscale, nodot, noh, hlin; f32 and bf16) against
      their references; the stream probe (probe.cu) exactly; their times at
-     18,432 and 2^20 rows beside bound, plain and library; then the slice's
-     path, the four probe entry points through their mains (probe_f32_epi at
-     18,222 nodes, bench_nibble, tune_band --diag and probe_hbm_roof at
-     2^20), counts set to 0 just before and read just after;
+     18,432 rows beside bound, plain and library, and the same checks again
+     at 2^20 rows (untimed: those times are time_band_rows.py's); then the
+     slice's path, the four probe entry points through their mains
+     (probe_f32_epi at 18,222 nodes, bench_nibble timed at 2^18, tune_band
+     --diag and probe_hbm_roof at 2^20), counts set to 0 just before and
+     read just after;
  10. the bf16 fit: K1's bf16 mode with the scales swapped (BandSpmm's
      backward at precise=False) against its plain version at 18,432 rows,
      the sharded bf16 gradient against the unsharded one (max abs
-     difference 0), both backward launches timed at 18,432 and 2^20 rows,
+     difference 0), both backward launches timed at 18,432 rows (K3's also
+     at 2^20; K1's held to its plain version there, untimed),
      and train_banded_loop(precise=False) at 2^20 nodes, unsharded and at
      GP = 4, beside the precise loop's fit ms, counts set to 0 just before
      and read just after;
@@ -99,7 +105,27 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      same bits) and timed at c_pad beside its bound, plain version and
      torch.bmm; and each variant's synthetic rows (sizes 32, 64, 128) and
      32-graph validation VC on the card against the CPU (identical rows,
-     VCs within 1e-4).
+     VCs within 1e-4);
+ 13. the variants' training (variant_train_phase): DQNAgent for CE and for
+     HCA at Config()'s full width for VT_ITERS iterations each (VCs, fit
+     iterations a second, peak memory, CE's LMCC-DEBUG and CE-PRIOR lines),
+     a resume of each from latest.ckpt, one train_step of each on the card
+     against the CPU by tests/gradient_rules.py (CE as unit cost, its gate
+     leaves also to their terms; HCA per gradient leaf against the CPU's
+     float64 referee),
+     one eps = 0 rollout chunk of each, with CE's pruning and HCA's bridge
+     reward, on the card against the CPU (the same actions and rewards up
+     to a near-tie parting); train_banded_loop(variant="degree_cost") at
+     2^20 nodes (degree weights on the spill-free build) and
+     variant="ce" on the main path's graph with its prior, VT_BANDED_ITERS
+     iterations each (K1, K2 and K1's backward counted; the first fit's loss
+     on the card against the CPU's plain loss on the same state, within
+     1e-5 of the loss's terms, with a bf16 and a TF32 control that must
+     fall outside that bound), degree cost at GP = 4 for 3 iterations beside the unsharded
+     loop (K3 and its backward counted), and live_scales(mean|gcn) on the
+     main path's graph, K1 at D = 1 in both precise modes, bit-equal to its
+     plain version; counts set to 0 just before each path and read just
+     after.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -109,6 +135,7 @@ size on the CPU with the plain versions (no counts, no result line).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -374,7 +401,11 @@ def bounds(dbg, D, sage, store_bytes=4, band_rate=PEAK_F32_S, halo=0, epi_rate=P
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def time_kernels(device, banded, label):
+def time_kernels(device, banded, label, timed=True):
+    """K1 (D = 64 and the degree pass's D = 2), K2 and K1's backward on
+    layer 0 of `banded` against their plain versions, then (timed) each
+    beside its bound, its plain version and the library yardstick.  Returns
+    the numbers by counter (timed=False: the errors only)."""
     from mdcommunity_tpu_torch.ops import band_kernels as bk
     from mdcommunity_tpu_torch.ops.band_kernels import _windows
     from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
@@ -386,12 +417,8 @@ def time_kernels(device, banded, label):
     h = torch.nn.functional.normalize(h, dim=-1)
     sub = mirror_sub(dbg, live, h)
     aw, bw = sage_weights(device)
-    base_f = widened(dbg, torch.float32)
-    win = _windows(h * live[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
-    lib_ms = time_ms(lambda: torch.bmm(base_f, win))
-    del base_f, win
-    # the kernels against their plain versions at these shapes too, the
-    # degree pass (D = 2, unit scales) included
+    # the kernels against their plain versions at these shapes, the degree
+    # pass (D = 2, unit scales) included
     errs = {
         "band_spmm": compare(f"{label} K1 D=64", bk.spmm_band(dbg, live, live, h, sub),
                              bk.spmm_band_plain(dbg, live, live, h, sub)),
@@ -410,11 +437,17 @@ def time_kernels(device, banded, label):
     errs["band_spmm_bwd"] = compare(
         f"{label} K1 backward", bk.spmm_band(dbg, col, row, g, sub_g, "band_spmm_bwd"),
         bk.spmm_band_plain(dbg, col, row, g, sub_g))
-    base_f = widened(dbg, torch.float32)
-    win = _windows(g * row[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
-    lib_bwd_ms = time_ms(lambda: torch.bmm(base_f, win))
-    del base_f, win
-    res, nib = {}, "_nib" if dbg.nibble else ""
+    nib = "_nib" if dbg.nibble else ""
+    if not timed:
+        return {k + nib: dict(max_abs_err=v) for k, v in errs.items()}
+    lib = {}
+    for key, x, scale in (("fwd", h, live), ("bwd", g, row)):
+        base_f = widened(dbg, torch.float32)
+        win = _windows(x * scale[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
+        lib[key] = time_ms(lambda: torch.bmm(base_f, win))
+        del base_f, win
+    lib_ms, lib_bwd_ms = lib["fwd"], lib["bwd"]
+    res = {}
     for name, kern, plain, sage, lib in (
         ("band_spmm", lambda: bk.spmm_band(dbg, live, live, h, sub),
          lambda: bk.spmm_band_plain(dbg, live, live, h, sub), False, lib_ms),
@@ -518,12 +551,13 @@ def check_bf16_kernels(device, n):
     return errs
 
 
-def time_bf16_kernels(device, banded, label):
+def time_bf16_kernels(device, banded, label, timed=True):
     """Each bf16 mode at D = 64 beside its bound, its plain version and the
     library yardstick (torch.bmm of the bf16-widened band against
     materialised bf16(col ⊙ h) windows), after a check at these shapes.
     Also logs the time of the dense formulation the kernel runs, 2·rows·W2·D
-    at the bf16 rate."""
+    at the bf16 rate.  timed=False: the checks only (and the backward's,
+    time_bf16_backward), their errors by counter."""
     import torch
 
     from mdcommunity_tpu_torch.ops.band_kernels import _windows
@@ -532,15 +566,22 @@ def time_bf16_kernels(device, banded, label):
     h, live = operands(dbg, 64, 5, device)
     h = torch.nn.functional.normalize(h, dim=-1)
     aw, bw = sage_weights(device)
+    res, nib = {}, "_nib" if dbg.nibble else ""
+    errs = {name: check_bf16_mode(label, name, *bf16_mode_fns(dbg, live, h, aw, bw, kernel,
+                                                               store))
+            for name, kernel, store in BF16_MODES}
+    if not timed:
+        res = {name + nib: dict(max_abs_err=err) for name, err in errs.items()}
+        res.update(time_bf16_backward(device, dbg, label, timed=False))
+        return res
     base_b = widened(dbg, torch.bfloat16)
     win = _windows((h * live[:, None]).to(torch.bfloat16), dbg.n_blocks, dbg.S,
                    dbg.B).contiguous()
     lib_ms = time_ms(lambda: torch.bmm(base_b, win))
     del base_b, win
-    res, nib = {}, "_nib" if dbg.nibble else ""
     for name, kernel, store in BF16_MODES:
         kern, plain = bf16_mode_fns(dbg, live, h, aw, bw, kernel, store)
-        err = check_bf16_mode(label, name, kern, plain)
+        err = errs[name]
         bound_ms, bound_by = bounds(dbg, 64, kernel == "sage",
                                     2 if store == "bfloat16" else 4, PEAK_BF16_S)
         res[name + nib] = dict(ms=time_ms(kern), plain_ms=time_ms(plain),
@@ -553,13 +594,13 @@ def time_bf16_kernels(device, banded, label):
     return res
 
 
-def time_bf16_backward(device, dbg, label):
+def time_bf16_backward(device, dbg, label, timed=True):
     """The bf16 fit's backward launch, K1's bf16 mode with row and col
     swapped on a cotangent g (band_spmm_bf16_bwd, f32 storage), at D = 64
     beside its bound, its plain version, the library yardstick (torch.bmm of
     the bf16-widened band against materialised bf16(row ⊙ g) windows) and
     its device time (utils/timing.device_ms), after a check at these
-    shapes."""
+    shapes (timed=False: the check only)."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
@@ -578,6 +619,8 @@ def time_bf16_backward(device, dbg, label):
         return bk.spmm_band_plain(dbg, col, row, g, sub_g, precise=False)
 
     err = check_bf16_mode(label, name, kern, plain)
+    if not timed:
+        return {name: dict(max_abs_err=err)}
     base_b = widened(dbg, torch.bfloat16)
     win = _windows((g * row[:, None]).to(torch.bfloat16), dbg.n_blocks, dbg.S,
                    dbg.B).contiguous()
@@ -1182,7 +1225,7 @@ def check_halo_kernels(device, n, gp=GP):
     return errs
 
 
-def time_halo_kernels(device, banded, label, gp=GP):
+def time_halo_kernels(device, banded, label, gp=GP, timed=True):
     """K3 in each mode, and as the backward (row and col swapped, on a
     gradient), at D = 64 on layer 0 of `banded` split over gp shards: each
     shard's interior and boundary launches, the K3 launches of one sharded
@@ -1192,7 +1235,7 @@ def time_halo_kernels(device, banded, label, gp=GP):
     halos, scales, mirror slice and output once); the whole sharded call
     (mirror glue and halos included) beside K1's whole-graph operator; and
     the launches of one sharded call.  Returns the whole-call numbers by
-    counter."""
+    counter (timed=False: the checks' errors only)."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
@@ -1243,6 +1286,9 @@ def time_halo_kernels(device, banded, label, gp=GP):
         cmp = compare_bf16 if store == "bfloat16" else compare
         err = max(cmp(f"{label} K3 {name} shard {i}", outs[i],
                       bk.spmm_band_halo_plain(*ops[i], precise=precise)) for i in range(gp))
+        if not timed:
+            res[name + nib] = dict(max_abs_err=err)
+            continue
         per_shard = []
         for i in range(gp):
             t = {f"{b0}-{b1}": time_ms(lambda: launch(i, (b0, b1))) for b0, b1 in split}
@@ -1366,8 +1412,11 @@ class Recorder:
         return self._env.step_many(actions, *args, **kw)
 
 
-def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4):
-    """train_banded_loop with mesh = gp shards beside the unsharded loop,
+def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4,
+                          variant="unit_cost", ckpt=CKPT_FIT, weights=None):
+    """train_banded_loop of `variant` (the `ckpt` model; degree cost: the
+    host envs hold the band-order `weights` that banded carries) with mesh
+    = gp shards beside the unsharded loop,
     the same settings for both (unfused, eps_start = eps_end = 1: actions
     from the seeded rng): identical removals at every iteration, first
     losses within 1e-5 relative, final parameters within 2·lr per fit
@@ -1384,17 +1433,19 @@ def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4):
     from mdcommunity_tpu_torch.rl.big_trainer import train_banded_loop
 
     on_card = device != "cpu"
-    net = load_model(CKPT_FIT, device=device)
+    net = load_model(ckpt, device=device)
     runs = {}
     for which, mesh in (("unsharded", None), ("sharded", make_mesh(gp, device))):
-        env = Recorder(make_host_env(banded.n_nodes, *edges, engine="native"))
+        env = Recorder(make_host_env(banded.n_nodes, *edges, weights=weights,
+                                     engine="native"))
         if on_card:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         bk.reset_launches()
         net2, hist = train_banded_loop(net, banded, env, iters=iters, k=k, target_update=3,
                                        eps_start=1.0, eps_end=1.0, lr=lr, packed=False,
-                                       mesh=mesh, log=log, log_every=iters)
+                                       mesh=mesh, log=log, log_every=iters,
+                                       variant=variant)
         if on_card:
             torch.cuda.synchronize()
         counts = dict(bk.launches)
@@ -1404,7 +1455,7 @@ def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4):
                            params={n: p.detach().double().cpu()
                                    for n, p in net2.named_parameters()})
         log(f"sharded trainer phase, {which}: " + json.dumps(dict(
-            pad_n=banded.pad_n, gp=gp if mesh else 1, k=k,
+            variant=variant, pad_n=banded.pad_n, gp=gp if mesh else 1, k=k,
             iter_p50_s=float(np.median([h["t_iter_s"] for h in rows])),
             peak_mem_gib=peak, losses=[h["loss"] for h in rows],
             removed=[h["removed"] for h in rows],
@@ -1418,7 +1469,7 @@ def sharded_trainer_phase(device, banded, edges, k, gp=GP, iters=6, lr=1e-4):
         raise AssertionError("the loops fitted different iterations")
     rel = abs(ls[0] - lu[0]) / abs(lu[0])
     worst = max((s["params"][n] - p).abs().max().item() for n, p in u["params"].items())
-    log(f"sharded vs unsharded loop: first loss rel diff {rel:.3e}, final parameters "
+    log(f"sharded vs unsharded loop ({variant}): first loss rel diff {rel:.3e}, final parameters "
         f"max abs diff {worst:.3e} (bound {2 * lr * fits:.1e})")
     if not rel <= 1e-5 or not worst <= 2 * lr * fits:
         raise AssertionError("the sharded loop's fit differs from the unsharded one's")
@@ -1494,57 +1545,65 @@ def bf16_fit_phase(device, banded, edges, k, gp=GP, iters=5):
 
 DQN_ITERS = 201    # validations at iterations 0 and 200 (save_frequency DQN_ITERS - 1)
 DQN_MORE = 5       # the resumed run's iterations
-LEAF_FLOOR = 1e-6  # about f32 rounding of the largest gradient leaf: a leaf under it is held against it
 
 
-def dqn_phase(device, cfg=None, iters=DQN_ITERS, more=DQN_MORE):
-    """The small-graph DQN trainer at Config()'s full width (or `cfg`):
-    DQNAgent(cfg, device).train for `iters` iterations into a git-ignored
-    directory, with its warm-up, play and validation seconds, fit
-    iterations a second, both VCs and peak device memory; counts set to 0
-    just before and read just after (the dense engine launches no hand
-    kernel, as in the JAX package).  Then a resume from latest.ckpt for
-    `more` iterations, after checking that loading it restores the
-    iteration, the Adam state, both generators' states and the weights.
-    Then one replay batch through train_step on `device` and on the CPU
-    (plain PyTorch) from the same parameters: the loss within 1e-5
-    relative, every gradient leaf within 1e-4 of its max|grad| (a leaf that
-    cancels to below LEAF_FLOOR of the largest leaf's is held against that
-    floor; each leaf's error is logged against its own max too)."""
-    import copy
+def dqn_phase(device, cfg=None, iters=DQN_ITERS, more=DQN_MORE, variant="unit_cost"):
+    """The small-graph DQN trainer of `variant` at Config()'s full width (or
+    `cfg`): DQNAgent(cfg, device).train for `iters` iterations into a
+    git-ignored directory, with its warm-up, play and validation seconds,
+    fit iterations a second, both VCs, peak device memory and, for CE, its
+    LMCC-DEBUG and CE-PRIOR lines; counts set to 0 just before and read just
+    after (the dense engine launches no hand kernel, as in the JAX
+    package).  Then a resume from latest.ckpt for `more` iterations, after
+    checking that loading it restores the iteration, the Adam state, both
+    generators' states and the weights.  Then one replay batch through
+    train_step on `device` and on the CPU (hold_train_step, by the
+    variant's rule).  Returns (the readings, the trained agent)."""
     import dataclasses
     import shutil
 
     import numpy as np
     import torch
 
-    from mdcommunity_tpu_torch.rl.dqn import DQNAgent, train_step
+    from mdcommunity_tpu_torch.rl.dqn import DQNAgent
     from mdcommunity_tpu_torch.utils.config import Config
-    from mdcommunity_tpu_torch.utils.device import matmul_precision
 
-    cfg = dataclasses.replace(cfg or Config(save_frequency=iters - 1), max_iteration=iters)
-    save_dir = os.path.join(OUT, "dqn")
+    cfg = dataclasses.replace(cfg or Config(save_frequency=iters - 1), max_iteration=iters,
+                              variant=variant)
+    save_dir = os.path.join(OUT, "dqn" if variant == "unit_cost" else f"dqn_{variant}")
     shutil.rmtree(save_dir, ignore_errors=True)
     on_card = device != "cpu"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     agent = DQNAgent(cfg, device=device)
     stats = {}
+    ce_lines = []
+
+    def train_log(line):
+        if line.startswith(("LMCC-DEBUG", "CE-PRIOR")):
+            ce_lines.append(line)
+        log(line)
+
     reset_all_launches()
     t0 = time.perf_counter()
-    agent.train(save_dir=save_dir, log=log, stats=stats)
+    agent.train(save_dir=save_dir, log=train_log, stats=stats)
     wall = time.perf_counter() - t0
     counts = all_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
     result = dict(
-        iters=iters, batch_size=cfg.batch_size, num_env=cfg.num_env, n_train=cfg.n_train,
+        variant=variant, iters=iters, batch_size=cfg.batch_size, num_env=cfg.num_env,
+        n_train=cfg.n_train,
         n_valid=cfg.n_valid, embedding_size=cfg.embedding_size, pools_s=stats["pools_s"],
         warmup_s=stats["warmup_s"], play_s=stats["play_s"], fit_s=stats["fit_s"],
         fit_iters_per_s=stats["fit_iters"] / stats["fit_s"], valid_s=stats["valid_s"],
         vcs=stats["vcs"], peak_mem_gib=peak, wall_s=wall,
         launches={c: v for c, v in counts.items() if v})
+    if variant == "ce":
+        result["ce_lines"] = ce_lines
     log("dqn phase: " + json.dumps(result))
     n_val = (iters - 1) // cfg.save_frequency + 1
+    if variant == "ce" and len(ce_lines) != 2 * n_val:
+        raise AssertionError("the CE run did not log its LMCC-DEBUG and CE-PRIOR lines")
     if len(stats["vcs"]) != n_val or not all(0.0 < v < 3.0 for v in stats["vcs"]):
         raise AssertionError("the DQN run's validation VCs are out of range")
     for f in ("latest.ckpt", "best_model.ckpt", f"ModelVC_{cfg.num_min}_{cfg.num_max}.csv",
@@ -1569,40 +1628,136 @@ def dqn_phase(device, cfg=None, iters=DQN_ITERS, more=DQN_MORE):
         raise AssertionError("latest.ckpt did not restore the agent's state")
     resumed.train(save_dir=save_dir, resume=True, log=log)
     step = resumed._state_dict()["adam_step"]
-    log(f"dqn resume: restored iteration {iters}, Adam step {iters} and both generators; "
+    log(f"dqn resume ({variant}): restored iteration {iters}, Adam step {iters} and both "
+        "generators; "
         f"continued to iteration {resumed.iteration}, Adam step {step}")
     if resumed.iteration != iters + more or step != iters + more:
         raise AssertionError("the resumed run did not continue from the saved iteration")
 
     # one train_step on the device and on the CPU, from the same parameters
+    held = hold_train_step(device, agent)
+    return dict(result, **held), agent
+
+
+@functools.lru_cache(maxsize=None)
+def gradient_rules():
+    """tests/gradient_rules.py, the train step's gradient rules that the CPU
+    tests hold the port to (it imports torch only), loaded once."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "gradient_rules", os.path.join(HERE, "tests", "gradient_rules.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _step_on(dev, agent, args, dtype=None, terms=False):
+    """One train_step of the agent's nets on `dev` (without an optimizer
+    step), its batch `args` moved there, floats in `dtype` when given (the
+    CPU's f64 referee).  terms: under gradient_rules.gate_terms, which
+    collects the gate leaves' terms.  Returns (loss, td, the net, the
+    gate leaves' Σ|terms| or None)."""
+    import contextlib
+    import copy
+
+    from mdcommunity_tpu_torch.rl.dqn import train_step
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    def move(v):
+        if v is None:
+            return None
+        if hasattr(v, "map"):
+            return v.map(lambda t: t.to(dev, dtype) if dtype and t.is_floating_point()
+                         else t.to(dev))
+        return v.to(dev, dtype) if dtype and v.is_floating_point() else v.to(dev)
+
+    a = {k: move(v) for k, v in args.items()}
+    net, tnet = (copy.deepcopy(m).to(dev) for m in (agent.net, agent.target_net))
+    if dtype is not None:
+        net, tnet = net.to(dtype), tnet.to(dtype)
+    hook = gradient_rules().gate_terms(net) if terms else contextlib.nullcontext()
+    with hook, matmul_precision(True):
+        loss, _, _, td = train_step(net, tnet, None, **a, **agent.step_options())
+    return loss.item(), td.double().cpu(), net, hook.sums() if terms else None
+
+
+def hold_train_step(device, agent):
+    """One replay batch of `agent` through train_step on `device` and on the
+    CPU (plain PyTorch) from the same parameters, by the rules of
+    tests/gradient_rules.py that the CPU tests hold the port to.  Unit
+    cost: the loss within 1e-5 relative, every gradient leaf within
+    GRAD_TOL of its max|grad| (a leaf under LEAF_FLOOR of the largest
+    leaf's is held against that floor).  CE: the same, the gate leaves
+    (the fusion bias logis_b, which cancels) also within TERMS_TOL of their
+    terms' absolute sum, from the CPU's run (tests/test_torch_variants_train.py).
+    HCA (tests/test_torch_hca_train.py's rule): the card's and the CPU's
+    f32 each against the CPU's f64 referee, the loss within 1e-5 relative,
+    each TD within HCA_TD_TOL of its operands' magnitude, each leaf within
+    GRAD_TOL of its own max|grad|, a gate leaf also within TERMS_TOL of its
+    terms.  Each leaf's error is logged against its own max; the readings
+    give the worst leaf's error as a share of its tolerance."""
+    import torch
+
+    rules = gradient_rules()
+    variant = agent.cfg.variant
     batch, _, iw, _ = agent.sample_batch()
     args = agent.step_args(batch, iw)
-    res = []
-    for dev in (device, "cpu"):
-        a = {k: (None if v is None else v.map(lambda t: t.to(dev)) if hasattr(v, "map")
-                 else v.to(dev)) for k, v in args.items()}
-        net, tnet = (copy.deepcopy(m).to(dev) for m in (agent.net, agent.target_net))
-        with matmul_precision(True):
-            loss = train_step(net, tnet, None, **a, **agent.step_options())[0]
-        res.append((loss.item(), {k: p.grad.detach().double().cpu()
-                                  for k, p in net.named_parameters()}))
-    (l_dev, g_dev), (l_cpu, g_cpu) = res
-    top = max(g.abs().max().item() for g in g_cpu.values())
-    worst, worst_own = 0.0, 0.0
-    for k, ref in g_cpu.items():
-        scale = ref.abs().max().item()
-        err = (g_dev[k] - ref).abs().max().item()
-        log(f"  train_step grad {k}: max|g| {scale:.3e}  {device} vs CPU {err:.3e} "
-            f"({err / max(scale, 1e-30):.3e} of its max)")
-        worst_own = max(worst_own, err / max(scale, 1e-30))
-        worst = max(worst, err / max(scale, LEAF_FLOOR * top))
-    rel = abs(l_dev - l_cpu) / abs(l_cpu)
-    log(f"dqn train_step {device} vs CPU: loss {l_dev:.9e} vs {l_cpu:.9e} (rel {rel:.3e}); "
-        f"worst gradient leaf {worst:.3e} of max(its max|grad|, {LEAF_FLOOR} x the largest "
-        f"leaf's), {worst_own:.3e} of its own max|grad|")
-    if not rel <= 1e-5 or not worst <= 1e-4:
-        raise AssertionError("the train step on the device differs from the CPU's")
-    return dict(result, train_step_loss_rel=rel, train_step_worst_leaf=worst)
+    l_dev, td_dev, n_dev = _step_on(device, agent, args)[:3]
+    l_cpu, td_cpu, n_cpu, terms = _step_on("cpu", agent, args, terms=variant == "ce")
+    g_dev, g_cpu = ({k: p.grad.detach().double().cpu().numpy() for k, p in n.named_parameters()}
+                    for n in (n_dev, n_cpu))
+    if variant != "hca":
+        tols = rules.leaf_tolerances(g_cpu, terms)
+        worst = 0.0
+        for k, ref in g_cpu.items():
+            scale = abs(ref).max()
+            err = abs(g_dev[k] - ref).max()
+            log(f"  {variant} train_step grad {k}: max|g| {scale:.3e}  {device} vs CPU "
+                f"{err:.3e} ({err / max(scale, 1e-30):.3e} of its max, "
+                f"{err / tols[k]:.3e} of its tolerance)")
+            worst = max(worst, err / tols[k])
+        rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        log(f"dqn train_step ({variant}) {device} vs CPU: loss {l_dev:.9e} vs {l_cpu:.9e} "
+            f"(rel {rel:.3e}); worst gradient leaf {worst:.3e} of its tolerance")
+        if not rel <= 1e-5 or not worst <= 1.0:
+            raise AssertionError(f"the {variant} train step on the device differs from the CPU's")
+        return dict(train_step_loss_rel=rel, train_step_worst_leaf=worst)
+    l_64, td_64, n_64, terms = _step_on("cpu", agent, args, torch.float64, terms=True)
+    g_64 = {k: p.grad.detach().cpu().numpy() for k, p in n_64.named_parameters()}
+    tols = rules.hca_leaf_tolerances(g_64, terms)
+    # Q(s, a) of the batch, for the TDs' magnitude
+    from mdcommunity_tpu_torch.rl.dqn import predict_q
+
+    q_all = predict_q(n_64, args["g"].map(lambda t: t.cpu().double() if t.is_floating_point()
+                                          else t.cpu()),
+                      args["covered_st"].cpu(), args["sever_st"].cpu(), "hca")
+    q_sa = q_all[torch.arange(q_all.shape[0]), args["actions"].cpu()]
+    mag = torch.clamp(torch.maximum(q_sa.abs(), (q_sa + td_64).abs()), min=1.0)
+    out = {}
+    for name, loss, td, grads in (("card", l_dev, td_dev, g_dev), ("cpu", l_cpu, td_cpu, g_cpu)):
+        rel = abs(loss - l_64) / abs(l_64)
+        td_share = ((td - td_64).abs() / mag).max().item()
+        worst = 0.0
+        for k, ref in g_64.items():
+            scale = abs(ref).max()
+            err = abs(grads[k] - ref).max()
+            share = err / tols[k] if tols[k] else (0.0 if err == 0 else float("inf"))
+            if name == "card":
+                log(f"  hca train_step grad {k}: max|g| {scale:.3e}  card vs CPU f64 "
+                    f"{err:.3e} ({err / max(scale, 1e-300):.3e} of its max, "
+                    f"{share:.3e} of its tolerance)")
+            worst = max(worst, share)
+        out[name] = dict(loss_rel=rel, td_share=td_share, worst_leaf=worst)
+    log(f"dqn train_step (hca) vs the CPU's f64: loss {l_64:.9e}, logis_b's Σ|terms| "
+        f"{terms['fusion.logis_b'][0]:.3e}, " + json.dumps(out))
+    for o in out.values():
+        if (not o["loss_rel"] <= 1e-5 or not o["td_share"] <= rules.HCA_TD_TOL
+                or not o["worst_leaf"] <= 1.0):
+            raise AssertionError("the hca train step on the device or the CPU differs from "
+                                 "the CPU's f64 referee beyond the HCA rule")
+    return dict(train_step_loss_rel=out["card"]["loss_rel"],
+                train_step_worst_leaf=out["card"]["worst_leaf"])
 
 
 def _leaves(tree):
@@ -2585,10 +2740,11 @@ def yardstick(dbg, h, col, dtype, own=False):
     return ms
 
 
-def time_epi_kernels(device, banded, label):
+def time_epi_kernels(device, banded, label, timed=True):
     """K2's bf16 epilogue in its three modes at D = 64 on layer 0 of `banded`
     (spill-free) beside its bound (K2's), its plain version and the library
-    yardstick, after a check at these shapes.  Returns numbers by counter."""
+    yardstick, after a check at these shapes.  Returns numbers by counter
+    (timed=False: the checks' errors only)."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
@@ -2598,7 +2754,8 @@ def time_epi_kernels(device, banded, label):
     h, live = operands(dbg, 64, 5, device)
     h = torch.nn.functional.normalize(h, dim=-1)
     aw, bw = sage_weights(device)
-    lib = {dt: yardstick(dbg, h, live, dt) for dt in (torch.float32, torch.bfloat16)}
+    lib = {dt: yardstick(dbg, h, live, dt) for dt in (torch.float32, torch.bfloat16)
+           if timed}
     res, nib = {}, "_nib" if dbg.nibble else ""
     for name, precise, store in EPI_MODES:
         hh = h.to(getattr(torch, store)).contiguous()
@@ -2611,6 +2768,9 @@ def time_epi_kernels(device, banded, label):
             return bk.sage_step_plain(dbg, live, live, hh, sub, aw, bw, precise, False)
 
         err = compare_epi(f"{label} {name + nib}", kern(), plain())
+        if not timed:
+            res[name + nib] = dict(max_abs_err=err)
+            continue
         bound_ms, bound_by = bounds(dbg, 64, True, 2 if store == "bfloat16" else 4,
                                     PEAK_F32_S if precise else PEAK_BF16_S,
                                     epi_rate=PEAK_BF16_S)
@@ -2648,14 +2808,15 @@ def diag_bounds(dbg, D, diag, precise):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def time_diag_kernels(device, banded, label):
+def time_diag_kernels(device, banded, label, timed=True):
     """K1's four timing variants in the f32 and bf16 modes at D = 64 on
     layer 0 of `banded`, beside their bounds (diag_bounds), their references
     (diag_reference) and, for noscale (the unscaled operator) and hlin (the
     band's own columns), the library yardstick (`yardstick`).  nodot (a
     roll of col ⊙ h and a row scale) and noh (the mirror expansion and a row
     scale) have none: no one PyTorch call computes either.  noh and hlin
-    need the card.  Returns numbers by counter."""
+    need the card.  Returns numbers by counter (timed=False: the checks'
+    errors only)."""
     import torch
 
     from mdcommunity_tpu_torch.ops import band_kernels as bk
@@ -2668,11 +2829,11 @@ def time_diag_kernels(device, banded, label):
     for precise in (True, False):
         sub = mirror_sub(dbg, live, h, precise)
         dt = torch.float32 if precise else torch.bfloat16
-        lib = {"noscale": yardstick(dbg, h, ones, dt)}
+        lib = {"noscale": yardstick(dbg, h, ones, dt)} if timed else {}
         for d in DIAG_NAMES:
             if device == "cpu" and d in ("noh", "hlin"):
                 continue
-            if d == "hlin":
+            if d == "hlin" and timed:
                 lib[d] = yardstick(dbg, h, live, dt, own=True)
 
             def kern(d=d):
@@ -2683,6 +2844,9 @@ def time_diag_kernels(device, banded, label):
 
             name = f"band_spmm{'' if precise else '_bf16'}_diag_{d}"
             err = compare(f"{label} {name}", kern(), plain())
+            if not timed:
+                res[name] = dict(max_abs_err=err)
+                continue
             bound_ms, bound_by = diag_bounds(dbg, 64, d, precise)
             res[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bound_ms,
                              bound_by=bound_by, max_abs_err=err,
@@ -2691,12 +2855,12 @@ def time_diag_kernels(device, banded, label):
     return res
 
 
-def time_stream(device, banded, label, G=8):
+def time_stream(device, banded, label, G=8, timed=True):
     """The stream probe over layer 0's stored base [nb, S+C, W2] in groups
     of G blocks, with and without the masked reductions, beside its bound
     (the base read once), its plain version and, without them, the library
     call torch.sum(..., dtype=float32) of the same groups.  Returns numbers
-    by counter."""
+    by counter (timed=False: the checks' errors only)."""
     import torch
 
     from mdcommunity_tpu_torch.ops.probe_kernels import stream_sum, stream_sum_plain
@@ -2710,6 +2874,9 @@ def time_stream(device, banded, label, G=8):
         err = (stream_sum(x, G, extra) - stream_sum_plain(x, G, extra)).abs().max().item()
         if err != 0:
             raise AssertionError(f"{label} {name}: kernel disagrees with its plain version")
+        if not timed:
+            res[name] = dict(max_abs_err=err)
+            continue
         res[name] = dict(
             ms=time_ms(lambda: stream_sum(x, G, extra)),
             plain_ms=time_ms(lambda: stream_sum_plain(x, G, extra)),
@@ -2720,21 +2887,21 @@ def time_stream(device, banded, label, G=8):
     return res
 
 
-def time_slice6(device, banded, nib, nib_clean, label):
+def time_slice6(device, banded, nib, nib_clean, label, timed=True):
     """This slice's modes at `banded`'s shapes: K2's bf16 epilogue, K1's diag
     variants and the stream probe on `banded`; K1, K1's backward, K2 with
     either epilogue and their bf16 modes on the nibble build `nib`, and K3
     on the spill-free nibble build `nib_clean` (synth_banded(nibble=True)).
-    Returns numbers by counter."""
+    Returns numbers by counter (timed=False: the checks' errors only)."""
     import torch
 
-    res = time_epi_kernels(device, banded, label)
-    res.update(time_diag_kernels(device, banded, label))
-    res.update(time_stream(device, banded, label))
-    res.update(time_kernels(device, nib, label))
-    res.update(time_bf16_kernels(device, nib, label))
-    res.update(time_epi_kernels(device, nib, label))
-    res.update(time_halo_kernels(device, nib_clean, label))
+    res = time_epi_kernels(device, banded, label, timed)
+    res.update(time_diag_kernels(device, banded, label, timed))
+    res.update(time_stream(device, banded, label, timed=timed))
+    res.update(time_kernels(device, nib, label, timed))
+    res.update(time_bf16_kernels(device, nib, label, timed))
+    res.update(time_epi_kernels(device, nib, label, timed))
+    res.update(time_halo_kernels(device, nib_clean, label, timed=timed))
     if device != "cpu":
         torch.cuda.empty_cache()
     return res
@@ -2743,7 +2910,9 @@ def time_slice6(device, banded, nib, nib_clean, label):
 def probe_phase(device, small=False):
     """The slice's path: the four probe entry points through their mains,
     probe_f32_epi at 18,222 nodes and bench_nibble (its check at 2^16
-    rows), tune_band --diag and probe_hbm_roof at 2^20 (few repetitions),
+    rows, its timing at 2^18: the 2^20 nibble modes are held in main's
+    2^20-row checks), tune_band --diag and probe_hbm_roof at 2^20 (few
+    repetitions),
     every launch count set to 0 just before and read just after.  small:
     the CPU rehearsal's sizes.  Returns the counts."""
     from mdcommunity_tpu_torch import bench_nibble, probe_f32_epi, probe_hbm_roof, tune_band
@@ -2756,7 +2925,7 @@ def probe_phase(device, small=False):
     runs = [
         (probe_f32_epi, ["--n", "2048"] if small else []),
         (bench_nibble, ["--n-check", "4096", "--n", "4096"] if small else
-         ["--n-check", str(1 << 16)]),
+         ["--n-check", str(1 << 16), "--n", str(1 << 18)]),
         (tune_band, ["--diag"] + (["--n", "4096"] if small else [])),
         (probe_hbm_roof, ["--n", "4096"] if small else []),
     ]
@@ -3205,6 +3374,325 @@ def variant_phase(device, n=18222, step_ratio=0.001, lockstep=VARIANT_LOCKSTEP,
     return counts, results, comm
 
 
+# ---------------------------------------------------------------- the variants' training
+
+VT_ITERS = 101         # CE's and HCA's small-graph runs: validations at 0 and 100
+VT_MORE = 5            # the resumed runs' iterations
+# the small-graph runs keep Config()'s width (D = 64, batch 64, 32 envs,
+# 30-50-node graphs) with smaller pools and warm-up than a 31k-iteration run
+# needs: 200 training and 100 validation graphs, 2 warm-up games of 100
+# episodes
+VT_POOLS = dict(n_train=200, n_valid=100, warmup_games=2)
+VT_ROLLOUT_STEPS = 8   # eps = 0 steps held card against CPU (one rollout chunk)
+VT_BANDED_ITERS = 6    # the banded loops' iterations (target_update 3)
+VT_CE_K = 256          # actions an iteration of CE's banded loop at 18,222 nodes
+
+
+def _to_device(x, device):
+    """A copy of x, a tensor or a dataclass of them (nested), on `device`."""
+    import dataclasses
+
+    import torch
+
+    if torch.is_tensor(x):
+        return x.to(device)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _to_device(getattr(x, f.name), device)
+                                         for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def rollout_hold(device, agent, steps=VT_ROLLOUT_STEPS):
+    """`steps` one-step chunks of rollout_autoreset at eps = 0 from the
+    trained agent's env vector, with the agent's own flags (CE: ce_prune;
+    HCA: hca_bridge with its beta and tau), on `device` and on the CPU from
+    the same nets, states and generator seed: identical actions, and
+    rewards (the bridge bonus included) within 1e-6 relative, up to the
+    first step whose actions differ, which must be a near-tie (near_tie on
+    the variant's Q, pruned for CE).  Returns (steps held, the parting or
+    None)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.env.env import prune_q_to_boundary
+    from mdcommunity_tpu_torch.rl.dqn import fetch_history, predict_q, rollout_autoreset
+
+    c = agent.cfg
+    if agent._env_state is None:
+        agent._reset_envs()
+    pool = agent.train_pool
+    kw = dict(gid_lo=pool.base, gid_hi=pool.base + pool.pool_size, n_steps=1,
+              variant=c.variant, degree_cost=agent.degree_cost,
+              ce_prune=c.variant == "ce" and c.action_pruning_train,
+              hca_bridge=c.variant == "hca" and c.hca_bridge_effective,
+              hca_beta=c.hca_beta, hca_tau=c.hca_tau)
+    side = {}
+    for dev in (device, "cpu"):
+        side[dev] = dict(
+            net=copy.deepcopy(agent.net).to(dev), pool_g=_to_device(pool.stacked, dev),
+            pool_s0=_to_device(pool.stacked_s0, dev),
+            carry=(torch.as_tensor(agent._env_gids, device=dev),
+                   _to_device(agent._env_graphs, dev), _to_device(agent._env_state, dev)),
+            gen=torch.Generator().manual_seed(17))
+    parting = None
+    for step in range(steps):
+        out = {}
+        for dev, sd in side.items():
+            carry, hist = rollout_autoreset(sd["net"], sd["pool_g"], sd["pool_s0"],
+                                            *sd["carry"], sd["gen"], 0.0, **kw)
+            out[dev] = (carry, fetch_history(hist, carry[0])[0])
+        hd, hc = out[device][1], out["cpu"][1]
+        if not np.array_equal(hd["actions"], hc["actions"]):
+            qs = []
+            for dev in (device, "cpu"):
+                gg, ss = side[dev]["carry"][1:]
+                q = predict_q(side[dev]["net"], gg, ss.covered, ss.sever, c.variant)
+                if kw["ce_prune"]:
+                    q = prune_q_to_boundary(q, gg.boundary)
+                qs.append(q.double().cpu().numpy())
+            b = int(np.flatnonzero(hd["actions"][0] != hc["actions"][0])[0])
+            x, y = int(hd["actions"][0, b]), int(hc["actions"][0, b])
+            parting = dict(step=step, env=b, card_takes=x, cpu_takes=y,
+                           q_card=[qs[0][b, x], qs[0][b, y]], q_cpu=[qs[1][b, x], qs[1][b, y]],
+                           tie=near_tie(qs[0][b], qs[1][b], x, y))
+            log(f"{c.variant} rollout, card vs CPU: first parting " + json.dumps(parting))
+            if not parting["tie"]:
+                raise AssertionError(f"the {c.variant} rollout parts from the CPU's on a "
+                                     "decision that is not a near-tie")
+            break
+        for k in ("covered", "sever", "valid", "done", "gid"):
+            if not np.array_equal(hd[k], hc[k]):
+                raise AssertionError(f"the {c.variant} rollout's {k} differs from the CPU's")
+        if not np.allclose(hd["rewards"], hc["rewards"], rtol=1e-6, atol=0):
+            raise AssertionError(f"the {c.variant} rollout's rewards differ from the CPU's")
+        for dev in side:
+            side[dev]["carry"] = out[dev][0]
+    else:
+        step = steps
+    flags = {k: v for k, v in kw.items() if k in ("ce_prune", "hca_bridge")}
+    log(f"{c.variant} rollout (eps = 0, {json.dumps(flags)}): "
+        f"{step} steps of {len(agent._env_gids)} envs identical on the card and the CPU"
+        + ("" if parting is None else ", then a near-tie parting"))
+    return step, parting
+
+
+def banded_loop_hold(device, variant, net, banded, edges, k, weights=None,
+                     iters=VT_BANDED_ITERS):
+    """train_banded_loop(variant=) for `iters` iterations (target_update 3)
+    on `banded` (its host env with the band-order `weights` for degree
+    cost), counts set to 0 just before and read just after: finite fitted
+    losses, moved parameters, env.t equal to the removals the loop counted,
+    band_spmm and band_spmm_bwd launched, and band_sage where the build is
+    spill-free.  The first fit's loss on the card is held to the CPU's plain
+    loss on the same state (its operands, covered mask, actions and
+    targets copied there) within 1e-5 of the loss's terms before they
+    cancel.  The loss is mean((Q - t)²) + α·reg: where Q - t is a few
+    percent of |Q| (4% on the degree-cost state at 2^20 nodes) an error δ
+    relative in Q moves the first part by 2·rms(t)·sqrt(mse)·δ, and reg
+    is Σ_l 2(quad_l - cross_l)/|E_l| with quad_l/|E_l| ≤ 1 (unit rows), a
+    difference of terms up to 4 in all.  So the loss is held to 1e-5·(2·
+    rms(t)·sqrt(loss) + 4α) absolute (mse ≤ loss), the f32 error of those
+    terms with room (1e-5 of the loss itself would fail on the f32
+    kernels' own rounding where the loss cancels).  On the card the
+    same first loss is also taken at two lower precisions, the controls:
+    the band operator in K1's bf16 mode (precise=False) and the dense
+    layers in TF32 (matmul_precision(False)); each must land outside the
+    bound, so that the bound tells an f32 fit from either.  Their launches
+    are taken back out of the counts.  Returns (counts, readings)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.env.host_env import make_host_env
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.rl import big_trainer
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    on_card = device != "cpu"
+    env = make_host_env(banded.n_nodes, *edges, weights=weights, engine="native")
+    real = big_trainer.banded_train_loss
+    first = {}
+
+    def loss_hold(net_, bdx, covered, actions, targets, **kw):
+        loss = real(net_, bdx, covered, actions, targets, **kw)
+        if not first:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ref = real(copy.deepcopy(net_).cpu(), _to_device(bdx, "cpu"), covered.cpu(),
+                           actions.cpu(), targets.cpu(), **dict(kw, remat=False))
+            rms_t = targets.double().square().mean().sqrt().item()
+            terms = 2.0 * rms_t * math.sqrt(ref.item()) + 4.0 * kw.get("alpha", 1e-3)
+            first.update(card=loss.item(), cpu=ref.item(), terms=terms,
+                         cpu_s=time.perf_counter() - t0, controls={})
+            if on_card:
+                counted = dict(bk.launches)
+                with torch.no_grad():
+                    first["controls"]["bf16_band"] = real(
+                        net_, bdx, covered, actions, targets, **dict(kw, precise=False)).item()
+                    with matmul_precision(False):
+                        first["controls"]["tf32_dense"] = real(
+                            net_, bdx, covered, actions, targets, **kw).item()
+                bk.launches.update(counted)
+        return loss
+
+    big_trainer.banded_train_loss = loss_hold
+    try:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        bk.reset_launches()
+        t0 = time.perf_counter()
+        net2, hist = big_trainer.train_banded_loop(net, banded, env, iters=iters, k=k,
+                                                   target_update=3, variant=variant,
+                                                   log=log, log_every=iters)
+        if on_card:
+            torch.cuda.synchronize()
+        counts = dict(bk.launches)
+        wall = time.perf_counter() - t0
+    finally:
+        big_trainer.banded_train_loss = real
+    rows = [h for h in hist if "loss" in h]
+    fitted = [h for h in rows if h["removed"] == k]
+    rel = abs(first["card"] - first["cpu"]) / abs(first["cpu"]) if first else float("nan")
+    tol = 1e-5 * first["terms"] / abs(first["cpu"]) if first else float("nan")
+    controls = {k: abs(v - first["cpu"]) / abs(first["cpu"])
+                for k, v in first.get("controls", {}).items()}
+    res = dict(variant=variant, pad_n=banded.pad_n, k=k, wall_s=wall,
+               fit_ms=1e3 * float(np.median([h["t_fit_s"] for h in fitted[1:]]))
+               if len(fitted) > 1 else None,
+               iter_p50_s=float(np.median([h["t_iter_s"] for h in rows])),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+               losses=[h["loss"] for h in rows], first_fit=first, first_fit_rel=rel,
+               first_fit_tol=tol, first_fit_controls_rel=controls,
+               launches={c: v for c, v in counts.items() if v})
+    log(f"banded loop ({variant}): " + json.dumps(res))
+    if not fitted or not np.isfinite([h["loss"] for h in fitted]).all():
+        raise AssertionError(f"the {variant} loop did not fit full batches to a finite loss")
+    if not sum((a - b.detach()).abs().sum().item()
+               for a, b in zip(net.parameters(), net2.parameters())) > 0:
+        raise AssertionError(f"the {variant} loop did not move the parameters")
+    if env.t != sum(h["removed"] for h in rows):
+        raise AssertionError(f"the {variant} loop's env.t differs from its removals")
+    if not rel <= tol:
+        raise AssertionError(f"the {variant} loop's first fit differs from the CPU's loss")
+    for name, r in controls.items():
+        if not r > tol:
+            raise AssertionError(f"the {variant} first fit's bound does not tell the f32 fit "
+                                 f"from the {name} control")
+    want = ["band_spmm", "band_spmm_bwd"] + (["band_sage"] if banded.spill_free else [])
+    for name in want:
+        if on_card and counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the {variant} loop")
+    return counts, res
+
+
+def live_scales_hold(device, dbg):
+    """live_scales(mean|gcn) on the card against its plain version on the
+    CPU, in both precise modes: its live-degree pass is K1 at D = 1, on 0/1
+    operands with integer sums, so the scales are bit-equal.  Counts set to
+    0 just before each call and read just after.  Returns the counts."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops.dense_band import live_scales
+
+    g = torch.Generator().manual_seed(21)
+    covered = torch.rand(dbg.pad_n, generator=g) < 0.1
+    covered[dbg.n:] = True
+    cpu = _to_device(dbg, "cpu")
+    total = dict.fromkeys(bk.launches, 0)
+    for agg in ("mean", "gcn"):
+        for precise in (True, False):
+            bk.reset_launches()
+            got = live_scales(dbg, covered.to(dbg.device), agg, precise)
+            counts = dict(bk.launches)
+            ref = live_scales(cpu, covered, agg, precise)
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+            name = "band_spmm" if precise else "band_spmm_bf16"
+            log(f"live_scales({agg}, precise={precise}) at pad_n={dbg.pad_n}: card = CPU "
+                f"{same}, {name} launches {counts[name]}")
+            if not same:
+                raise AssertionError(f"live_scales({agg}) on the card differs from the CPU's")
+            if dbg.device.type == "cuda" and counts[name] <= 0:
+                raise AssertionError(f"live_scales({agg}) did not launch {name}")
+            total = {c: total[c] + counts[c] for c in total}
+    return total
+
+
+def variant_train_phase(device, big, big_edges, k, n=18222, iters=VT_ITERS, more=VT_MORE,
+                        cfg=None, gp=GP, shard_iters=3):
+    """Slice D2's phase, the variants' training: CE's and HCA's small-graph
+    runs at `cfg` (Config()'s full width; dqn_phase, each with its resume
+    and its card-vs-CPU train_step), one eps = 0 rollout chunk of each on
+    the card against the CPU (rollout_hold), the degree-cost banded loop on
+    `big` with degree weights and the CE banded loop on the main path's
+    graph with its prior (banded_loop_hold), degree cost at gp shards beside
+    the unsharded loop (sharded_trainer_phase), and live_scales on the main
+    path's graph (live_scales_hold).  Returns (launch counts by path,
+    readings)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex
+    from mdcommunity_tpu_torch.graphs.gmm import _degree_weights
+    from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
+    from mdcommunity_tpu_torch.models.checkpoint import load_model
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    readings, counts = {}, {}
+    for variant in ("ce", "hca"):
+        t0 = time.perf_counter()
+        c = cfg or Config(save_frequency=iters - 1, **VT_POOLS)
+        readings[variant], agent = dqn_phase(device, c, iters, more, variant=variant)
+        readings[variant]["rollout"] = rollout_hold(device, agent)
+        log(f"variant training: the {variant} small-graph run took "
+            f"{time.perf_counter() - t0:.1f} s")
+        del agent
+
+    # degree cost on `big`: deg/maxdeg weights of its (band-order) edges
+    t0 = time.perf_counter()
+    n_big = big.n_nodes
+    w = _degree_weights(n_big, *big_edges)
+    w_pad = np.ones((2, big.pad_n), np.float32)
+    w_pad[:, :n_big] = w
+    big_dc = dataclasses.replace(big, weights=torch.from_numpy(w_pad).to(big.device))
+    net_dc = load_model(variant_ckpt("degree_cost"), device=device)
+    counts["degree_cost"], readings["degree_cost_loop"] = banded_loop_hold(
+        device, "degree_cost", net_dc, big_dc, big_edges, k, weights=w)
+    counts["degree_cost_gp"] = sharded_trainer_phase(
+        device, big_dc, big_edges, k, gp=gp, iters=shard_iters, variant="degree_cost",
+        ckpt=variant_ckpt("degree_cost"), weights=w)
+    if device != "cpu":
+        for name in ("band_halo", "band_halo_bwd"):
+            if counts["degree_cost_gp"][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the sharded "
+                                     "degree-cost loop")
+    del big_dc
+    log(f"variant training: the degree-cost loops took {time.perf_counter() - t0:.1f} s")
+
+    # CE on the main path's graph, with the prior the variants' phase made
+    t0 = time.perf_counter()
+    extra = STRUCTURES["ce"][0] if "ce" in STRUCTURES else variant_structure_timed("ce", n)[0]
+    raw = read_multiplex_edges(os.path.join(OUT, main_graph_file(n)), n)
+    banded_ce, _, edges_ce = build_banded_duplex(n, raw[1], raw[2], max_rank=0, device=device,
+                                                 node_feat=extra["node_feat"])
+    counts["ce"], readings["ce_loop"] = banded_loop_hold(
+        device, "ce", load_model(variant_ckpt("ce"), device=device), banded_ce, edges_ce,
+        min(VT_CE_K, n // 64))
+    counts["live_scales"] = live_scales_hold(device, banded_ce.dbg0)
+    del banded_ce
+    log(f"variant training: the CE loop and live_scales took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("variant training launches: " + json.dumps(
+        {p: {c: v for c, v in cs.items() if v} for p, cs in counts.items()}))
+    return counts, readings
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3257,6 +3745,11 @@ def main(argv=None):
         time_slice6("cpu", synth_banded(2048, True, 0, "cpu"),
                     synth_banded(2048, True, 0, "cpu", nibble=True),
                     synth_banded(2048, False, 0, "cpu", reorder=False, nibble=True), "rehearsal")
+        # the untimed holds at the 2^20 rows' build options
+        small_nib = synth_banded(2048, False, 0, "cpu", reorder=False, simple=True, nibble=True)
+        time_kernels("cpu", small, "rehearsal", timed=False)
+        time_bf16_kernels("cpu", small, "rehearsal", timed=False)
+        time_slice6("cpu", small, small_nib, small_nib, "rehearsal", timed=False)
         probe_phase("cpu", small=True)
         import dataclasses
 
@@ -3266,6 +3759,9 @@ def main(argv=None):
                                              update_time=5), iters=11, more=2)
         variant_phase("cpu", 2048, 0.01, lockstep=5,
                       small=dict(sizes=(32, 48), n_graphs=2, n_valid=8))
+        variant_train_phase("cpu", small, edges, 16, n=2048, iters=11, more=2, gp=2,
+                            cfg=dataclasses.replace(Config().smoke, save_frequency=5,
+                                                    update_time=5))
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -3309,13 +3805,18 @@ def main(argv=None):
     lap("18,432-row timings")
     big, big_edges = synth_banded(1 << 20, False, 0, device, reorder=False,
                                   with_edges=True)
-    time_kernels(device, big, "2^20 rows")
-    time_bf16_kernels(device, big, "2^20 rows")
+    lap("2^20-row build")
+    # the same kernels against their plain versions at the 2^20 rows that
+    # the training, bf16-fit, variant-training and probe paths give them;
+    # their times there are time_band_rows.py's (PERF.md §6)
     big_nib = synth_banded(1 << 20, False, 0, device, reorder=False, simple=True, nibble=True)
-    time_slice6(device, big, big_nib, big_nib, "2^20 rows")
+    for more in (time_kernels(device, big, "2^20 rows", timed=False),
+                 time_bf16_kernels(device, big, "2^20 rows", timed=False),
+                 time_slice6(device, big, big_nib, big_nib, "2^20 rows", timed=False)):
+        errs.update({k: max(v["max_abs_err"], errs.get(k, 0.0)) for k, v in more.items()})
     del big_nib
     torch.cuda.empty_cache()
-    lap("2^20-row timings")
+    lap("2^20-row checks")
     blocked_errs, blocked_times = blocked_kernel_phases(device)
     lap("blocked kernels")
 
@@ -3346,8 +3847,6 @@ def main(argv=None):
             raise AssertionError(f"kernel {name} was not launched on the sharded path")
     lap("sharded paths")
     bf16_fit_counts = bf16_fit_phase(device, big, big_edges, 1048)
-    del big
-    torch.cuda.empty_cache()
     lap("bf16 fit")
 
     probe_counts = probe_phase(device)
@@ -3366,10 +3865,14 @@ def main(argv=None):
         if c[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on its path")
     lap("blocked path")
-    dqn = dqn_phase(device)
+    dqn = dqn_phase(device)[0]
     lap("dqn trainer")
     variant_counts, variants, comm = variant_phase(device)
     lap("variants")
+    vt_counts, vt = variant_train_phase(device, big, big_edges, 1048)
+    del big
+    torch.cuda.empty_cache()
+    lap("variant training")
 
     kernels = []
     for name, launched, replaces in (
@@ -3442,8 +3945,17 @@ def main(argv=None):
     for row in kernels:
         if row["name"] in ("band_spmm", "band_sage"):
             row["launches_variants"] = {v: c[row["name"]] for v, c in variant_counts.items()}
+        # slice D2's paths: the degree-cost and CE banded loops, degree cost
+        # at GP shards, and live_scales' degree pass (K1 at D = 1)
+        train = {p: c[row["name"]] for p, c in vt_counts.items() if c.get(row["name"])}
+        if train:
+            row["launches_variant_training"] = train
     log(f"fit gradient vs CPU f64: worst leaf error {fit_err:.3e} of its max |grad|")
     log("dqn trainer: " + json.dumps(dqn))
+    log("variant training: " + json.dumps(
+        {v: {k: r[k] for k in ("fit_iters_per_s", "vcs", "peak_mem_gib", "wall_s",
+                               "train_step_loss_rel", "train_step_worst_leaf", "rollout")}
+         for v, r in vt.items() if v in ("ce", "hca")}, default=str))
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -2,22 +2,25 @@
 subcommands the port runs).
 
 Usage:
-  python -m mdcommunity_tpu_torch.cli train --variant unit_cost [--smoke] [--resume] \\
-      [--save-dir DIR] [--seed S] [--max-iteration N] [--prioritized] [--gmm-g G]
+  python -m mdcommunity_tpu_torch.cli train --variant {unit_cost,degree_cost,ce,hca} \\
+      [--smoke] [--resume] [--save-dir DIR] [--seed S] [--max-iteration N] \\
+      [--prioritized] [--gmm-g G]
   python -m mdcommunity_tpu_torch.cli test-real --model M --data DIR -o OUT \\
       [--variant V] [--datasets ...] [--step-ratio R] [--batch-env] [--packed] [--fast]
   python -m mdcommunity_tpu_torch.cli test-synthetic --model M [--variant V] [--sizes 32 64 ...]
   python -m mdcommunity_tpu_torch.cli test-synthetic --model M --sizes 128 \\
       --sweep-param g --sweep-values 0.1 0.5 0.9
+  python -m mdcommunity_tpu_torch.cli check-features --variant {ce,hca} \\
+      [--feature {boundary,participation}] [--size N] [--seed S]
 
 A model is a JAX-package checkpoint (`models_tpu/*/best_model.ckpt`) or a
 reference torch checkpoint.  Everything runs on the CUDA card unless --cpu
 is given, which runs the plain PyTorch versions on the CPU.  The JAX
-package's baseline, analyze, summarize-edges, check-features and draw
-subcommands are not ported yet.  test-real and test-synthetic run every
-variant (unit_cost, degree_cost, ce, hca; --variant names the model's);
-train takes unit_cost and degree_cost (ce and hca raise until their
-training is ported).
+package's baseline, analyze, summarize-edges and draw subcommands are not
+ported yet.  train, test-real and test-synthetic run every variant
+(unit_cost, degree_cost, ce, hca; for the tests --variant names the
+model's).  As in the JAX package there is no --fusion flag: a fusion mode
+is Config(fusion=...) of rl/dqn.DQNAgent.
 """
 
 from __future__ import annotations
@@ -122,6 +125,32 @@ def cmd_test_synthetic(args):
         print(json.dumps(r))
 
 
+def cmd_check_features(args):
+    """Sanity check of CE's community prior or HCA's node features on a
+    fresh GMM graph, with the JAX package's output (reference
+    check_features.py: shape, range in [0, 1])."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.graphs.gmm import generate_pool
+    from mdcommunity_tpu_torch.utils.device import resolve_device
+
+    rng = np.random.default_rng(args.seed)
+    prior = "hca" if args.variant == "hca" else args.feature
+    (g,) = generate_pool(rng, 1, args.size, args.size, 64, 2048, False, prior,
+                         device=resolve_device(_device(args)))
+    if args.variant == "hca":
+        feats = g.hca_feat.cpu().numpy()[: args.size]
+        print("hca_feat shape (f_het, f_impact, f_roi):", feats.shape)
+        print("first 5 rows:\n", feats[:5])
+        print("f_het within [0,1]:", bool((feats[:, 0] >= 0).all() and (feats[:, 0] <= 1).all()))
+    else:
+        feats = g.node_feat.cpu().numpy()[:, : args.size]
+        print("prior feature shape:", feats.shape)
+        print("first 5 cols:\n", feats[:, :5])
+        print("min:", feats.min(), "max:", feats.max())
+        print("values within [0,1]:", bool((feats >= 0).all() and (feats <= 1).all()))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mdcommunity_tpu_torch")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -187,6 +216,13 @@ def main(argv=None):
     s.add_argument("--sweep-values", type=float, nargs="*",
                    default=[0.1, 0.3, 0.5, 0.7, 0.9])
     s.set_defaults(fn=cmd_test_synthetic)
+
+    cf = sub.add_parser("check-features", parents=[common])
+    cf.add_argument("--variant", default="ce", choices=["ce", "hca"])
+    cf.add_argument("--feature", default="boundary", choices=["boundary", "participation"])
+    cf.add_argument("--size", type=int, default=30)
+    cf.add_argument("--seed", type=int, default=0)
+    cf.set_defaults(fn=cmd_check_features)
 
     args = p.parse_args(argv)
     args.fn(args)

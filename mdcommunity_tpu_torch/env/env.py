@@ -158,12 +158,15 @@ def is_terminal(state: EnvState) -> torch.Tensor:
     return state.terminal
 
 
-def random_action(g, state: EnvState, u: torch.Tensor) -> torch.Tensor:
+def random_action(g, state: EnvState, u: torch.Tensor,
+                  boundary_first: bool = False) -> torch.Tensor:
     """Uniform over each graph's valid actions (reference randomAction,
     mvc_env.py:89-101), int64[B]: graph b takes its floor(u[b]·count)-th
     valid node in index order, for draws u f32/f64[B] in [0, 1) on g's
     device; a graph with no valid action gets node 0 (a masked no-op on a
-    terminal env).
+    terminal env).  boundary_first=True draws from the graph's CE boundary
+    candidates (valid and g.boundary) while any remain (reference
+    CEMultiDismantler/mvc_env.getValidActions :85-100).
 
     The JAX package draws with jax.random.categorical over 0/-inf logits
     from a jax.random key.  The port does not import JAX and cannot
@@ -171,17 +174,49 @@ def random_action(g, state: EnvState, u: torch.Tensor) -> torch.Tensor:
     torch.Generator (batched_random_actions), the same distribution with
     other numbers."""
     mask = valid_action_mask(g, state)
+    if boundary_first:
+        cand = mask & g.boundary
+        mask = torch.where(cand.any(dim=1, keepdim=True), cand, mask)
     cnt = mask.sum(dim=1)
     k = torch.minimum((u * cnt).to(torch.int64), (cnt - 1).clamp(min=0))
     pos = torch.cumsum(mask.to(torch.int64), dim=1) - 1
     return torch.argmax((mask & (pos == k[:, None])).to(torch.int8), dim=1)
 
 
-def batched_random_actions(g, state: EnvState,
-                           generator: torch.Generator) -> torch.Tensor:
+def batched_random_actions(g, state: EnvState, generator: torch.Generator,
+                           boundary_first: bool = False) -> torch.Tensor:
     """random_action with one uniform a graph drawn from `generator`, a
     torch.Generator on the CPU: the draws are made there and moved to g's
     device, so a run on the card and one on the CPU take the same actions
     from the same generator state."""
     u = torch.rand(state.covered.shape[0], generator=generator, dtype=torch.float64)
-    return random_action(g, state, u.to(g.device))
+    return random_action(g, state, u.to(g.device), boundary_first)
+
+
+def hca_bridge_bonus(g, state: EnvState, a: torch.Tensor, tau: float = 0.5) -> torch.Tensor:
+    """HCA's bridge-reward shaping term of a batch, f32[B] (the JAX
+    package's hca_bridge_bonus, vmapped), from the PRE-step state: the live
+    directed edges out of a[b] whose endpoints lie in different communities
+    of their layer, over a[b]'s live directed edges (+1e-6), both layers
+    counted, and 0 unless f_het(a[b]) > tau (reference
+    HCA-Dismantler/mvc_env.getReward :258-300, with the pre-removal
+    neighbourhood that Config.hca_bridge_effective asks for)."""
+    a = torch.as_tensor(a, device=g.device).to(torch.int64)
+    live = g.edge_mask & ~state.sever & endpoints_alive(g.src, g.dst, state.covered)
+    at_a = live & (g.src == a[:, None, None])                    # [B, 2, E]
+    inter = at_a & (torch.gather(g.comm_id, 2, g.src) != torch.gather(g.comm_id, 2, g.dst))
+    deg = at_a.sum(dim=(1, 2)).to(torch.float32)
+    bonus = inter.sum(dim=(1, 2)).to(torch.float32) / (deg + 1e-6)
+    f_het = torch.gather(g.hca_feat[..., 0], 1, a[:, None])[:, 0]
+    return torch.where(f_het > tau, bonus, torch.zeros_like(bonus))
+
+
+def prune_q_to_boundary(q: torch.Tensor, boundary: torch.Tensor) -> torch.Tensor:
+    """CE's divide-and-conquer action pruning (the JAX package's
+    prune_q_to_boundary; reference CEMultiDismantler/MultiDismantler_torch.
+    _apply_action_pruning :159-175): while a graph has a boundary node with
+    finite Q, every other node goes to -inf.  q [B, N] with invalid actions
+    at -inf already; boundary bool [B, N]."""
+    cand = boundary & torch.isfinite(q)
+    has = cand.any(dim=1, keepdim=True)
+    return torch.where(has & ~cand, torch.full_like(q, -float("inf")), q)

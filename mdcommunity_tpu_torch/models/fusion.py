@@ -13,18 +13,74 @@ Per row, with layer embeddings e_0, e_1 (predicting layer l):
 
 The three attention alternatives (LayerNodeAttention, Cosine_similarity,
 SemanticAttention) reduce exactly to out_l = f_l + f_o for a duplex graph,
-because their cross-layer weights cancel at two layers.  Modes are chosen by
-the parameter dict's keys, as in the JAX package; all four modes therefore
-run through `fuse`.
+because their cross-layer weights cancel at two layers: their attention
+parameters (FUSION_INITS) are kept for the parameter count and get a
+gradient of exactly 0, as in the reference and the JAX package.  Modes are
+chosen by the parameter dict's keys, as in the JAX package; all four modes
+therefore run through `fuse`.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 FusionParams = Dict[str, torch.Tensor]
+
+
+def _uniform(generator: torch.Generator, shape, bound: float) -> np.ndarray:
+    return ((torch.rand(shape, generator=generator) * 2 - 1) * bound).numpy()
+
+
+def _identity(dim: int) -> Dict[str, np.ndarray]:
+    return {"trans": np.eye(dim, dtype=np.float32), "bias": np.zeros(dim, np.float32)}
+
+
+def init_bitwise_logis(generator: torch.Generator, dim: int) -> Dict[str, np.ndarray]:
+    """BitwiseMultipyLogis' parameters (the JAX package's
+    init_bitwise_logis): trans = I, bias = 0, the logistic head uniform in
+    ±1/√dim.  Draws come from `generator` (the JAX package's from
+    jax.random: the same distributions, other numbers)."""
+    bound = 1.0 / np.sqrt(dim)
+    return {**_identity(dim), "logis_w": _uniform(generator, (dim, 1), bound),
+            "logis_b": _uniform(generator, (1,), bound)}
+
+
+def _xavier(generator: torch.Generator, shape) -> np.ndarray:
+    """torch.nn.init.xavier_uniform_ with gain 1.414 (the reference's init
+    of the attention and semantic parameters, mutil_layer_weight.py:20-21,
+    69-75), with the JAX package's fans: (shape[-2], shape[-1])."""
+    fan_in, fan_out = (shape[-2] if len(shape) > 1 else shape[-1]), shape[-1]
+    return _uniform(generator, shape, 1.414 * np.sqrt(6.0 / (fan_in + fan_out)))
+
+
+def init_layer_node_attention(generator: torch.Generator, dim: int) -> Dict[str, np.ndarray]:
+    """LayerNodeAttention_weight's parameters (reference :18-24)."""
+    return {**_identity(dim), "attention": _xavier(generator, (1, 2 * dim))}
+
+
+def init_cosine(generator: torch.Generator, dim: int) -> Dict[str, np.ndarray]:
+    """Cosine_similarity's parameters (reference :88-94)."""
+    return {**_identity(dim), "cos_attention": _xavier(generator, (1, 2 * dim))}
+
+
+def init_semantic(generator: torch.Generator, dim: int) -> Dict[str, np.ndarray]:
+    """SemanticAttention's parameters (reference :161-176)."""
+    return {**_identity(dim),
+            "attention": _xavier(generator, (1, 2 * dim)),
+            "sem_W": _xavier(generator, (dim, dim)),
+            "sem_b": _xavier(generator, (1, dim)),
+            "sem_q": _xavier(generator, (dim, 1))}
+
+
+FUSION_INITS = {
+    "bitwise_logis": init_bitwise_logis,
+    "layer_node_attention": init_layer_node_attention,
+    "cosine": init_cosine,
+    "semantic": init_semantic,
+}
 
 
 def bitwise_logis_fuse(

@@ -110,27 +110,30 @@ def make_hca_inputs(g, covered: torch.Tensor, sever: torch.Tensor, c_pad: int) -
     """HcaInputs of a batched DuplexGraph in states (covered [B, N], sever
     [B, 2, E]).  Every cell of member and comm_adj receives at most one
     nonzero (each node lies in one community; comm_adj is binarised), so
-    they are exact in any order."""
+    they are exact in any order.  The operands take hca_feat's dtype (f32;
+    f64 for a float64 reference run)."""
     B, pad_n = covered.shape
+    dt = g.hca_feat.dtype
     live = g.edge_mask & ~sever & endpoints_alive(g.src, g.dst, covered)  # [B, 2, E]
-    w = live.to(torch.float32)
-    deg = torch.zeros(w.shape[:-1] + (pad_n,), device=w.device).scatter_add_(-1, g.src, w)
+    w = live.to(dt)
+    deg = torch.zeros(w.shape[:-1] + (pad_n,), dtype=dt, device=w.device).scatter_add_(
+        -1, g.src, w)
     active = (~covered) & g.node_mask
     adj = dense_adjacency(g.src, g.dst, w, pad_n)
 
     f_roi = g.hca_feat[..., 2]
     member_w = torch.where(active, f_roi + 1e-6, torch.zeros_like(f_roi))      # [B, N]
     cid = torch.clamp(g.comm_id, 0, c_pad - 1)                                 # [B, 2, N]
-    member = torch.zeros(B, 2, c_pad, pad_n, device=w.device).scatter_add_(
+    member = torch.zeros(B, 2, c_pad, pad_n, dtype=dt, device=w.device).scatter_add_(
         2, cid[:, :, None, :], member_w[:, None, None, :].expand(B, 2, 1, pad_n))
     comm_real = torch.arange(c_pad, device=w.device) < g.n_comms[..., None]   # [B, 2, C]
 
     # live inter-community edges, binarised, and self loops on real communities
     cell = torch.gather(cid, 2, g.dst) * c_pad + torch.gather(cid, 2, g.src)
-    a = torch.zeros(B, 2, c_pad * c_pad, device=w.device).scatter_add_(2, cell, w)
-    a = (a > 0).to(torch.float32).reshape(B, 2, c_pad, c_pad)
-    eye = torch.eye(c_pad, device=w.device)
-    comm_adj = a * (1.0 - eye) + eye * comm_real[..., None].to(torch.float32)
+    a = torch.zeros(B, 2, c_pad * c_pad, dtype=dt, device=w.device).scatter_add_(2, cell, w)
+    a = (a > 0).to(dt).reshape(B, 2, c_pad, c_pad)
+    eye = torch.eye(c_pad, dtype=dt, device=w.device)
+    comm_adj = a * (1.0 - eye) + eye * comm_real[..., None].to(dt)
 
     node_input = torch.where(active[..., None], g.hca_feat, torch.zeros_like(g.hca_feat))
     return HcaInputs(adj=adj, member=member, comm_adj=comm_adj, comm_real=comm_real,

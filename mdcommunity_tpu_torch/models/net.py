@@ -47,7 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mdcommunity_tpu_torch.graphs.banded import ShardedBandedDuplex, shard_banded_duplex
-from mdcommunity_tpu_torch.models.fusion import fuse
+from mdcommunity_tpu_torch.models.fusion import FUSION_INITS, fuse
 from mdcommunity_tpu_torch.ops.aggregate import l2_normalize, segment_spmm
 from mdcommunity_tpu_torch.ops.band_kernels import sage_step
 from mdcommunity_tpu_torch.ops.blocked_kernels import blocked_spmm
@@ -140,22 +140,20 @@ def init_params(
     node_feat_dim: int = 2,
     gate_hidden: int = 128,
     w_init_std: float = 1.0,
+    fusion: str = "bitwise_logis",
 ) -> Dict[str, Union[np.ndarray, Dict[str, np.ndarray]]]:
     """A fresh parameter tree, as the JAX package's net.init_params makes
-    it with its default (BitwiseMultipyLogis) fusion: dense weights
-    fmod(normal·std, 2) (the reference's initializer), fusion trans = I and
-    bias = 0, the logistic head uniform in ±1/√d.  Draws come from
-    `generator` (the JAX package's from jax.random: the same distributions,
-    other numbers)."""
+    it: dense weights fmod(normal·std, 2) (the reference's initializer),
+    the fusion mode's parameters from models/fusion.FUSION_INITS[fusion].
+    Draws come from `generator` (the JAX package's from jax.random: the
+    same distributions, other numbers)."""
     d = embedding_size
+    if fusion not in FUSION_INITS:
+        raise ValueError(f"unknown fusion {fusion!r}; one of {sorted(FUSION_INITS)}")
 
     def normal(*shape):
         x = torch.randn(shape, generator=generator) * w_init_std
         return torch.fmod(x, 2.0).numpy()
-
-    def uniform(*shape):
-        bound = 1.0 / np.sqrt(d)
-        return ((torch.rand(shape, generator=generator) * 2 - 1) * bound).numpy()
 
     return {
         "w_n2l": normal(node_feat_dim, d),
@@ -167,12 +165,7 @@ def init_params(
         "cross_product": normal(d, 1),
         "w_layer1": normal(d, gate_hidden),
         "w_layer2": normal(gate_hidden, 1),
-        "fusion": {
-            "trans": np.eye(d, dtype=np.float32),
-            "bias": np.zeros(d, np.float32),
-            "logis_w": uniform(d, 1),
-            "logis_b": uniform(1),
-        },
+        "fusion": FUSION_INITS[fusion](generator, d),
     }
 
 
@@ -550,10 +543,14 @@ def banded_train_loss(
     remat: bool = True,
     mesh=None,
     precise: bool = True,
+    variant: str = "unit_cost",
 ) -> torch.Tensor:
     """DQN loss on one large BandedDuplex: MSE(Q[actions], targets) +
     alpha·Laplacian embedding regularizer (the JAX package's
-    net.banded_train_loss, unit cost).
+    net.banded_train_loss).  variant "unit_cost", "degree_cost" or "ce"
+    takes that variant's input columns (_banded_inputs: degree cost
+    [weight, 1] on active nodes, CE the unit-cost pair and the prior); the
+    JAX package has no banded HCA loss, so "hca" raises ValueError.
 
     actions: int [K] node ids, targets: f32 [K].  Every aggregation of the
     embedding and of the regularizer runs through BandSpmm, so its gradient
@@ -578,9 +575,14 @@ def banded_train_loss(
     scales for its gradient; their bf16 modes at precise=False), the
     actions' rows are gathered from the shards that own them, and the loss
     lies on the first shard's device."""
+    if variant == "hca":
+        raise ValueError("the JAX package has no banded HCA loss (its banded HCA forward, "
+                         "models/hca_banded.py, is eval only): train HCA with the "
+                         "small-graph DQNAgent")
     bdx, mesh = _on_mesh(bdx, mesh)
     with torch.no_grad():
-        node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered, mesh)
+        node_input, aux, active, live, deg = _banded_inputs(net, bdx, covered, mesh,
+                                                            variant)
     if mesh is None:
         agg = _banded_aggregate(bdx, live, spmm_dense_band_grad, precise)
     else:

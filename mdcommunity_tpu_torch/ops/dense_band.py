@@ -363,6 +363,28 @@ def spmm_dense_band(
     return out
 
 
+def live_scales(dbg: DenseBandGraph, covered: torch.Tensor, aggregator: str = "sum",
+                precise: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, col) scale pair of a covered-node mask (the JAX package's
+    live_scales): sum gives the 0/1 liveness on both sides, mean row =
+    live/live_deg and col = live, gcn live/sqrt(live_deg) on both sides.
+    The live degree is one band pass at D = 1 (kernel K1, in the mode
+    `precise` selects; its operands are 0/1 and its sums small integers,
+    exact in either)."""
+    live = (~covered[: dbg.pad_n]).to(torch.float32)
+    if aggregator == "sum":
+        return live, live
+    if aggregator not in ("mean", "gcn"):
+        raise ValueError(aggregator)
+    ones = torch.ones((dbg.pad_n, 1), dtype=torch.float32, device=live.device)
+    deg = spmm_dense_band(dbg, live, live, ones, precise=precise)[:, 0]
+    safe = torch.clamp(deg, min=1.0)
+    if aggregator == "mean":
+        return live / safe, live
+    s = live / torch.sqrt(safe)
+    return s, s
+
+
 def band_versions(dbg) -> Tuple:
     """The in-place edit counters of the tensors sever_edges writes; of
     every shard's for a ShardedBandGraph (parallel/band_partition.py), where

@@ -1,4 +1,5 @@
-"""DQN training on one large banded duplex (10^6 nodes), unit cost.
+"""DQN training on one large banded duplex (10^6 nodes): unit cost, degree
+cost and CE.
 
 The reference's Train() loop (MultiDismantler_torch.py:433-547: rollout,
 transitions, fit, target snapshot) at the scale of the large-graph eval, as
@@ -7,7 +8,9 @@ StepRatio macro-step.  The policy ranks all nodes, the top k (eps-mixed) are
 removed together, and one host cascade advances the environment.
 
 * A transition is (s_t, A_t, r_t, s_{t+1}): A_t the k actions of the
-  macro-step, r_t(a) = -norm_post/n per action (step_many's score contract).
+  macro-step, r_t(a) = -norm_post·cost(a) per action (step_many's score
+  contract): cost(a) = 1/n, or for degree cost 0.5·(w0[a]/Σw0 + w1[a]/Σw1)
+  from the build's band-order weights.
 * The TD target of every a in A_t is r_t(a) + gamma·max_a' Q_target(s_{t+1},
   a'), or r_t(a) at terminal.
 * The replay buffer is the episode stream: each macro-step is one fit batch
@@ -144,20 +147,40 @@ def train_banded_loop(
     train_banded_loop(precise=False)); with a mesh its gradient is K3's
     bf16 mode with swapped scales.  The dense layers' TF32 flags are set
     for each forward and fit and restored after it.  The JAX package's
-    pack_G (a TPU layout) is not ported."""
-    if variant != "unit_cost":
-        raise NotImplementedError(f"variant {variant!r}: only unit_cost is ported")
+    pack_G (a TPU layout) is not ported.
+
+    variant "degree_cost" or "ce" selects, bootstraps and fits with that
+    variant's input columns (banded_test_forward and banded_train_loss
+    with variant=; the JAX package's train_banded_loop(variant=)): banded0
+    carries them (BandedDuplex.weights, node_feat, in band order).  For
+    degree cost the reward factor is 0.5·(w0/Σw0 + w1/Σw1) of
+    banded0.weights[:, :n], and the env, which must hold the same
+    band-order weights, scores with step_many(degree_cost=True).  The JAX
+    package has no banded HCA trainer: "hca" raises ValueError."""
+    if variant == "hca":
+        raise ValueError("the JAX package has no banded HCA trainer (train_banded_loop "
+                         "runs unit_cost, degree_cost and ce): train HCA with the "
+                         "small-graph DQNAgent")
+    if variant not in ("unit_cost", "degree_cost", "ce"):
+        raise ValueError(f"unknown variant {variant!r}")
+    n = env.n
+    # per-action reward factors (step_many's score contract), as the JAX
+    # package forms them: f32 weights in band order, numpy sums
+    if variant == "degree_cost":
+        w = banded0.weights.cpu().numpy()[:, :n]
+        cost = 0.5 * (w[0] / max(w[0].sum(), 1e-9) + w[1] / max(w[1].sum(), 1e-9))
+    else:
+        cost = np.full(n, 1.0 / n)
     if mesh is not None:
         banded0 = shard_banded_duplex(mesh, banded0)
     device = banded0.device
     rng = np.random.default_rng(seed)
-    n, pad_n = env.n, banded0.pad_n
+    pad_n = banded0.pad_n
     fuse = packed and banded0.spill_free and mesh is None
 
     net = copy.deepcopy(net).to(device).requires_grad_(True)
     target = copy.deepcopy(net).requires_grad_(False)
     opt = torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    cost = np.full(n, 1.0 / n)
     cur, prev = fork_banded(banded0), fork_banded(banded0)
 
     def reset_episode() -> torch.Tensor:
@@ -179,7 +202,8 @@ def train_banded_loop(
 
         # --- action selection: device top-k, host eps mixing ------------
         with matmul_precision(precise):
-            q = banded_test_forward(net, cur, covered, fuse_sage=fuse, precise=precise)
+            q = banded_test_forward(net, cur, covered, fuse_sage=fuse, precise=precise,
+                                    variant=variant)
         vals, order = top_k_stable(q, k)
         ok = np.isfinite(vals) & ~env.covered[order]
         cut = int(np.argmin(ok)) if not ok.all() else len(ok)
@@ -203,7 +227,7 @@ def train_banded_loop(
         t1 = time.perf_counter()
 
         # --- env macro-step (one cascade), rewards ----------------------
-        _, new_sev, removed = env.step_many(acts)
+        _, new_sev, removed = env.step_many(acts, degree_cost=variant == "degree_cost")
         norm = env.rank / max(env.max_rank, 1)
         rewards = -norm * cost[acts]
         t2 = time.perf_counter()
@@ -225,7 +249,7 @@ def train_banded_loop(
         else:
             with matmul_precision(precise):
                 q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse,
-                                             precise=precise)
+                                             precise=precise, variant=variant)
             maxq = float(q_next.max())
             targets = rewards + gamma * maxq
         t4 = time.perf_counter()
@@ -238,7 +262,8 @@ def train_banded_loop(
                 opt.zero_grad(set_to_none=True)
                 with matmul_precision(precise):
                     loss = banded_train_loss(net, prev, prev_covered, acts_dev,
-                                             tgts_dev, alpha=alpha_recon, precise=precise)
+                                             tgts_dev, alpha=alpha_recon, precise=precise,
+                                             variant=variant)
                     loss.backward()
                 opt.step()
             loss_v = loss.item()

@@ -50,6 +50,8 @@ from mdcommunity_tpu_torch.env.env import (
     EnvState,
     batched_reset,
     batched_step,
+    hca_bridge_bonus,
+    prune_q_to_boundary,
     random_action,
 )
 from mdcommunity_tpu_torch.graphs.duplex import EpochGraphRing, GraphPool, index_graphs
@@ -72,18 +74,7 @@ from mdcommunity_tpu_torch.utils.device import (
 )
 from mdcommunity_tpu_torch.utils.profiling import ThroughputMeter, device_timer
 
-_TRAINED = ("unit_cost", "degree_cost")
 VARIANTS = ("unit_cost", "degree_cost", "ce", "hca")
-
-
-def _check_variant(variant: str) -> None:
-    """The agent trains unit and degree cost; CE's action pruning and HCA's
-    bridge reward and train step come with slice D2 (the variants'
-    training).  Validation and dismantling run every variant."""
-    if variant not in _TRAINED:
-        raise NotImplementedError(
-            f"training variant {variant!r} is not ported yet: CE's action pruning and "
-            "HCA's bridge reward and train step come with slice D2")
 
 
 def prior_feature(cfg: Config) -> str:
@@ -137,38 +128,89 @@ def train_step(
     the loss mean(w·(target - Q(s, a))²), or w·Huber with δ = 1, plus
     alpha_recon × the batched Laplacian regularizer, then one step of
     `optimizer`.  g is the batch's graphs, every tensor on net's device.
+    variant "hca" runs models/hca.hca_forward on make_hca_inputs(c_pad =
+    pad_n) for s' and s, and its Laplacian term hca_laplacian (JAX
+    rl/dqn.py:103-142); the others the base net on env/batch's inputs.
+
+    A parameter the loss does not reach (the attention leaves of the
+    additive fusion modes, HCA's unused base head) gets a gradient of
+    exactly 0, as jax.grad gives it, so the optimizer keeps a state for it.
 
     Returns (loss, mse, recon, td = target - Q(s, a)), detached, without a
     host sync.  optimizer=None leaves the gradients in the parameters'
     .grad and takes no step."""
+    if variant == "hca":
+        return _hca_train_step(net, target_net, optimizer, g, covered_st, sever_st, actions,
+                               rewards, covered_sp, sever_sp, terminal, is_weights, gamma,
+                               alpha_recon, use_double_dqn, use_huber, max_bp_iter)
     with torch.no_grad():
         inputs_sp = make_batch_inputs(g, covered_sp, sever_sp, dense=True, variant=variant)
         q_sp_t = test_forward(target_net, g, inputs_sp, max_bp_iter=max_bp_iter)
-        if use_double_dqn:
-            q_sp_o = test_forward(net, g, inputs_sp, max_bp_iter=max_bp_iter)
-            a_star = torch.argmax(q_sp_o, dim=1)
-            max_q = torch.gather(q_sp_t, 1, a_star[:, None])[:, 0]
-        else:
-            max_q = torch.amax(q_sp_t, dim=1)
-        max_q = torch.where(terminal, torch.zeros_like(max_q), max_q)
-        target = rewards + gamma * max_q
+        q_sp_o = (test_forward(net, g, inputs_sp, max_bp_iter=max_bp_iter)
+                  if use_double_dqn else None)
+        target = rewards + gamma * _max_q(q_sp_t, q_sp_o, terminal)
 
     inputs_st = make_batch_inputs(g, covered_st, sever_st, dense=True, variant=variant)
     q, h_f = train_forward(net, g, inputs_st, actions, max_bp_iter=max_bp_iter)
+    mse = _td_loss(q, target, is_weights, use_huber)
+    recon = laplacian_regularizer(
+        h_f, inputs_st.deg.transpose(0, 1),
+        lambda layer, h: _aggregate(g, inputs_st, layer, h))
+    return _finish_step(net, optimizer, mse, recon, alpha_recon, target - q)
+
+
+def _max_q(q_sp_t, q_sp_o, terminal):
+    """max_a' Q_target(s', a'), at the online net's argmax when q_sp_o is
+    given (double DQN), 0 at terminal."""
+    if q_sp_o is not None:
+        max_q = torch.gather(q_sp_t, 1, torch.argmax(q_sp_o, dim=1)[:, None])[:, 0]
+    else:
+        max_q = torch.amax(q_sp_t, dim=1)
+    return torch.where(terminal, torch.zeros_like(max_q), max_q)
+
+
+def _td_loss(q, target, is_weights, use_huber):
     if use_huber:
         per = F.huber_loss(q, target, reduction="none", delta=1.0)
     else:
         per = torch.square(target - q)
-    mse = torch.mean(per if is_weights is None else is_weights * per)
-    recon = laplacian_regularizer(
-        h_f, inputs_st.deg.transpose(0, 1),
-        lambda layer, h: _aggregate(g, inputs_st, layer, h))
+    return torch.mean(per if is_weights is None else is_weights * per)
+
+
+def _finish_step(net, optimizer, mse, recon, alpha_recon, td):
     loss = mse + alpha_recon * recon
     net.zero_grad(set_to_none=True)
     loss.backward()
+    for p in net.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     if optimizer is not None:
         optimizer.step()
-    return loss.detach(), mse.detach(), recon.detach(), (target - q).detach()
+    return loss.detach(), mse.detach(), recon.detach(), td.detach()
+
+
+def _hca_train_step(net, target_net, optimizer, g, covered_st, sever_st, actions, rewards,
+                    covered_sp, sever_sp, terminal, is_weights, gamma, alpha_recon,
+                    use_double_dqn, use_huber, max_bp_iter):
+    """train_step for HCA (JAX rl/dqn.py:103-142).  hca_forward is
+    differentiable in the parameters; its community ranking (a stable
+    argsort) carries no gradient, as jnp.argsort carries none.  The
+    unselected nodes' -1e9·w sentinel stays in the loss as it is, as in
+    the JAX package."""
+    from mdcommunity_tpu_torch.models.hca import hca_forward, hca_laplacian, make_hca_inputs
+
+    with torch.no_grad():
+        inputs_sp = make_hca_inputs(g, covered_sp, sever_sp, c_pad=g.pad_n)
+        q_sp_t = hca_forward(target_net, inputs_sp, max_bp_iter=max_bp_iter)[0]
+        q_sp_o = (hca_forward(net, inputs_sp, max_bp_iter=max_bp_iter)[0]
+                  if use_double_dqn else None)
+        target = rewards + gamma * _max_q(q_sp_t, q_sp_o, terminal)
+    inputs_st = make_hca_inputs(g, covered_st, sever_st, c_pad=g.pad_n)
+    q_all, h_f = hca_forward(net, inputs_st, max_bp_iter=max_bp_iter)
+    q = q_all[torch.arange(actions.shape[0], device=actions.device), actions]
+    mse = _td_loss(q, target, is_weights, use_huber)
+    recon = hca_laplacian(h_f, inputs_st)
+    return _finish_step(net, optimizer, mse, recon, alpha_recon, target - q)
 
 
 def _pack_bits_u8(x: torch.Tensor) -> torch.Tensor:
@@ -231,6 +273,10 @@ def rollout_autoreset(
     n_steps: int = 8,
     variant: str = "unit_cost",
     degree_cost: bool = False,
+    ce_prune: bool = False,
+    hca_bridge: bool = False,
+    hca_beta: float = 0.5,
+    hca_tau: float = 0.5,
 ):
     """n_steps eps-greedy env steps over the env vector, with auto-reset on
     the device (the JAX package's rollout_autoreset): an env that goes
@@ -245,6 +291,11 @@ def rollout_autoreset(
     loop and one copy to the device: the loop body has no host sync.  The
     JAX package's lax.scan is the Python loop.
 
+    ce_prune: CE's action pruning, Q pruned to the boundary
+    (env/env.prune_q_to_boundary) before the greedy argmax and random
+    draws boundary-first.  hca_bridge: every step's reward gains hca_beta ×
+    env/env.hca_bridge_bonus(tau = hca_tau) of the pre-step state.
+
     Returns ((gids, g, state) carry, history dict of [n_steps, B, ...]
     device tensors: gid, actions, rewards, covered, sever (bit-packed as
     _pack_bits_u8), valid, done); fetch_history brings it to the host."""
@@ -258,11 +309,15 @@ def rollout_autoreset(
     for s in range(n_steps):
         d = draws[s]
         q = predict_q(net, g, state.covered, state.sever, variant)
+        if ce_prune:
+            q = prune_q_to_boundary(q, g.boundary)
         greedy = torch.argmax(q, dim=1)
-        rand = random_action(g, state, d[1:1 + B])
+        rand = random_action(g, state, d[1:1 + B], boundary_first=ce_prune)
         actions = torch.where(d[0] >= eps, greedy, rand)
         valid = ~state.terminal  # False only for an s0-terminal fresh graph
         new_state, rewards = batched_step(g, state, actions, degree_cost)
+        if hca_bridge:
+            rewards = rewards + hca_beta * hca_bridge_bonus(g, state, actions, hca_tau)
         done = new_state.terminal
         for k, v in (("gid", gids), ("actions", actions), ("rewards", rewards),
                      ("covered", new_state.covered),
@@ -283,15 +338,19 @@ def rollout_autoreset(
 
 @torch.no_grad()
 def greedy_rollout(net, g, state: EnvState, variant: str = "unit_cost",
-                   degree_cost: bool = False, max_steps: int = 0) -> EnvState:
+                   degree_cost: bool = False, max_steps: int = 0,
+                   ce_prune: bool = False) -> EnvState:
     """Roll every env of the batch to terminal with greedy argmax actions
-    (the lowest index among equal maxima, as jnp.argmax); a Python loop in
-    place of the JAX package's lax.while_loop, one host sync a step."""
+    (the lowest index among equal maxima, as jnp.argmax), Q pruned to the
+    boundary first with ce_prune; a Python loop in place of the JAX
+    package's lax.while_loop, one host sync a step."""
     max_steps = max_steps or g.pad_n
     for _ in range(max_steps):
         if bool(state.terminal.all()):
             break
         q = predict_q(net, g, state.covered, state.sever, variant)
+        if ce_prune:
+            q = prune_q_to_boundary(q, g.boundary)
         state, _ = batched_step(g, state, torch.argmax(q, dim=1), degree_cost)
     return state
 
@@ -314,24 +373,36 @@ def make_valid_pool(cfg: Config, device=None) -> GraphPool:
     return pool
 
 
-def validation_score(net, g, variant: str = "unit_cost",
-                     degree_cost: bool = False) -> float:
+def validation_score(net, g, variant: str = "unit_cost", degree_cost: bool = False,
+                     ce_prune: bool = False, return_extras: bool = False):
     """Mean normalised dismantling cost over a batch of graphs: a batched
-    greedy rollout, score + remaining/(max_rank·N) per graph (reference
-    Test :738-755; the JAX package's DQNAgent.validate), at the matmul
-    precision the caller set."""
-    state = greedy_rollout(net, g, batched_reset(g), variant, degree_cost=degree_cost)
+    greedy rollout (CE's pruning with ce_prune), score +
+    remaining/(max_rank·N) per graph (reference Test :738-755; the JAX
+    package's DQNAgent.validate), at the matmul precision the caller set.
+    With return_extras, (mean, lmcc_final, audc): per graph the final rank
+    over max_rank and the mean of its normalised-LMCC curve, score·N /
+    max(removals, 1) (reference Test(return_lmcc=True) :913-951), as
+    numpy f32 arrays."""
+    state = greedy_rollout(net, g, batched_reset(g), variant, degree_cost=degree_cost,
+                           ce_prune=ce_prune)
     covered_cnt = torch.sum(state.covered & g.node_mask, dim=1)
     remain = (g.n_nodes - covered_cnt).to(torch.float32)
     n_f = g.n_nodes.to(torch.float32)
-    score = state.score + remain / (g.max_rank.to(torch.float32) * n_f)
-    return float(torch.mean(score))
+    max_rank = g.max_rank.to(torch.float32)
+    score = state.score + remain / (max_rank * n_f)
+    if not return_extras:
+        return float(torch.mean(score))
+    lmcc_final = state.rank.to(torch.float32) / max_rank
+    audc = state.score * n_f / torch.clamp(covered_cnt.to(torch.float32), min=1.0)
+    return float(torch.mean(score)), lmcc_final.cpu().numpy(), audc.cpu().numpy()
 
 
-def validate(net, pool: GraphPool, variant: str = "unit_cost") -> float:
+def validate(net, pool: GraphPool, variant: str = "unit_cost", ce_prune: bool = False,
+             return_extras: bool = False):
     """validation_score over the pool, in true f32 (TF32 off)."""
     set_precise_matmul()
-    return validation_score(net, pool.stacked, variant, variant == "degree_cost")
+    return validation_score(net, pool.stacked, variant, variant == "degree_cost",
+                            ce_prune, return_extras)
 
 
 # ---------------------------------------------------------------------------
@@ -341,17 +412,22 @@ def validate(net, pool: GraphPool, variant: str = "unit_cost") -> float:
 
 class DQNAgent:
     """The small-graph DQN trainer on one device (CUDA unless `device` names
-    another).  The JAX agent's `mesh=` (data-parallel replicas) is not
-    ported yet.  cfg.dtype == "bfloat16" runs the dense layers (and the
-    dense aggregation, a matmul) under utils/device.matmul_precision(False),
+    another), for every variant (unit_cost, degree_cost, ce, hca) and, for
+    the base net, every fusion mode of models/fusion.FUSION_INITS
+    (cfg.fusion; HCA fuses with BitwiseMultipyLogis whatever it says, as
+    in the JAX package).  CE prunes its actions to the boundary in play
+    (cfg.action_pruning_train) and validation (cfg.action_pruning_test);
+    HCA adds the bridge bonus to its rewards (cfg.hca_bridge_effective).
+    The JAX agent's `mesh=` (data-parallel replicas) is not ported yet.
+    cfg.dtype == "bfloat16" runs the dense layers (and the dense
+    aggregation, a matmul) under utils/device.matmul_precision(False),
     which on the card is TF32 (10-bit mantissas, f32 sums) for f32 tensors;
     "float32" runs them in true f32.  cfg.debug_nans turns on
     torch.autograd.set_detect_anomaly, process-wide."""
 
     def __init__(self, cfg: Config, seed: Optional[int] = None, device=None):
-        _check_variant(cfg.variant)
-        if cfg.fusion != "bitwise_logis":
-            raise NotImplementedError(f"fusion {cfg.fusion!r} is not ported")
+        if cfg.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {cfg.variant!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.debug_nans:
@@ -360,11 +436,16 @@ class DQNAgent:
         seed = cfg.seed if seed is None else seed
         self.nprng = np.random.default_rng(seed)
         self.generator = torch.Generator().manual_seed(seed)
-        params = init_params(
-            self.generator, embedding_size=cfg.embedding_size, reg_hidden=cfg.reg_hidden,
-            aux_dim=cfg.aux_dim, node_feat_dim=cfg.node_feat_dim,
-            gate_hidden=cfg.gate_hidden, w_init_std=cfg.w_init_std,
-        )
+        size = dict(embedding_size=cfg.embedding_size, reg_hidden=cfg.reg_hidden,
+                    aux_dim=cfg.aux_dim, gate_hidden=cfg.gate_hidden,
+                    w_init_std=cfg.w_init_std)
+        if cfg.variant == "hca":
+            from mdcommunity_tpu_torch.models.hca import init_hca_params
+
+            params = init_hca_params(self.generator, **size)
+        else:
+            params = init_params(self.generator, node_feat_dim=cfg.node_feat_dim,
+                                 fusion=cfg.fusion, **size)
         self.net = from_jax_params(params, self.device).requires_grad_(True)
         self.target_net = copy.deepcopy(self.net).requires_grad_(False)
         self.optimizer = torch.optim.Adam(self.net.parameters(), lr=cfg.learning_rate,
@@ -399,8 +480,8 @@ class DQNAgent:
     def _pool(self, count: int) -> List:
         c = self.cfg
         return generate_pool(self.nprng, count, c.num_min, c.num_max, c.pad_nodes,
-                             c.pad_edges, self.degree_cost, g_corr=c.gmm_g,
-                             device=self.device)
+                             c.pad_edges, self.degree_cost, prior_feature(c),
+                             g_corr=c.gmm_g, device=self.device)
 
     def gen_new_graphs(self):
         """Refresh the training pool (reference gen_new_graphs :151-160) as a
@@ -439,6 +520,9 @@ class DQNAgent:
             self.gen_new_graphs()
         if self._env_state is None:
             self._reset_envs()
+        c = self.cfg
+        ce_prune = c.variant == "ce" and c.action_pruning_train
+        hca_bridge = c.variant == "hca" and c.hca_bridge_effective
         pool = self.train_pool
         done, guard = 0, 0
         with self._prec():
@@ -449,8 +533,9 @@ class DQNAgent:
                     torch.as_tensor(self._env_gids, device=self.device),
                     self._env_graphs, self._env_state, self.generator, eps,
                     gid_lo=pool.base, gid_hi=pool.base + pool.pool_size,
-                    n_steps=self.cfg.rollout_chunk, variant=self.cfg.variant,
-                    degree_cost=self.degree_cost,
+                    n_steps=c.rollout_chunk, variant=c.variant,
+                    degree_cost=self.degree_cost, ce_prune=ce_prune,
+                    hca_bridge=hca_bridge, hca_beta=c.hca_beta, hca_tau=c.hca_tau,
                 )
                 hist, self._env_gids = fetch_history(hist, gids)
                 self._env_graphs, self._env_state = g, state
@@ -547,12 +632,29 @@ class DQNAgent:
             self._pending_prio = None
 
     # -- evaluation ------------------------------------------------------------
-    def validate(self) -> float:
+    def validate(self, return_extras: bool = False):
         """Mean normalised dismantling cost over the validation pool
-        (validation_score) at the agent's matmul precision."""
+        (validation_score, CE pruned with cfg.action_pruning_test) at the
+        agent's matmul precision; with return_extras also the per-graph
+        lmcc_final and audc arrays (the JAX agent's validate)."""
+        ce_prune = self.cfg.variant == "ce" and self.cfg.action_pruning_test
         with self._prec():
             return validation_score(self.net, self.valid_pool.stacked, self.cfg.variant,
-                                    self.degree_cost)
+                                    self.degree_cost, ce_prune, return_extras)
+
+    def _ce_prior_diagnostics(self) -> str:
+        """The CE-PRIOR line (reference :671-677; the JAX agent's): the mean
+        boundary-node share and each layer's mean prior feature over the
+        validation pool."""
+        g = self.valid_pool.stacked
+        nm = g.node_mask.cpu().numpy()
+        n = np.maximum(nm.sum(1), 1)
+        bratio = float(np.mean(g.boundary.cpu().numpy().sum(1) / n))
+        feat = g.node_feat.cpu().numpy()  # [B, 2, N]
+        f0 = float(np.mean(feat[:, 0].sum(1) / n))
+        f1 = float(np.mean(feat[:, 1].sum(1) / n))
+        return (f"CE-PRIOR feature={self.cfg.comm_prior_feature} "
+                f"boundary_ratio_mean={bratio:.6f} feat_mean=[{f0:.6f},{f1:.6f}]")
 
     # -- persistence -----------------------------------------------------------
     def _state_dict(self) -> dict:
@@ -667,7 +769,10 @@ class DQNAgent:
                         self.play_games(10, eps)
                 if it % cfg.save_frequency == 0:
                     t0 = time.time()
-                    frac = self.validate()
+                    if cfg.variant == "ce":
+                        frac, lmcc_final, audc = self.validate(return_extras=True)
+                    else:
+                        frac = self.validate()
                     st["valid_s"].append(time.time() - t0)
                     st["vcs"].append(frac)
                     if frac < best:
@@ -683,6 +788,14 @@ class DQNAgent:
                         f"play {prof.pop('play', 0.0):.1f}s, "
                         f"fit {fit_meter.rate:.1f} it/s)"
                     )
+                    if cfg.variant == "ce":
+                        # the reference's LMCC-DEBUG and CE-PRIOR lines (:636-677)
+                        log("LMCC-DEBUG "
+                            f"mean_final={float(np.mean(lmcc_final)):.6f} "
+                            f"var_final={float(np.var(lmcc_final)):.6f} "
+                            f"mean_audc={float(np.mean(audc)):.6f} "
+                            f"var_audc={float(np.var(audc)):.6f}")
+                        log(self._ce_prior_diagnostics())
                     t_window = time.perf_counter()
                     self.save(os.path.join(save_dir, "latest.ckpt"))
                     self.save(os.path.join(

@@ -243,15 +243,14 @@ def test_eps_mix_dedup_differs_from_jax(setup):
 
 
 def test_loop_refuses_what_is_not_ported(setup):
-    """The degree-cost variant is not ported (the bf16 fit is: see
-    tests/test_torch_bf16_fit.py); the sharded loop (mesh=) refuses a build
-    with spill edges and one whose band blocks its shards do not divide, as
-    the JAX package's does."""
+    """HCA has no banded trainer in the JAX package, so the loop refuses it
+    (degree cost and CE are ported: tests/test_torch_banded_variants_loop.py);
+    the sharded loop (mesh=) refuses a build with spill edges and one whose
+    band blocks its shards do not divide, as the JAX package's does."""
     (e0, _), banded, o0, o1, params = setup
     net = from_jax_params(params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        train_banded_loop(net, banded, _env(o0, o1), iters=1, variant="degree_cost",
-                          **QUIET)
+    with pytest.raises(ValueError, match="no banded HCA trainer"):
+        train_banded_loop(net, banded, _env(o0, o1), iters=1, variant="hca", **QUIET)
     ss, dd = np.concatenate([o0[:, 0], o0[:, 1]]), np.concatenate([o0[:, 1], o0[:, 0]])
     spilled = dataclasses.replace(banded, dbg0=build_dense_band(
         ss, dd, N, S=64, B=32, max_mirror=1, device="cpu"))

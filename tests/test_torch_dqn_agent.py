@@ -270,8 +270,12 @@ def test_cli_train_smoke_cpu(tmp_path, monkeypatch, capsys):
     d = str(tmp_path / "run") + "_SMOKE"
     assert os.path.isfile(os.path.join(d, "latest.ckpt"))
     assert "iter 0, eps 1.0000, mean vc" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="slice D"):
-        main(["train", "--smoke", "--cpu", "--variant", "ce"])
+    # every variant trains: CE writes its LMCC-DEBUG and CE-PRIOR lines
+    main(["train", "--smoke", "--cpu", "--save-dir", str(tmp_path / "ce"),
+          "--variant", "ce"])
+    out = capsys.readouterr().out
+    assert "LMCC-DEBUG mean_final=" in out and "CE-PRIOR feature=boundary" in out
+    assert os.path.isfile(os.path.join(str(tmp_path / "ce") + "_SMOKE", "latest.ckpt"))
 
 
 def test_random_actions_are_uniform_over_the_jax_valid_set():

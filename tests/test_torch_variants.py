@@ -1,8 +1,8 @@
 """The degree-cost, CE and HCA variants' small-graph dismantling against
 the JAX package: evaluate_real's small-graph path with each committed
 *_100k_r5 checkpoint (tests/variant_cases.py holds the trajectories to each
-other), `cli test-real --variant hca --cpu`, and the agent's refusal to
-train CE and HCA (slice D2)."""
+other), `cli test-real --variant hca --cpu`, and the agent building CE and HCA
+for training (slice D2)."""
 
 import os
 
@@ -67,12 +67,22 @@ def test_cli_test_real_hca_cpu(data, tmp_path, capsys):
 
 
 def test_agent_refuses_to_train_ce_and_hca():
+    """Since slice D2 the agent trains CE and HCA (held to the JAX package
+    in tests/test_torch_variants_train.py, test_torch_hca_train.py and their
+    agent files): it builds both, with HCA's net, and refuses only what the
+    JAX package has not, an unknown variant or fusion mode."""
+    from mdcommunity_tpu_torch.models.hca import HcaQNet
     from mdcommunity_tpu_torch.rl.dqn import DQNAgent
     from mdcommunity_tpu_torch.utils.config import Config
 
     for variant in ("ce", "hca"):
-        with pytest.raises(NotImplementedError, match="slice D2"):
-            DQNAgent(Config(variant=variant), device="cpu")
+        agent = DQNAgent(Config(variant=variant), device="cpu")
+        assert isinstance(agent.net, HcaQNet) == (variant == "hca")
+        assert agent.net.w_n2l.shape[0] == 3
+    with pytest.raises(ValueError, match="unknown variant"):
+        DQNAgent(Config(variant="leiden"), device="cpu")
+    with pytest.raises(ValueError, match="unknown fusion"):
+        DQNAgent(Config(fusion="gat"), device="cpu")
 
 
 def test_jax_synthetic_eval_leaves_out_the_prior():

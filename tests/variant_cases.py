@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from gradient_rules import gate_terms, leaf_tolerances
 
 from mdcommunity_tpu.env.env import batched_reset as jax_reset
 from mdcommunity_tpu.env.env import batched_step as jax_step
@@ -178,3 +179,157 @@ class JaxShadow:
                 gap_share_port=float(qt[b] - qt[a]) / (s_t or float("nan")),
                 tie=self.parting[1])
         self.removed += len(acts)
+
+
+# ------------------------------------------------- the variants' training
+
+
+TRAIN_PAD_N, TRAIN_PAD_E, TRAIN_B = 32, 256, 8
+PRIORS = {"unit_cost": "none", "degree_cost": "none", "ce": "boundary", "hca": "hca"}
+
+
+def train_pools(variant, count=TRAIN_B, seed=3):
+    """(JAX, port) stacks of `count` GMM graphs of 16-24 nodes with the
+    variant's prior, drawn from one seed: the same graphs in both."""
+    from mdcommunity_tpu.graphs.gmm import generate_pool as jax_pool
+    from mdcommunity_tpu_torch.graphs.gmm import generate_pool
+
+    args = (count, 16, 24, TRAIN_PAD_N, TRAIN_PAD_E, variant == "degree_cost",
+            PRIORS[variant])
+    return (jax_stack(jax_pool(np.random.default_rng(seed), *args)),
+            stack_graphs(generate_pool(np.random.default_rng(seed), *args, device="cpu")))
+
+
+def walk(jg, tg, steps, rng):
+    """Both packages' states after `steps` random live actions from reset,
+    and the actions taken (the same in both)."""
+    js, ts = jax_reset(jg), batched_reset(tg)
+    acts = []
+    for _ in range(steps):
+        q = np.where(ts.covered.numpy() | ~tg.node_mask.numpy(), -1.0,
+                     rng.random(ts.covered.shape))
+        a = np.argmax(q, axis=1)
+        js, _ = jax_step(jg, js, jnp.asarray(a))
+        ts, _ = batched_step(tg, ts, torch.from_numpy(a))
+        acts.append(a)
+    return js, ts, acts
+
+
+def step_case(variant, seed=3):
+    """One replay batch of both packages: graphs, s_t after 3 steps of a
+    seeded walk, its action the walk's 4th, s_{t+n} after 5 steps, seeded
+    rewards in (-1, 0], terminal flags and IS weights."""
+    jg, tg = train_pools(variant, seed=seed)
+    js0, ts0, _ = walk(jg, tg, 3, np.random.default_rng(seed + 2))
+    a_t = walk(jg, tg, 4, np.random.default_rng(seed + 2))[2][3]
+    js1, ts1, _ = walk(jg, tg, 5, np.random.default_rng(seed + 2))
+    rng = np.random.default_rng(seed + 3)
+    rewards = -rng.random(TRAIN_B).astype(np.float32)
+    terminal = rng.random(TRAIN_B) < 0.3
+    iw = rng.random(TRAIN_B).astype(np.float32)
+    return dict(jg=jg, tg=tg, js0=js0, ts0=ts0, a_t=a_t, js1=js1, ts1=ts1,
+                rewards=rewards, terminal=terminal, iw=iw)
+
+
+def jax_step_args(c, weights):
+    return (c["jg"], c["js0"].covered, c["js0"].sever, jnp.asarray(c["a_t"]),
+            jnp.asarray(c["rewards"]), c["js1"].covered, c["js1"].sever,
+            jnp.asarray(c["terminal"])), dict(
+        is_weights=jnp.asarray(c["iw"]) if weights else None)
+
+
+def port_step_args(c, weights, dtype=torch.float32):
+    """train_step's batch arguments of the port, its graphs' and rewards'
+    floats in `dtype` (float64 for a reference run)."""
+    g = c["tg"].map(lambda t: t.to(dtype) if t.is_floating_point() else t)
+    return dict(g=g, covered_st=c["ts0"].covered, sever_st=c["ts0"].sever,
+                actions=torch.from_numpy(c["a_t"]),
+                rewards=torch.from_numpy(c["rewards"]).to(dtype),
+                covered_sp=c["ts1"].covered, sever_sp=c["ts1"].sever,
+                terminal=torch.from_numpy(c["terminal"]),
+                is_weights=torch.from_numpy(c["iw"]).to(dtype) if weights else None)
+
+
+def grab():
+    """An optax transformation whose new state is the gradient: the JAX
+    train_step then returns its gradients as opt_state, its params unmoved."""
+    import optax
+
+    def zeros(t):
+        return jax.tree_util.tree_map(jnp.zeros_like, t)
+
+    return optax.GradientTransformation(zeros, lambda g, s, p=None: (zeros(g), g))
+
+
+def flat(tree, prefix=""):
+    """A parameter tree's leaves by dotted name, as numpy arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+RTOL = 1e-5
+
+
+def hold_train_step(params, target, c, variant, weights, opts):
+    """JAX's train_step and the port's on one batch (step_case), the JAX
+    parameters carried across: loss and mse at RTOL, the Laplacian term as
+    tests/test_torch_dqn.py holds it, the TD errors at RTOL of their max,
+    every gradient leaf under tests/gradient_rules.py's rule (GRAD_TOL of
+    its max|grad| with LEAF_FLOOR, a gate leaf TERMS_TOL of its terms, from
+    the port's run).  Returns the port's gradients."""
+    from mdcommunity_tpu.rl.dqn import train_step as jax_train_step
+    from mdcommunity_tpu_torch.models.net import from_jax_params
+    from mdcommunity_tpu_torch.rl.dqn import train_step as port_train_step
+
+    args, kw = jax_step_args(c, weights)
+    o = grab()
+    _, grads, jloss, jmse, jrecon, jtd = jax_train_step(
+        params, target, o.init(params), *args, variant=variant, optimizer=o, **kw, **opts)
+    net = from_jax_params(params, "cpu").requires_grad_(True)
+    with gate_terms(net) as terms:
+        loss, mse, recon, td = port_train_step(net, from_jax_params(target, "cpu"), None,
+                                              **port_step_args(c, weights), variant=variant,
+                                              **opts)
+    for name, got, ref in (("loss", loss, jloss), ("mse", mse, jmse)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, err_msg=name)
+    np.testing.assert_allclose(recon.numpy(), np.asarray(jrecon), rtol=RTOL, atol=4 * RTOL)
+    jtd = np.asarray(jtd)
+    np.testing.assert_allclose(td.numpy(), jtd, rtol=RTOL, atol=RTOL * np.abs(jtd).max())
+    ref = flat(grads)
+    got = {k: p.grad.numpy() for k, p in net.named_parameters()}
+    assert set(got) == set(ref)
+    for k, tol in leaf_tolerances(ref, terms.sums()).items():
+        assert np.abs(got[k] - ref[k]).max() <= tol, k
+    return got
+
+
+# the leaves an HCA loss does not reach (tests/test_torch_hca_train.py)
+HCA_ZERO_LEAVES = ("h1_weight", "h2_weight", "cross_product", "w_comm_score")
+
+
+def hca_step_nets():
+    """(params, target) of a fresh HCA net, the JAX package's
+    init_hca_params from keys 1 and 2, as numpy trees."""
+    from mdcommunity_tpu.models.hca import init_hca_params
+
+    return tuple(jax.tree_util.tree_map(np.asarray, init_hca_params(jax.random.PRNGKey(k)))
+                 for k in (1, 2))
+
+
+def hca_port_step(params, target, c, weights, opts, dtype, optimizer=None):
+    """The port's HCA train_step in `dtype` on step_case `c`, under
+    gate_terms; returns (outputs, the net, the gate_terms)."""
+    from mdcommunity_tpu_torch.models.net import from_jax_params
+    from mdcommunity_tpu_torch.rl import dqn
+
+    net = from_jax_params(params, "cpu").to(dtype).requires_grad_(True)
+    tnet = from_jax_params(target, "cpu").to(dtype)
+    with gate_terms(net) as terms:
+        out = dqn.train_step(net, tnet, optimizer, **port_step_args(c, weights, dtype),
+                             variant="hca", **opts)
+    return out, net, terms

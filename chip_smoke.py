@@ -125,7 +125,25 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      loop (K3 and its backward counted), and live_scales(mean|gcn) on the
      main path's graph, K1 at D = 1 in both precise modes, bit-equal to its
      plain version; counts set to 0 just before each path and read just
-     after.
+     after;
+ 14. the heuristic baselines and the remaining eval tools (baselines_phase;
+     no kernel of its own): the degree_max2 and ci_max2 rows of golden.json
+     on the card (rtol 1e-5); all five methods x both combines, plain, with
+     protect_frac = 0.05 and with the _syn stop, at 64 nodes on 2 graphs,
+     the card's solutions and scores identical to the CPU's; `cli baseline`
+     for degree and CI at 1,024 nodes (2 graphs) on the card and with
+     --cpu, identical lines, the seconds a graph logged; analyze on those
+     runs' time&audc files, summarize-edges on a written .edges file, draw
+     (a PNG, or where matplotlib is absent an ImportError naming it);
+     model_vs_heuristics at 64 nodes, 3 graphs, card rows = CPU rows;
+     ops/band_spmm.spmm_band on layer 0 of the main path's graph in its
+     locality order (S = 512, B = 256, D = 64, a non-empty overflow): the
+     forward and the gradients of the band weights, the overflow weights and
+     h within SPMM_BAND_TOL of max|ref| of float64 on the CPU, two calls
+     bit-equal, fwd+bwd ms beside BandSpmm's (K1) on the same graph; and
+     parallel/partition.spmm_edge_partitioned at GP = 4 on the 2^20-node
+     unshuffled graph within PARTITION_TOL of max|ref| of the unsharded
+     segment sum, two calls bit-equal, with its ms.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -3693,6 +3711,353 @@ def variant_train_phase(device, big, big_edges, k, n=18222, iters=VT_ITERS, more
     return counts, readings
 
 
+# ------------------------------------------------ phase 14: baselines and tools
+
+BAND_S, BAND_B, BAND_D = 512, 256, 64   # spmm_band on the main path's graph
+SPMM_BAND_TOL = 1e-6                     # of max|ref| against float64 on the CPU
+PARTITION_GP = 4
+PARTITION_TOL = 1e-6                     # of max|ref| against the unsharded sum
+
+
+def _baseline_json(argv):
+    """The JSON line cli.main(argv) prints."""
+    import contextlib
+    import io
+
+    from mdcommunity_tpu_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli(argv)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def heuristic_golden(device, sizes=(32, 64, 128)):
+    """The degree_max2 and ci_max2 rows of golden.json on `device`
+    (scripts/make_golden_synthetic.py's seeds: default_rng(SEED + n) a size,
+    graphs of LMCC 1 skipped), each within rtol 1e-5."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.eval.baselines import heuristic_dismantle
+    from mdcommunity_tpu_torch.graphs.gmm import gmm_duplex_edges
+    from mdcommunity_tpu_torch.graphs.io import duplex_from_layers
+
+    with open(GOLDEN_SYN) as f:
+        golden = json.load(f)
+    for key, method, combine in (("degree_max2", "degree", "max2"), ("ci_max2", "ci", "max2")):
+        for want in golden[key]:
+            n = want["size"]
+            if n not in sizes:
+                continue
+            rng = np.random.default_rng(golden["seed"] + n)
+            scores, costs = [], []
+            for _ in range(golden["n_graphs"]):
+                e0, e1 = gmm_duplex_edges(n, rng)
+                g = duplex_from_layers(n, e0, e1, device=device)
+                if int(g.max_rank) <= 1:
+                    continue
+                sol, score, _ = heuristic_dismantle(g, method, combine)
+                scores.append(score)
+                costs.append(len(sol) / n)
+            got = dict(score_mean=float(np.mean(scores)), score_std=float(np.std(scores)),
+                       cost_mean=float(np.mean(costs)))
+            log(f"golden {key} n={n}: " + json.dumps(got))
+            for k, v in got.items():
+                if not math.isclose(v, want[k], rel_tol=1e-5, abs_tol=0.0):
+                    raise AssertionError(f"golden {key} n={n} {k}: {v} against {want[k]}")
+
+
+def heuristics_card_vs_cpu(device, n=64, n_graphs=2):
+    """All five methods x both combines, plain, with protect_frac = 0.05 and
+    with the _syn stop, on n_graphs seeded GMM graphs: the card's solutions
+    and scores identical to the CPU's.  Returns the seconds on the card."""
+    import numpy as np
+
+    from mdcommunity_tpu_torch.eval.baselines import COMBINES, METHODS, heuristic_dismantle
+    from mdcommunity_tpu_torch.graphs.gmm import gmm_duplex_edges
+    from mdcommunity_tpu_torch.graphs.io import duplex_from_layers
+
+    rng = np.random.default_rng(1)
+    pairs = []
+    while len(pairs) < n_graphs:
+        e0, e1 = gmm_duplex_edges(n, rng)
+        g = duplex_from_layers(n, e0, e1, device="cpu")
+        if int(g.max_rank) > 1:
+            pairs.append((duplex_from_layers(n, e0, e1, device=device), g))
+    card_s, runs, bad = 0.0, 0, []
+    for method in METHODS:
+        for combine in COMBINES:
+            for kw in (dict(), dict(protect_frac=0.05), dict(syn_stop=True)):
+                for gc, gh in pairs:
+                    t0 = time.perf_counter()
+                    got = heuristic_dismantle(gc, method, combine, **kw)
+                    card_s += time.perf_counter() - t0
+                    want = heuristic_dismantle(gh, method, combine, **kw)
+                    runs += 1
+                    if got != want:
+                        bad.append(f"{method}/{combine} {kw}")
+    log(f"heuristics card vs CPU: {runs} runs at n = {n}, {len(bad)} differ, "
+        f"card {card_s:.2f} s")
+    if bad:
+        raise AssertionError("heuristics differ between the card and the CPU: "
+                             + ", ".join(bad))
+    return card_s
+
+
+def baseline_cli(device, out_dir, size=1024, n_graphs=2):
+    """`cli baseline` for degree and CI at `size` nodes on the card and with
+    --cpu: identical JSON lines; the seconds a graph's dismantling takes
+    (the time&audc files' time column, which both runs write with -o; the
+    card's files feed the analyze check)."""
+    import csv
+
+    files, per_graph = {}, {}
+    for method in ("degree", "ci"):
+        argv = ["baseline", "--method", method, "--size", str(size),
+                "--n-graphs", str(n_graphs)]
+        secs = []
+        for dev, sub in ((["--cpu"] if device == "cpu" else [], method), (["--cpu"], "cpu")):
+            path = os.path.join(out_dir, sub, f"time&audc_{method}.csv")
+            line = _baseline_json(argv + dev + ["-o", path])
+            with open(path, newline="") as f:
+                secs.append([float(r["time"]) for r in csv.DictReader(f)])
+            if sub == method:
+                got, files[method] = line, path
+            else:
+                want = line
+        per_graph[method] = sum(secs[0]) / len(secs[0])
+        log(f"baseline {method} n={size}: " + json.dumps(dict(
+            got, cpu_score_mean=want["score_mean"], card_s_per_graph=secs[0],
+            cpu_s_per_graph=secs[1])))
+        if got != want:
+            raise AssertionError(f"baseline {method}: the card's line {got} differs from "
+                                 f"the CPU's {want}")
+    return files, per_graph
+
+
+def tools_check(out_dir, files):
+    """analyze on the baseline runs' time&audc files, summarize-edges on a
+    written .edges directory, and draw (a PNG where matplotlib is present;
+    where it is absent, an ImportError that names it)."""
+    import contextlib
+    import csv
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from mdcommunity_tpu_torch.cli import main as cli
+    from mdcommunity_tpu_torch.eval.writers import write_lmcc_curve
+    from mdcommunity_tpu_torch.large_graph_demo import write_edges
+
+    report = os.path.join(out_dir, "report.csv")
+    cli(["analyze", "--unitcost", files["degree"], "--community", files["ci"],
+         "-o", report])
+    with open(report, newline="") as f:
+        rows = list(csv.DictReader(f))
+    reads = []
+    for name in ("degree", "ci"):
+        with open(files[name], newline="") as f:
+            reads.append({r["dataset"]: r for r in csv.DictReader(f)})
+    if not rows or [r["dataset"] for r in rows] != sorted(reads[0]):
+        raise AssertionError(f"analyze: rows {[r['dataset'] for r in rows]}")
+    for r in rows:
+        u, c = (float(x[r["dataset"]]["audc"]) for x in reads)
+        if not math.isclose(float(r["audc_delta_pct"]), (c - u) / u * 100.0, rel_tol=1e-12):
+            raise AssertionError(f"analyze: {r}")
+    log(f"analyze: {len(rows)} rows, audc_delta_pct "
+        + ", ".join(r["audc_delta_pct"] for r in rows))
+
+    edges_dir = os.path.join(out_dir, "edges")
+    os.makedirs(edges_dir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    e0, e1 = (rng.integers(0, 50, (120, 2)) for _ in range(2))
+    write_edges(os.path.join(edges_dir, "toy.edges"), e0, e1)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli(["summarize-edges", "--data", edges_dir, "-o", os.path.join(out_dir, "s.csv")])
+    fields = out.getvalue().splitlines()[1].split("\t")
+    want_n = int(max(e0.max(), e1.max())) + 1  # the .edges ids are 1-based
+    if fields[:3] != ["toy", str(want_n), "2"]:
+        raise AssertionError(f"summarize-edges: {fields}")
+    log("summarize-edges: " + " ".join(fields))
+
+    lmcc = os.path.join(out_dir, "lmcc.txt")
+    write_lmcc_curve(lmcc, [1.0, 0.6, 0.3, 0.1], 6, 10, 0.2, 0.01)
+    png = os.path.join(out_dir, "lmcc.png")
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            cli(["draw", f"model={lmcc}", "-o", png])
+        except ImportError as exc:
+            if "matplotlib" not in str(exc):
+                raise AssertionError(f"draw raised without naming matplotlib: {exc}")
+            log(f"draw: matplotlib absent, raised: {exc}")
+        else:
+            raise AssertionError("draw ran without matplotlib")
+    else:
+        cli(["draw", f"model={lmcc}", "-o", png])
+        if not os.path.getsize(png):
+            raise AssertionError("draw wrote an empty PNG")
+        log(f"draw: wrote {os.path.getsize(png)} bytes")
+
+
+def model_vs_heuristics_check(device, sizes=(64,), n_graphs=3):
+    """model_vs_heuristics' rows on the card equal to the CPU's."""
+    from mdcommunity_tpu_torch import model_vs_heuristics as mvh
+    from mdcommunity_tpu_torch.models.torch_convert import load_any_model
+
+    rows = [mvh.run(load_any_model(mvh.MODEL, device=d), list(sizes), n_graphs, device=d)
+            for d in (device, "cpu")]
+    log("model_vs_heuristics: " + json.dumps(dict(card=rows[0], cpu=rows[1])))
+    if rows[0] != rows[1]:
+        raise AssertionError("model_vs_heuristics: the card's rows differ from the CPU's")
+
+
+def _band_case(edges, n, device, S, B, D, seed):
+    """spmm_band's operands on one layer's ordered edges (both directions,
+    one seeded weight an undirected edge), on `device`."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.ops.band_spmm import band_weights, build_band
+
+    rng = np.random.default_rng(seed)
+    w0 = rng.random(len(edges)).astype(np.float32)
+    src = np.concatenate([edges[:, 0], edges[:, 1]])
+    dst = np.concatenate([edges[:, 1], edges[:, 0]])
+    w = np.concatenate([w0, w0])
+    bg, row, col, in_band = build_band(src, dst, n, S=S, B=B, device=device)
+    wb = band_weights(bg, row, col, w[in_band])
+    w_ov = torch.from_numpy(w[~in_band][np.argsort(dst[~in_band], kind="stable")]).to(device)
+    h = torch.from_numpy(rng.standard_normal((bg.pad_n, D)).astype(np.float32)).to(device)
+    ct = torch.from_numpy(rng.standard_normal((bg.pad_n, D)).astype(np.float32)).to(device)
+    return bg, wb, w_ov, h, ct
+
+
+def _band_fwd_bwd(bg, wb, w_ov, h, ct):
+    import torch
+
+    from mdcommunity_tpu_torch.ops.band_spmm import spmm_band
+
+    args = [x.detach().requires_grad_() for x in (wb, w_ov, h)]
+    out = spmm_band(bg, *args)
+    grads = torch.autograd.grad((out * ct).sum(), args)
+    return [out.detach(), *grads]
+
+
+def spmm_band_check(device, banded, edges, S=BAND_S, B=BAND_B, D=BAND_D):
+    """ops/band_spmm.spmm_band on layer 0 of the main path's graph in its
+    locality order (a non-empty overflow): the forward and the gradients of
+    the band weights, the overflow weights and h within SPMM_BAND_TOL of
+    max|ref| of the same function in float64 on the CPU, two calls bit-equal;
+    fwd+bwd ms beside BandSpmm's (K1 and its backward) on the same graph."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band_grad
+
+    from mdcommunity_tpu_torch.utils.device import matmul_precision
+
+    n = banded.n_nodes
+    bg, wb, w_ov, h, ct = _band_case(edges, n, device, S, B, D, 0)
+    if not bg.overflow.nnz:
+        raise AssertionError("spmm_band: the main path's graph left no overflow")
+    with matmul_precision(True):  # the block products in f32, no TF32
+        got = _band_fwd_bwd(bg, wb, w_ov, h, ct)
+        again = _band_fwd_bwd(bg, wb, w_ov, h, ct)
+        ms = time_ms(lambda: _band_fwd_bwd(bg, wb, w_ov, h, ct))
+    cbg = _band_case(edges, n, "cpu", S, B, D, 0)[0]
+    ref = _band_fwd_bwd(cbg, *(x.cpu().double() for x in (wb, w_ov, h, ct)))
+    errs = {}
+    for name, a, b, r in zip(("out", "d_wb", "d_w_ov", "d_h"), got, again, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"spmm_band {name}: two calls differ")
+        err = (a.cpu().double() - r).abs().max().item()
+        scale = r.abs().max().item()
+        errs[name] = err / scale
+        if not err <= SPMM_BAND_TOL * scale:
+            raise AssertionError(f"spmm_band {name}: {err:.3e} against max|ref| {scale:.3e}")
+
+    dbg = banded.dbg0
+    live = torch.ones(dbg.pad_n, device=device)
+    hk = torch.randn(dbg.pad_n, D, generator=torch.Generator().manual_seed(1)).to(device)
+    ck = torch.randn_like(hk)
+
+    def k1():
+        x = hk.detach().requires_grad_()
+        return torch.autograd.grad((spmm_dense_band_grad(dbg, live, live, x) * ck).sum(), x)
+
+    k1_ms = time_ms(k1)
+    log(f"spmm_band at {n} nodes (S = {S}, B = {B}, D = {D}, {bg.overflow.nnz} overflow "
+        f"edges): fwd+bwd {ms:.3f} ms, BandSpmm (K1 + its backward) {k1_ms:.3f} ms; "
+        "error against f64 of max|ref|: " + json.dumps({k: float(f"{v:.3e}")
+                                                        for k, v in errs.items()}))
+    return dict(ms=ms, k1_ms=k1_ms, **errs)
+
+
+def partition_check(device, n, edges, gp=PARTITION_GP, D=BAND_D):
+    """parallel/partition.spmm_edge_partitioned at gp shards (all on the one
+    card) on a graph's directed edges (E padded to a multiple of gp): within
+    PARTITION_TOL of max|ref| of the unsharded segment sum, two calls
+    bit-equal; its ms beside the unsharded sum's."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.ops.aggregate import spmm_coo
+    from mdcommunity_tpu_torch.parallel.mesh import make_mesh
+    from mdcommunity_tpu_torch.parallel.partition import shard_edges, spmm_edge_partitioned
+
+    rng = np.random.default_rng(2)
+    src = np.concatenate([edges[:, 0], edges[:, 1]])
+    dst = np.concatenate([edges[:, 1], edges[:, 0]])
+    w = rng.random(len(src)).astype(np.float32)
+    pad = -len(src) % gp
+    src, dst = (np.concatenate([x, np.zeros(pad, np.int64)]) for x in (src, dst))
+    w = np.concatenate([w, np.zeros(pad, np.float32)])
+    s, d, ww = (torch.from_numpy(x).to(device) for x in (src, dst, w))
+    h = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32)).to(device)
+    mesh = make_mesh(gp, device)
+    parts = shard_edges(mesh, s, d, ww)
+    got = spmm_edge_partitioned(mesh, *parts, h)[0]
+    again = spmm_edge_partitioned(mesh, *parts, h)[0]
+    if not torch.equal(got, again):
+        raise AssertionError("spmm_edge_partitioned: two calls differ")
+    ref = spmm_coo(s, d, ww, h, n)
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if not err <= PARTITION_TOL * scale:
+        raise AssertionError(f"spmm_edge_partitioned: {err:.3e} against max|ref| {scale:.3e}")
+    ms = time_ms(lambda: spmm_edge_partitioned(mesh, *parts, h))
+    whole_ms = time_ms(lambda: spmm_coo(s, d, ww, h, n))
+    log(f"spmm_edge_partitioned at {n} nodes, {len(src)} directed edges, gp = {gp}, "
+        f"D = {D}: {ms:.3f} ms (unsharded segment sum {whole_ms:.3f} ms), "
+        f"error {err / scale:.3e} of max|ref|")
+    return dict(ms=ms, whole_ms=whole_ms, rel_err=err / scale)
+
+
+def baselines_phase(device, banded, edges, big_n, big_edges, small=False):
+    """Phase 14: the heuristic baselines and the remaining eval tools
+    (module docstring).  banded/edges: the main path's graph and its ordered
+    edges; big_n/big_edges: the 2^20-node unshuffled graph's.  small=True is
+    the rehearsal's size."""
+    out_dir = os.path.join(OUT, "baselines")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    heuristic_golden(device, sizes=(32,) if small else (32, 64, 128))
+    card_s = heuristics_card_vs_cpu(device, n=32 if small else 64,
+                                    n_graphs=1 if small else 2)
+    files, per_graph = baseline_cli(device, out_dir, size=64 if small else 1024)
+    tools_check(out_dir, files)
+    model_vs_heuristics_check(device, sizes=(32,) if small else (64,),
+                              n_graphs=2 if small else 3)
+    band = (spmm_band_check(device, banded, edges[0], S=128, B=64) if small
+            else spmm_band_check(device, banded, edges[0]))
+    part = partition_check(device, big_n, big_edges[0])
+    log(f"baselines and tools: {time.perf_counter() - t0:.1f} s")
+    return dict(heuristics_card_s=card_s, baseline_s_per_graph=per_graph,
+                spmm_band=band, partition=part)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3762,6 +4127,8 @@ def main(argv=None):
         variant_train_phase("cpu", small, edges, 16, n=2048, iters=11, more=2, gp=2,
                             cfg=dataclasses.replace(Config().smoke, save_frequency=5,
                                                     update_time=5))
+        baselines_phase("cpu", *synth_banded(2048, True, 0, "cpu", with_edges=True),
+                        2048, edges, small=True)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -3873,6 +4240,11 @@ def main(argv=None):
     del big
     torch.cuda.empty_cache()
     lap("variant training")
+    tools = baselines_phase(device, *synth_banded(18222, True, 0, device, with_edges=True),
+                            1 << 20, big_edges)
+    del big_edges
+    torch.cuda.empty_cache()
+    lap("baselines and tools")
 
     kernels = []
     for name, launched, replaces in (
@@ -3956,6 +4328,7 @@ def main(argv=None):
         {v: {k: r[k] for k in ("fit_iters_per_s", "vcs", "peak_mem_gib", "wall_s",
                                "train_step_loss_rel", "train_step_worst_leaf", "rollout")}
          for v, r in vt.items() if v in ("ce", "hca")}, default=str))
+    log("baselines and tools: " + json.dumps(tools))
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -12,15 +12,20 @@ Usage:
       --sweep-param g --sweep-values 0.1 0.5 0.9
   python -m mdcommunity_tpu_torch.cli check-features --variant {ce,hca} \\
       [--feature {boundary,participation}] [--size N] [--seed S]
+  python -m mdcommunity_tpu_torch.cli baseline --method {degree,betweenness,closeness,ci,pagerank} \\
+      --combine {max2,add} [--protect-frac F] [--syn-stop] [--size N] [--n-graphs G] [-o CSV]
+  python -m mdcommunity_tpu_torch.cli analyze --unitcost DIR --community DIR -o OUT
+  python -m mdcommunity_tpu_torch.cli summarize-edges --data DIR [-o CSV]
+  python -m mdcommunity_tpu_torch.cli draw label=NormalizedLMCC.txt ... -o PNG [--weighted]
 
 A model is a JAX-package checkpoint (`models_tpu/*/best_model.ckpt`) or a
 reference torch checkpoint.  Everything runs on the CUDA card unless --cpu
-is given, which runs the plain PyTorch versions on the CPU.  The JAX
-package's baseline, analyze, summarize-edges and draw subcommands are not
-ported yet.  train, test-real and test-synthetic run every variant
-(unit_cost, degree_cost, ce, hca; for the tests --variant names the
-model's).  As in the JAX package there is no --fusion flag: a fusion mode
-is Config(fusion=...) of rl/dqn.DQNAgent.
+is given, which runs the plain PyTorch versions on the CPU (baseline's
+environment too; analyze, summarize-edges and draw run on the host).
+train, test-real and test-synthetic run every variant (unit_cost,
+degree_cost, ce, hca; for the tests --variant names the model's).  draw
+needs matplotlib.  As in the JAX package there is no --fusion flag: a
+fusion mode is Config(fusion=...) of rl/dqn.DQNAgent.
 """
 
 from __future__ import annotations
@@ -151,6 +156,75 @@ def cmd_check_features(args):
         print("values within [0,1]:", bool((feats >= 0).all() and (feats <= 1).all()))
 
 
+def cmd_baseline(args):
+    """Adaptive heuristic dismantling of seeded GMM graphs; one JSON line
+    with the score's mean and std, and with -o one time&audc row a graph."""
+    import time
+
+    import numpy as np
+
+    from mdcommunity_tpu_torch.eval.baselines import heuristic_dismantle
+    from mdcommunity_tpu_torch.eval.writers import append_time_audc
+    from mdcommunity_tpu_torch.graphs.gmm import gmm_duplex_edges
+    from mdcommunity_tpu_torch.graphs.io import duplex_from_layers
+    from mdcommunity_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(_device(args))
+    rng = np.random.default_rng(args.seed)
+    scores = []
+    for i in range(args.n_graphs):
+        e0, e1 = gmm_duplex_edges(args.size, rng)
+        g = duplex_from_layers(args.size, e0, e1, device=device)
+        if int(g.max_rank) <= 1:
+            continue
+        t0 = time.time()
+        sol, score, _ = heuristic_dismantle(
+            g, args.method, args.combine, args.protect_frac, syn_stop=args.syn_stop,
+        )
+        scores.append(score)
+        if args.output:
+            append_time_audc(args.output, f"syn_{args.size}_{i}", time.time() - t0, score)
+    print(json.dumps(dict(
+        method=args.method, combine=args.combine, size=args.size,
+        score_mean=float(np.mean(scores)), score_std=float(np.std(scores)),
+        n=len(scores),
+    )))
+
+
+def cmd_analyze(args):
+    from mdcommunity_tpu_torch.eval.analysis import comparison_report
+
+    comparison_report(args.unitcost, args.community, args.output)
+
+
+def cmd_summarize_edges(args):
+    """Dataset stats and the recommended layer pair per .edges file
+    (reference: summarize_real_edges.py)."""
+    from mdcommunity_tpu_torch.graphs.io import summarize_multiplex_dir
+
+    rows = summarize_multiplex_dir(args.data, args.output)
+    cols = ["dataset", "n_nodes", "n_layers", "layer_m", "layer_n"]
+    print("\t".join(cols))
+    for r in rows:
+        print("\t".join(str(r[c]) for c in cols))
+    if args.output:
+        print(f"Summary written to: {args.output}")
+
+
+def cmd_draw(args):
+    """LMCC-curve comparison plot (reference drawUnweight.py/drawWeight.py)."""
+    from mdcommunity_tpu_torch.eval.plots import plot_lmcc_curves
+
+    curves = {}
+    for spec in args.curves:
+        label, path = spec.split("=", 1)
+        # weighted (drawWeight) curves take label=Cost_file:LMCC_file, x being
+        # the cumulative cost read from the cost file (drawWeight.py:63-68)
+        curves[label] = tuple(path.split(":", 1)) if ":" in path else path
+    plot_lmcc_curves(curves, args.output, title=args.title, weighted=args.weighted)
+    print(f"wrote {args.output}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mdcommunity_tpu_torch")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -223,6 +297,42 @@ def main(argv=None):
     cf.add_argument("--size", type=int, default=30)
     cf.add_argument("--seed", type=int, default=0)
     cf.set_defaults(fn=cmd_check_features)
+
+    b = sub.add_parser("baseline", parents=[common])
+    b.add_argument("--method", default="degree",
+                   choices=["degree", "betweenness", "closeness", "ci", "pagerank"])
+    b.add_argument("--combine", default="max2", choices=["max2", "add"])
+    b.add_argument("--protect-frac", type=float, default=0.0)
+    b.add_argument("--syn-stop", action="store_true",
+                   help="_syn-script early stop: stop once rank <= sqrt(N) "
+                        "(hda_2max_syn.py:78-81)")
+    b.add_argument("--size", type=int, default=64)
+    b.add_argument("--n-graphs", type=int, default=10)
+    b.add_argument("--seed", type=int, default=0)
+    b.add_argument("-o", "--output", default=None)
+    b.set_defaults(fn=cmd_baseline)
+
+    a = sub.add_parser("analyze", parents=[common])
+    a.add_argument("--unitcost", required=True)
+    a.add_argument("--community", required=True)
+    a.add_argument("-o", "--output", default="final_comparison_report.csv")
+    a.set_defaults(fn=cmd_analyze)
+
+    se = sub.add_parser("summarize-edges", parents=[common])
+    se.add_argument("--data", required=True, help="directory with .edges files")
+    se.add_argument("-o", "--output", default=None)
+    se.set_defaults(fn=cmd_summarize_edges)
+
+    d = sub.add_parser("draw", parents=[common],
+                       help="LMCC-curve comparison plot (reference drawLmcc)")
+    d.add_argument("curves", nargs="+",
+                   help="label=NormalizedLMCC_file.txt pairs (weighted: "
+                        "label=Cost_file.txt:NormalizedLMCC_file.txt)")
+    d.add_argument("-o", "--output", required=True)
+    d.add_argument("--title", default="")
+    d.add_argument("--weighted", action="store_true",
+                   help="x axis is cumulative cost (drawWeight)")
+    d.set_defaults(fn=cmd_draw)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -2,7 +2,8 @@
 
 Network sizes x GMM generator settings, on GMM graphs generated on the fly
 from a seed (the JAX package's stream, graphs/gmm.py); evaluate_synthetic_sweep
-sweeps one generator parameter at a fixed size.  Reports AUDC mean/std, solve time and cost per
+sweeps one generator parameter at a fixed size, and evaluate_synthetic_dir
+reads stored adjacency pairs.  Reports AUDC mean/std, solve time and cost per
 size, and writes rows in the reference's result-file format.  The model
 runs on the graphs' device through eval/metrics.dismantle_greedy.
 """
@@ -11,13 +12,13 @@ from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from mdcommunity_tpu_torch.eval.metrics import dismantle_greedy
 from mdcommunity_tpu_torch.graphs.gmm import gmm_duplex_edges
-from mdcommunity_tpu_torch.graphs.io import duplex_from_layers
+from mdcommunity_tpu_torch.graphs.io import duplex_from_layers, edges_from_dense_adj
 from mdcommunity_tpu_torch.utils.device import resolve_device
 
 
@@ -46,6 +47,46 @@ def variant_options(variant: str) -> dict:
     return dict(degree_cost=variant == "degree_cost",
                 prior_feature=Config().comm_prior_feature if variant == "ce" else None,
                 hca=variant == "hca")
+
+
+def evaluate_synthetic_dir(
+    net,
+    data_dir: str,
+    size_name: str,
+    n_graphs: int = 20,
+    variant: str = "unit_cost",
+    device=None,
+) -> Tuple[float, float, float, float, float]:
+    """Evaluate stored adj1_i.npy/adj2_i.npy pairs under data_dir/syn_<size>/
+    (i = 0, 1, ... up to n_graphs or the first missing pair), each with its
+    variant's structure (variant_options), dismantled greedily on `device`
+    (CUDA unless named).
+
+    Returns (score_mean, score_std, time_mean, time_std, cost_mean), the
+    reference Evaluate's return contract (:600)."""
+    device = resolve_device(device)
+    net = net.to(device)
+    scores, times, costs = [], [], []
+    for i in range(n_graphs):
+        a1 = os.path.join(data_dir, f"syn_{size_name}", f"adj1_{i}.npy")
+        a2 = os.path.join(data_dir, f"syn_{size_name}", f"adj2_{i}.npy")
+        if not (os.path.exists(a1) and os.path.exists(a2)):
+            break
+        adj1, adj2 = np.load(a1), np.load(a2)
+        g = duplex_from_layers(adj1.shape[0], edges_from_dense_adj(adj1),
+                               edges_from_dense_adj(adj2), device=device,
+                               **variant_options(variant))
+        t0 = time.time()
+        sol, score, _ = dismantle_greedy(net, g, variant=variant)
+        times.append(time.time() - t0)
+        scores.append(score)
+        costs.append(len(sol) / int(g.n_nodes))
+    if not scores:
+        raise FileNotFoundError(f"no synthetic pairs under {data_dir}/syn_{size_name}")
+    return (
+        float(np.mean(scores)), float(np.std(scores)),
+        float(np.mean(times)), float(np.std(times)), float(np.mean(costs)),
+    )
 
 
 def evaluate_synthetic_generated(

@@ -10,7 +10,7 @@ File formats follow the reference:
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -168,3 +168,66 @@ def load_synthetic_pair(adj1_path: str, adj2_path: str, degree_cost: bool = Fals
     return duplex_from_layers(a1.shape[0], edges_from_dense_adj(a1),
                               edges_from_dense_adj(a2), degree_cost=degree_cost,
                               device=device)
+
+
+def summarize_multiplex_dir(real_dir: str, output_csv: Optional[str] = None) -> List[dict]:
+    """Scan a directory of .edges files and recommend a coupled layer pair per
+    dataset (reference: summarize_real_edges.py: score = 0.3·size parity +
+    0.5·node overlap + 0.2·edge-count representativeness, :7-33).
+
+    Lines with fewer than three fields or a non-integer id are skipped;
+    n_nodes is the largest node id seen.  Returns one dict per file in name
+    order (dataset, n_nodes, n_layers, layer_m, layer_n; the layer pair empty
+    for a one-layer file) and, with output_csv, writes them as CSV in the
+    reference's column order."""
+    import csv
+    import itertools
+
+    rows = []
+    for fname in sorted(os.listdir(real_dir)):
+        if not fname.endswith(".edges"):
+            continue
+        nodes: Dict[int, set] = {}
+        n_edges: Dict[int, int] = {}
+        max_node = 0
+        with open(os.path.join(real_dir, fname)) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) < 3:
+                    continue
+                try:
+                    lid, u, v = int(parts[0]), int(parts[1]), int(parts[2])
+                except ValueError:
+                    continue
+                nodes.setdefault(lid, set()).update((u, v))
+                n_edges[lid] = n_edges.get(lid, 0) + 1
+                max_node = max(max_node, u, v)
+        row = {
+            "dataset": fname[: -len(".edges")],
+            "n_nodes": max_node,
+            "n_layers": len(nodes),
+            "layer_m": "",
+            "layer_n": "",
+        }
+        if len(nodes) >= 2:
+            e_max = max(n_edges.values())
+            best = None
+            for a, b in itertools.combinations(sorted(nodes), 2):
+                na, nb = len(nodes[a]), len(nodes[b])
+                size_par = 1.0 - abs(na - nb) / max(na, nb) if max(na, nb) else 0.0
+                overlap = len(nodes[a] & nodes[b]) / min(na, nb) if min(na, nb) else 0.0
+                repr_ = (n_edges.get(a, 0) + n_edges.get(b, 0)) / (2.0 * e_max)
+                s = 0.3 * size_par + 0.5 * overlap + 0.2 * repr_
+                if best is None or s > best[0]:
+                    best = (s, a, b)
+            row["layer_m"], row["layer_n"] = best[1], best[2]
+        rows.append(row)
+
+    if output_csv:
+        os.makedirs(os.path.dirname(output_csv) or ".", exist_ok=True)
+        with open(output_csv, "w", newline="") as f:
+            wr = csv.DictWriter(
+                f, fieldnames=["dataset", "n_nodes", "n_layers", "layer_m", "layer_n"])
+            wr.writeheader()
+            wr.writerows(rows)
+    return rows

@@ -132,6 +132,12 @@ def to_jax_params(net: DuplexQNet) -> Dict[str, Union[np.ndarray, Dict[str, np.n
     return tree
 
 
+def param_count(net: nn.Module) -> int:
+    """Number of parameter values (the JAX package's param_count of the
+    parameter tree)."""
+    return sum(p.numel() for p in net.parameters())
+
+
 def init_params(
     generator: torch.Generator,
     embedding_size: int = 64,

@@ -60,6 +60,12 @@ def segment_spmm(src, dst, weight, h, pad_n: int) -> torch.Tensor:
     return out.reshape(h.shape)
 
 
+def spmm_coo(src, dst, weight, h, pad_n: int) -> torch.Tensor:
+    """The COO SpMM entry point: segment_spmm.  (The blocked-pair kernel K4
+    is ops/blocked_kernels.spmm_block over a BlockCOO.)"""
+    return segment_spmm(src, dst, weight, h, pad_n)
+
+
 def edge_weights(src, dst, live, pad_n: int, aggregator_id: int = 0) -> torch.Tensor:
     """Aggregation weights per directed edge [..., E] (0 where dead)."""
     w = live.to(torch.float32)

@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from mdcommunity_tpu_torch.ops.band_kernels import spmm_band_halo
@@ -46,7 +47,7 @@ from mdcommunity_tpu_torch.ops.dense_band import (
     mirror_compact,
     sever_cells,
 )
-from mdcommunity_tpu_torch.ops.spmm_csr import SortedCOO, spmm_sorted
+from mdcommunity_tpu_torch.ops.spmm_csr import build_sorted_coo, spmm_sorted
 from mdcommunity_tpu_torch.parallel.mesh import GpMesh, all_gather, per_device, ring_halos
 
 Parts = List[torch.Tensor]
@@ -97,14 +98,12 @@ def shard_band_graph(mesh: GpMesh, dbg: DenseBandGraph) -> ShardedBandGraph:
     local_n = nb_l * dbg.S
 
     def replicated(dev):
-        c = dbg.ccoo
-        i64 = torch.empty(0, dtype=torch.int64, device=dev)
+        none = np.zeros(0, np.int64)
         return dict(
-            ccoo=SortedCOO(c.d_src.to(dev), c.d_dst.to(dev), c.lengths.to(dev), c.n),
+            ccoo=dbg.ccoo.to(dev),
             w_cov=dbg.w_cov.to(dev), c_key=dbg.c_key.to(dev),
-            spill=SortedCOO(i64, i64, torch.zeros(local_n, dtype=torch.int64, device=dev),
-                            local_n),
-            w_spill=dbg.w_spill.to(dev), s_key=i64,
+            spill=build_sorted_coo(none, none, local_n, dev),
+            w_spill=dbg.w_spill.to(dev), s_key=torch.empty(0, dtype=torch.int64, device=dev),
         )
 
     shards = []

@@ -1,5 +1,6 @@
-"""The port imports neither jax, optax, networkx nor the JAX package, and
-its entry points run on the card unless the caller asks for the CPU."""
+"""The port imports neither jax, optax, networkx, pandas, matplotlib nor the
+JAX package, and its entry points run on the card unless the caller asks for
+the CPU."""
 
 import os
 import pkgutil
@@ -26,7 +27,7 @@ def test_import_leaves_jax_out():
     """A fresh interpreter (conftest.py imports jax in this one) imports the
     package and every submodule, the checkpoint loader runs (every variant's
     committed checkpoints) and so do the CE prior and the HCA structure,
-    with neither jax nor networkx imported."""
+    with none of jax, networkx, pandas and matplotlib imported."""
     mods = _submodules()
     for m in ("ops.band_kernels", "rl.big_trainer", "train_1m", "ops.blocked_kernels",
               "graphs.duplex", "graphs.gmm", "graphs.blocked", "env.cascade", "env.env",
@@ -35,7 +36,9 @@ def test_import_leaves_jax_out():
               "utils.timing", "probe_f32_epi", "bench_nibble", "tune_band",
               "probe_hbm_roof", "rl.replay", "rl.replay_prioritized",
               "utils.profiling", "cli", "graphs.louvain", "graphs.community",
-              "graphs.hca", "models.hca", "models.hca_banded"):
+              "graphs.hca", "models.hca", "models.hca_banded", "graphs.centrality",
+              "eval.baselines", "eval.analysis", "eval.plots", "ops.band_spmm",
+              "parallel.partition", "model_vs_heuristics"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -49,7 +52,8 @@ def test_import_leaves_jax_out():
         "e = [(0, 1), (1, 2), (2, 0), (3, 4)]\n"
         "duplex_from_layers(5, e, e, prior_feature='boundary', hca=True, device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'networkx', 'mdcommunity_tpu')]\n"
+        "('jax', 'jaxlib', 'optax', 'networkx', 'pandas', 'matplotlib', "
+        "'mdcommunity_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -66,6 +70,8 @@ def test_import_leaves_jax_out():
 _BAD_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|jaxlib|optax|networkx|mdcommunity_tpu)(\s|\.|$)", re.M
 )
+# matplotlib only inside the functions that draw (eval/plots.py)
+_TOP_IMPORT = re.compile(r"^(import|from)\s+(pandas|matplotlib)(\s|\.|$)", re.M)
 
 
 def test_sources_import_no_jax():
@@ -77,6 +83,8 @@ def test_sources_import_no_jax():
         with open(path) as f:
             src = f.read()
         assert not _BAD_IMPORT.search(src), path
+        assert not _TOP_IMPORT.search(src), path
+        assert "import pandas" not in src, path
 
 
 def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
@@ -171,3 +179,18 @@ def test_trainer_entry_points_need_cuda_unless_cpu_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["train", "--smoke", "--save-dir", str(tmp_path / "x")])
     assert DQNAgent(cfg, device="cpu").device.type == "cpu"
+
+
+def test_baseline_entry_points_need_cuda_unless_cpu_asked(monkeypatch, capsys):
+    """`cli baseline` and model_vs_heuristics run on the card unless --cpu
+    is given, as the other entry points do."""
+    from mdcommunity_tpu_torch import model_vs_heuristics
+    from mdcommunity_tpu_torch.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: main(["baseline", "--size", "32", "--n-graphs", "1"]),
+                 lambda: model_vs_heuristics.main(["--sizes", "32", "--n-graphs", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    main(["baseline", "--size", "32", "--n-graphs", "1", "--cpu"])
+    assert '"method": "degree"' in capsys.readouterr().out

@@ -143,7 +143,16 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      bit-equal, fwd+bwd ms beside BandSpmm's (K1) on the same graph; and
      parallel/partition.spmm_edge_partitioned at GP = 4 on the 2^20-node
      unshuffled graph within PARTITION_TOL of max|ref| of the unsharded
-     segment sum, two calls bit-equal, with its ms.
+     segment sum, two calls bit-equal, with its ms;
+ 15. the port across processes (multiprocess_phase): two OS processes
+     (mdcommunity_tpu_torch.multihost_smoke's children, gloo, both on the
+     one card, gp = 4 with two shards a process) on a spill-free 2^18-node
+     build: the sharded operator and its VJP in both precise modes, Q
+     precise and fast, the loss and its gradients, 3 iterations of
+     train_banded_loop(mesh=), DQNAgent(mesh=dp 2)'s fits and validation
+     and the edge partition, each against the one-process run, with K3's
+     launches counted in each child, and the cross-process model call's ms
+     beside the one-process call's and its halo exchange's.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -4058,6 +4067,107 @@ def baselines_phase(device, banded, edges, big_n, big_edges, small=False):
                 spmm_band=band, partition=part)
 
 
+MP_N = 1 << 18            # phase 15's spill-free build (the 2^20 build's generator)
+MP_K = 262                # actions a step of phase 15's loop (0.001 of the nodes)
+MP_TIMEOUT = 420          # seconds for phase 15's children
+
+
+def multiprocess_config(small=False):
+    """Phase 15's run of mdcommunity_tpu_torch.multihost_smoke: two
+    processes sharing the card, gp = 4 (two shards a process), every phase;
+    small=True is the rehearsal's size on the CPU."""
+    import dataclasses
+
+    from mdcommunity_tpu_torch.utils.config import Config
+
+    agent = dataclasses.replace(Config(), n_train=100, n_valid=64)
+    cfg = dict(
+        phases=["gp", "trainer", "dp_agent", "validate", "partition", "timing"],
+        graph=dict(kind="synth", n=MP_N), precise=[True, False], actions=MP_K,
+        shard_tol=SHARD_Q_TOL, k1_tol=0.0,
+        unsharded_tol=dict(precise=SHARD_Q_TOL, fast=FAST_Q_TOL), ckpt=CKPT,
+        rules=os.path.join(HERE, "tests", "gradient_rules.py"),
+        trainer=dict(iters=3, k=MP_K, ckpt=CKPT_FIT, engine="native"),
+        agent=dict(config=dict(n_train=agent.n_train, n_valid=agent.n_valid), fits=3,
+                   warmup_games=1, warmup_traj=40),
+        partition=dict(n=MP_N, edges=1 << 20, D=64, tol=PARTITION_TOL),
+        timing=dict(calls=5))
+    if small:
+        cfg.update(graph=dict(kind="synth", n=2048), actions=16, shard_tol=0.0,
+                   k1_tol=2.0 ** -7, trainer=dict(cfg["trainer"], k=16),
+                   agent=dict(cfg["agent"], smoke=True,
+                              config=dict(n_train=8, n_valid=4, batch_size=8)),
+                   partition=dict(cfg["partition"], n=2048, edges=8192),
+                   timing=dict(calls=2))
+    return cfg
+
+
+def multiprocess_phase(device, small=False):
+    """Phase 15: the port across OS processes (module docstring).  Two
+    children of mdcommunity_tpu_torch.multihost_smoke share the card over
+    gloo, each holding two of gp = 4 shards of a spill-free 2^18-node build
+    at the unit-cost checkpoint's width: the sharded operator (forward and
+    VJP, precise and bf16 modes) against the one-process gp = 4 call within
+    SHARD_Q_TOL of max (0 expected) and against K1 (0); Q, precise and fast,
+    the same way and against the unsharded forward (SHARD_Q_TOL, FAST_Q_TOL);
+    the loss and every gradient leaf against the one-process loss by
+    tests/gradient_rules.py; 3 iterations of train_banded_loop(mesh=)
+    against the one-process loop (the same removals, parameters bit-equal
+    across the processes, K3's and its backward's launches counted in each
+    child); DQNAgent(mesh=dp 2) at Config()'s width, 3 fits within 1e-5 of
+    the single-process agent's losses, parameters bit-equal across the
+    processes, and its validation against the single-process VC; the edge
+    partition within PARTITION_TOL; and the cross-process model call's ms
+    beside the one-process call's, with one halo exchange's and one mirror
+    gather's (transport through the host under gloo, on one card; not
+    NVLink).  The one-process references run in the first child, whose
+    results the other's equal bit for bit (digests).  Every check raises in
+    the child that makes it, and a child's non-zero exit raises here.  Returns each child's K3 launch counts
+    (rank -> counter -> launches, over the gp phase's calls and the loop)."""
+    from mdcommunity_tpu_torch import multihost_smoke as mh
+    from mdcommunity_tpu_torch.utils.timing import gpu_line
+
+    out = os.path.join(OUT, "multiprocess")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    results, output = mh.run(device, "gloo", multiprocess_config(small), out,
+                             timeout=MP_TIMEOUT)
+    for k, text in enumerate(output):
+        for line in text.splitlines():
+            if line.startswith("rank "):
+                log(f"  [child {k}] {line}")
+    mh.check_agreement(results)
+    counts = {}
+    for k, r in enumerate(results):
+        c = dict(r["trainer"]["launches"])
+        for key in ("op_precise", "op_fast", "q_precise", "q_fast"):
+            for name, v in r["gp"][key]["launches"].items():
+                c[name] = c.get(name, 0) + v
+        counts[k] = c
+        for name in ("band_halo", "band_halo_bwd", "band_halo_bf16", "band_halo_bf16_bwd"):
+            if device != "cpu" and c.get(name, 0) <= 0:
+                raise AssertionError(f"child {k} did not launch {name}")
+    r0 = results[0]
+    card = gpu_line() or "cpu"
+    log("multiprocess: " + json.dumps(dict(
+        card=card, processes=mh.N_PROC, gp=mh.GP, backend="gloo (through the host, one card)",
+        pad_n=r0["gp"]["pad_n"],
+        shard_vs_one_process={k: r0["gp"][k]["vs_one_process"]
+                              for k in ("op_precise", "op_fast", "q_precise", "q_fast")},
+        vjp_vs_one_process={k: r0["gp"][k]["vjp_vs_one_process"]
+                            for k in ("op_precise", "op_fast")},
+        q_vs_unsharded={k: r0["gp"][k]["vs_unsharded"] for k in ("q_precise", "q_fast")},
+        loss=r0["gp"]["loss"], trainer={k: r0["trainer"][k] for k in (
+            "removed", "losses", "one_process", "loss_rel", "param_diff", "wall_s",
+            "one_process_wall_s")},
+        dp_agent={k: r0["dp_agent"][k] for k in (
+            "losses", "single", "loss_rel", "param_diff", "fit_s", "single_fit_s")},
+        validate=r0["validate"], partition=r0["partition"]["errors"],
+        timing={k: r0["timing"][k] for k in r0["timing"]},
+        launches=counts, seconds=time.perf_counter() - t0)))
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4129,6 +4239,7 @@ def main(argv=None):
                                                     update_time=5))
         baselines_phase("cpu", *synth_banded(2048, True, 0, "cpu", with_edges=True),
                         2048, edges, small=True)
+        multiprocess_phase("cpu", small=True)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -4245,6 +4356,8 @@ def main(argv=None):
     del big_edges
     torch.cuda.empty_cache()
     lap("baselines and tools")
+    mp_counts = multiprocess_phase(device)
+    lap("multiprocess")
 
     kernels = []
     for name, launched, replaces in (
@@ -4315,6 +4428,10 @@ def main(argv=None):
         **{k: comm[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "library_device_ms")}))
     for row in kernels:
+        # phase 15: K3 and its backward in each of the two processes
+        multi = {k: c.get(row["name"], 0) for k, c in mp_counts.items()}
+        if any(multi.values()):
+            row["launches_multiprocess"] = multi
         if row["name"] in ("band_spmm", "band_sage"):
             row["launches_variants"] = {v: c[row["name"]] for v, c in variant_counts.items()}
         # slice D2's paths: the degree-cost and CE banded loops, degree cost

@@ -81,9 +81,10 @@ class BandedDuplex:
 @dataclasses.dataclass
 class ShardedBandedDuplex:
     """A BandedDuplex split over a gp mesh (shard_banded_duplex): both
-    layers' operators as ShardedBandGraphs and node_mask as its shard
-    pieces, and weights and node_feat as their pieces [2, local_n].  It has
-    no spill (the sharded operator refuses it)."""
+    layers' operators as ShardedBandGraphs and node_mask as the pieces of
+    the shards this process holds, and weights and node_feat as their
+    pieces [2, local_n].  It has no spill (the sharded operator refuses
+    it)."""
 
     mesh: GpMesh
     dbg0: ShardedBandGraph
@@ -101,8 +102,8 @@ class ShardedBandedDuplex:
 
     @property
     def device(self) -> torch.device:
-        """The first shard's device (where Q and the loss are gathered)."""
-        return self.mesh.devices[0]
+        """The first held shard's device (where Q and the loss are gathered)."""
+        return self.mesh.home
 
     def dbg(self, layer: int) -> ShardedBandGraph:
         return self.dbg0 if layer == 0 else self.dbg1
@@ -115,8 +116,11 @@ class ShardedBandedDuplex:
 def shard_banded_duplex(mesh: GpMesh, banded: BandedDuplex) -> ShardedBandedDuplex:
     """Split a BandedDuplex over the mesh's shards for the gp-sharded
     forward, loss and trainer (the JAX package's shard_banded_duplex):
-    views of banded's tensors where a shard shares its device.  Raises
-    ValueError on spill edges or a block count the shards do not divide."""
+    views of banded's tensors where a shard shares its device.  On a mesh
+    that spans processes each process passes the same whole build (made
+    from the same seed) and keeps its own shards, as each JAX process does
+    with make_array_from_callback.  Raises ValueError on spill edges or a
+    block count the shards do not divide."""
     return ShardedBandedDuplex(
         mesh=mesh,
         dbg0=shard_band_graph(mesh, banded.dbg0),

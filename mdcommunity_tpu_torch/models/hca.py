@@ -44,6 +44,7 @@ from mdcommunity_tpu_torch.env.cascade import endpoints_alive
 from mdcommunity_tpu_torch.models.fusion import bitwise_logis_fuse
 from mdcommunity_tpu_torch.models.net import DuplexQNet, _param, init_params
 from mdcommunity_tpu_torch.ops.aggregate import dense_adjacency, l2_normalize
+from mdcommunity_tpu_torch.parallel.mesh import add_in_order, gather_parts
 
 HCA_HEADS = ("w_macro", "w_comm_score", "w_micro_score")
 
@@ -248,15 +249,19 @@ def hca_forward(net: HcaQNet, inputs: HcaInputs, max_bp_iter: int = 3,
     return q, h_f
 
 
-def hca_laplacian(h_f: torch.Tensor, inputs: HcaInputs) -> torch.Tensor:
+def hca_laplacian(h_f: torch.Tensor, inputs: HcaInputs, mesh=None) -> torch.Tensor:
     """The base trainer's Laplacian embedding regularizer over the live
     subgraphs (HCA calc_loss mirrors the base): Σ_l 2(Σ deg·|h|² − Σ h·Ah)
-    / max(directed live edges, 1)."""
+    / max(directed live edges, 1).  With a dp mesh, this replica's part:
+    its rows' terms over the whole batch's directed live edges."""
     total = 0.0
     for layer in range(2):
         h = h_f[layer]
         quad = torch.sum(inputs.deg[:, layer] * torch.sum(h * h, dim=-1))
         cross = torch.sum(h * torch.matmul(inputs.adj[:, layer], h))
-        denom = torch.clamp(torch.sum(inputs.n_dir_live[:, layer]), min=1.0)
+        count = torch.sum(inputs.n_dir_live[:, layer])
+        if mesh is not None:
+            count = add_in_order(gather_parts(mesh, [count], "dp"))
+        denom = torch.clamp(count, min=1.0)
         total = total + 2.0 * (quad - cross) / denom
     return total

@@ -33,7 +33,11 @@ layer and the normalisation ride the pooled tile.  Dead nodes get -inf.
 through BandSpmm (kernel K1, and K1 with swapped scales for its backward).
 With mesh= both run gp-sharded (parallel/): node tensors live as shard
 pieces, the dense layers run per shard, aggregation is the sharded band
-operator (kernel K3), and graph-wide sums add per-shard f64 partials.
+operator (kernel K3), and graph-wide sums add per-shard f64 partials in
+shard order.  The mesh may span processes: each process then computes its
+own shards, the partials of a graph-wide sum reach every process
+(parallel/mesh.gather_parts) and are added in the same order, so Q comes out
+with the same bits everywhere, and the loss is a sum of the processes' parts.
 """
 
 from __future__ import annotations
@@ -61,7 +65,14 @@ from mdcommunity_tpu_torch.parallel.band_partition import (
     spmm_band_sharded,
     spmm_band_sharded_grad,
 )
-from mdcommunity_tpu_torch.parallel.mesh import gather_nodes, gather_rows, split_nodes
+from mdcommunity_tpu_torch.parallel.mesh import (
+    add_in_order,
+    gather_nodes,
+    gather_parts,
+    gather_rows,
+    own_rows,
+    split_nodes,
+)
 from mdcommunity_tpu_torch.utils.device import resolve_device
 
 _DENSE = (
@@ -175,10 +186,12 @@ def init_params(
     }
 
 
-def _graph_sum(x, dim: int = 0) -> torch.Tensor:
+def _graph_sum(x, dim: int = 0, mesh=None) -> torch.Tensor:
     """A sum over all nodes, accumulated in f64 and rounded to f32 once; x
     is a tensor or the list of its shards' row pieces, whose f64 partials
-    are added in shard order on the first shard's device.
+    are added in shard order on the first shard's device (with a mesh
+    that spans processes, every shard's partial on every process,
+    parallel/mesh.gather_parts).
 
     The result then does not depend on the order of the rows (to within
     the f64 error, 2^-29 of an f32 ulp per 2^20 rows).  That keeps exact
@@ -190,13 +203,15 @@ def _graph_sum(x, dim: int = 0) -> torch.Tensor:
     ties at random.  A bf16 x (stored activations) sums to f32."""
     parts = _pieces(x)
     out_dt = torch.promote_types(parts[0].dtype, torch.float32)
-    dev = parts[0].device
-    return _add([torch.sum(p, dim=dim, dtype=torch.float64).to(dev) for p in parts]).to(out_dt)
+    return add_in_order(_all_parts([torch.sum(p, dim=dim, dtype=torch.float64) for p in parts],
+                           mesh)).to(out_dt)
 
 
-def _add(xs: List[torch.Tensor]) -> torch.Tensor:
-    """xs added in order, on the first one's device."""
-    return functools.reduce(lambda a, b: a + b.to(a.device), xs)
+def _all_parts(partials: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Every shard's partial of a graph-wide reduction, in shard order:
+    `partials` themselves without a mesh (they are all here), else
+    parallel/mesh.gather_parts."""
+    return partials if mesh is None else gather_parts(mesh, partials)
 
 
 def _pieces(x) -> List[torch.Tensor]:
@@ -263,7 +278,7 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None,
         deg = [b[:, 0] * x for b, x in zip(both, livef)]
         deg_u = [b[:, 1] * m for b, m in zip(both, maskf)]
         degs.append(deg)
-        counters.append(_graph_sum(deg_u) / 2.0 - _graph_sum(deg) / 2.0)
+        counters.append(_graph_sum(deg_u, mesh=mesh) / 2.0 - _graph_sum(deg, mesh=mesh) / 2.0)
     deg = [torch.stack(d) for d in zip(*degs)]  # [2, n] a piece
     active = [x & (d[0] > 0) for x, d in zip(live, deg)]
 
@@ -274,9 +289,9 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None,
             base = torch.stack([w.to(dt), torch.ones_like(w, dtype=dt)], dim=-1)
             node_input.append(torch.where(a[None, :, None], base, zero.to(w.device)))
     else:
-        maxdeg = functools.reduce(torch.maximum, [
+        maxdeg = functools.reduce(torch.maximum, _all_parts([
             torch.amax(torch.where(a[None, :], d, zero.to(d.device)), dim=1).to(dev)
-            for a, d in zip(active, deg)])
+            for a, d in zip(active, deg)], mesh))
         for a, d, p in zip(active, deg, prior):
             z = zero.to(d.device)
             nd = d / torch.clamp(maxdeg.to(d.device), min=1e-12)[:, None]
@@ -286,11 +301,12 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None,
             node_input.append(torch.stack(feats, dim=-1))
 
     n_f = float(bdx.n_nodes)
-    cov_frac = _add([torch.sum(c & m) for c, m in zip(covered, masks)]).to(dt) / n_f
+    cov_frac = add_in_order(_all_parts([torch.sum(c & m) for c, m in zip(covered, masks)],
+                               mesh)).to(dt) / n_f
     e_cnt = torch.clamp(
         torch.tensor(bdx.n_edges, dtype=dt, device=dev), min=1.0
     )
-    wedges = _graph_sum([d * (d - 1.0) / 2.0 for d in deg], dim=1)
+    wedges = _graph_sum([d * (d - 1.0) / 2.0 for d in deg], dim=1, mesh=mesh)
     aux = torch.stack(
         [
             cov_frac.expand(2),
@@ -306,7 +322,7 @@ def _banded_inputs(net: DuplexQNet, bdx, covered: torch.Tensor, mesh=None,
 
 
 def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
-           sage=None, store=None):
+           sage=None, store=None, mesh=None):
     """Per-layer message passing and cross-layer fusion (the JAX package's
     net._embed), for one graph or a batch: node_input [2, ..., N, F],
     active bool [..., N].  Returns (h_f0, h_f1) [..., N, D], l2-normalised
@@ -316,7 +332,8 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
     `sage` is given, runs as `sage(layer, h)`, the fused SAGE step (kernel
     K2, no gradient), with h kept in the `store` dtype between the steps
     when one is given (bf16 activations; the pool and the fusion widen it).
-    The virtual-node pool is a graph-wide f64 sum (`_graph_sum`).
+    The virtual-node pool is a graph-wide f64 sum (`_graph_sum`; over the
+    whole graph's shards on a mesh that spans processes).
 
     node_input and active may be lists of row pieces (the shards of a gp
     mesh); then aggregate maps a list of pieces to a list, the dense layers
@@ -346,7 +363,7 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
         if sage is not None and store is not None:
             h = [x.to(store) for x in h]
         for _ in range(max_bp_iter):
-            ypool = _graph_sum(h, dim=-2)  # inactive rows are exactly 0
+            ypool = _graph_sum(h, dim=-2, mesh=mesh)  # inactive rows are exactly 0
             y_new = torch.cat([ypool @ c1, y @ c2], -1)
             if sage is not None:
                 h = sage(layer, h)
@@ -485,7 +502,9 @@ def banded_test_forward(
     dense layers run per shard, and Q is gathered to the first shard's
     device.  An unsharded bdx is sharded on the way in (views where the
     shards share its device).  The fused step needs mesh=None.  The net
-    lies on the first shard's device.
+    lies on the first shard's device.  On a mesh that spans processes
+    every process passes the same bdx (or its share, sharded) and covered,
+    computes its shards, and gets the whole Q with the same bits.
 
     variant "degree_cost" or "ce" takes that variant's inputs
     (_banded_inputs; the JAX package's banded_test_forward(variant=)):
@@ -508,13 +527,14 @@ def banded_test_forward(
     else:
         agg = _sharded_aggregate(mesh, bdx, live, precise, store)
     sage = _banded_sage(net, bdx, live, precise, f32_epi) if fuse_sage else None
-    h0, h1, y_f = _embed(net, node_input, active, agg, max_bp_iter, sage, store)
+    h0, h1, y_f = _embed(net, node_input, active, agg, max_bp_iter, sage, store, mesh)
     q = [torch.where(a, x, torch.full_like(x, -float("inf")))
          for a, x in zip(_pieces(active), _pieces(_q_values(net, (h0, h1), y_f, aux)))]
     return q[0] if mesh is None else gather_nodes(mesh, q)
 
 
-def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate) -> torch.Tensor:
+def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate, mesh=None,
+                          axis: str = "gp") -> torch.Tensor:
     """Σ_l 2·tr(HᵀLH)/|E_l| with L = D - A of the live subgraph (the JAX
     package's net.laplacian_regularizer; reference calc_loss,
     MultiDismantler_torch.py:410-431).
@@ -527,14 +547,22 @@ def laplacian_regularizer(h_f, deg: torch.Tensor, aggregate) -> torch.Tensor:
     [2, B, N] (env/batch's deg with its layer axis first), as the JAX
     package's batched form takes (h_f, g, inputs); train_step passes that.
     Sharded: h_f's entries and deg are lists of shard pieces, whose f32
-    partial sums are added in shard order."""
+    partial sums are added in shard order.
+
+    With a mesh whose `axis` spans processes (the gp shards, or the dp
+    replicas' batch rows) this is this process's part: its own rows'
+    quadratic and cross terms over the whole graph's (or batch's) |E_l|,
+    the parts summing to the whole term."""
     total = 0.0
     for layer in range(2):
         hs, pools = _pieces(h_f[layer]), _pieces(aggregate(layer, h_f[layer]))
         degs = [d[layer] for d in _pieces(deg)]
-        quad = _add([torch.sum(d * torch.sum(h * h, dim=-1)) for d, h in zip(degs, hs)])
-        cross = _add([torch.sum(h * p) for h, p in zip(hs, pools)])
-        denom = torch.clamp(_add([torch.sum(d) for d in degs]), min=1.0)
+        quad = add_in_order([torch.sum(d * torch.sum(h * h, dim=-1)) for d, h in zip(degs, hs)])
+        cross = add_in_order([torch.sum(h * p) for h, p in zip(hs, pools)])
+        counts = [torch.sum(d) for d in degs]
+        if mesh is not None:
+            counts = gather_parts(mesh, counts, axis)
+        denom = torch.clamp(add_in_order(counts), min=1.0)
         total = total + 2.0 * (quad - cross) / denom
     return total
 
@@ -580,7 +608,16 @@ def banded_train_loss(
     parallel/band_partition.ShardedBandSpmm (kernel K3, and K3 with swapped
     scales for its gradient; their bf16 modes at precise=False), the
     actions' rows are gathered from the shards that own them, and the loss
-    lies on the first shard's device."""
+    lies on the first shard's device.
+
+    On a mesh that spans processes every process passes the same bdx,
+    covered, actions and targets, and gets its part of the loss: the MSE
+    over the actions its shards own, divided by the whole count, plus
+    alpha times its part of the regularizer (laplacian_regularizer).  The
+    parts sum to the loss (parallel/mesh.all_reduce of the value); after
+    backward each process holds its part's gradient, and
+    parallel/mesh.reduce_grads sums them.  Graph-wide sums pass through the
+    differentiable gather, whose backward sums the processes' gradients."""
     if variant == "hca":
         raise ValueError("the JAX package has no banded HCA loss (its banded HCA forward, "
                          "models/hca_banded.py, is eval only): train HCA with the "
@@ -596,7 +633,7 @@ def banded_train_loss(
             return spmm_band_sharded_grad(mesh, bdx.dbg(layer), live, live, hs, precise)
 
     def embed():
-        return _embed(net, node_input, active, agg)
+        return _embed(net, node_input, active, agg, mesh=mesh)
 
     if remat:
         h0, h1, y_f = checkpoint(embed, use_reentrant=False)
@@ -609,13 +646,18 @@ def banded_train_loss(
         h0, h1, y_f = embed()
     actions = torch.as_tensor(actions, device=bdx.device).long()
     targets = torch.as_tensor(targets, device=bdx.device, dtype=y_f.dtype)
-    if mesh is None:
-        rows = (h0[actions], h1[actions])
+    if mesh is not None and mesh.spans:
+        (r0, pos), (r1, _) = own_rows(mesh, h0, actions), own_rows(mesh, h1, actions)
+        q = _q_values(net, (r0, r1), y_f, aux)
+        mse = torch.sum(torch.square(q - targets[pos])) / actions.shape[0]
     else:
-        rows = (gather_rows(mesh, h0, actions), gather_rows(mesh, h1, actions))
-    q = _q_values(net, rows, y_f, aux)
-    mse = torch.mean(torch.square(q - targets))
-    reg = laplacian_regularizer((h0, h1), deg, agg)
+        if mesh is None:
+            rows = (h0[actions], h1[actions])
+        else:
+            rows = (gather_rows(mesh, h0, actions), gather_rows(mesh, h1, actions))
+        q = _q_values(net, rows, y_f, aux)
+        mse = torch.mean(torch.square(q - targets))
+    reg = laplacian_regularizer((h0, h1), deg, agg, mesh)
     return mse + alpha * reg
 
 

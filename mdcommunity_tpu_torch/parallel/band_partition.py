@@ -6,7 +6,9 @@ one, spmm_band_packed_sharded), collapsed into one operator as the port
 collapsed the unsharded ones (ops/dense_band.py):
 
   * Nodes, and with them the band blocks, are split contiguously over the gp
-    shards of a GpMesh (parallel/mesh.py).  shard_band_graph splits the
+    shards of a GpMesh (parallel/mesh.py), which may span processes: a
+    process holds and contracts its own shards, and the halos and the
+    mirror table cross the process boundary.  shard_band_graph splits the
     block-major arrays (base, slot_of_row, mirror_node), as views where a
     shard shares the graph's device, and replicates the mirror COO and its
     weights once a device.
@@ -57,11 +59,12 @@ Parts = List[torch.Tensor]
 class ShardedBandGraph:
     """One layer's band operator split over a gp mesh.
 
-    shards : a DenseBandGraph for each shard (n = local_n): its own base
-             blocks [nb_l, S+C, W2] (W2/2 with nibble: K3's nibble mode
-             reads them) and slot_of_row [nb_l, S], its mirror
-             slots' nodes in local ids; the whole graph's mirror COO, w_cov
-             and c_key (one copy a device); no spill.
+    shards : a DenseBandGraph for each shard this process holds
+             (mesh.local; n = local_n): its own base blocks [nb_l, S+C, W2]
+             (W2/2 with nibble: K3's nibble mode reads them) and slot_of_row
+             [nb_l, S], its mirror slots' nodes in local ids; the whole
+             graph's mirror COO, w_cov and c_key (one copy a device); no
+             spill.
     n      : the whole graph's node count
     """
 
@@ -86,9 +89,11 @@ class ShardedBandGraph:
 
 
 def shard_band_graph(mesh: GpMesh, dbg: DenseBandGraph) -> ShardedBandGraph:
-    """Split `dbg` over the mesh's shards (views where a shard's device is
-    dbg's).  Raises ValueError on spill edges or on a block count that the
-    shards do not divide, as the JAX package does."""
+    """Split `dbg` over the mesh's shards, keeping those this process
+    holds (views where a shard's device is dbg's): every process of a mesh
+    that spans processes passes the same whole graph, as each JAX process
+    builds the same host arrays.  Raises ValueError on spill edges or on a
+    block count that the shards do not divide, as the JAX package does."""
     if dbg.spill.nnz:
         raise ValueError("the sharded band operator needs an empty spill set; raise "
                          "the mirror capacity or improve the ordering")
@@ -107,7 +112,7 @@ def shard_band_graph(mesh: GpMesh, dbg: DenseBandGraph) -> ShardedBandGraph:
         )
 
     shards = []
-    for i, (dev, rep) in enumerate(zip(mesh.devices, per_device(mesh, replicated))):
+    for i, dev, rep in zip(mesh.local, mesh.devices, per_device(mesh, replicated)):
         blocks = slice(i * nb_l, (i + 1) * nb_l)
         node = dbg.mirror_node[blocks]
         shards.append(DenseBandGraph(
@@ -123,14 +128,15 @@ def _check_mesh(mesh: GpMesh, sdbg: ShardedBandGraph, *parts: Sequence) -> None:
     if mesh != sdbg.mesh:
         raise ValueError("the operator was sharded over another mesh")
     for p in parts:
-        if len(p) != mesh.gp:
-            raise ValueError(f"expected {mesh.gp} shard pieces, got {len(p)}")
+        if len(p) != len(mesh.local):
+            raise ValueError(f"expected {len(mesh.local)} shard pieces, got {len(p)}")
 
 
 def mirror_subs(sdbg: ShardedBandGraph, col: Parts, h: Parts, precise: bool = True) -> Parts:
-    """Each shard's slice [nb_l·C, D] of the mirror-space result
+    """Each held shard's slice [nb_l·C, D] of the mirror-space result
     (ops/dense_band.mirror_sub on the whole graph): shard-local compaction,
-    the all-gather, one sorted segment sum over the whole table a device."""
+    the all-gather in shard order (across processes where the mesh spans
+    them), one sorted segment sum over the whole table a device."""
     D = h[0].shape[1]
     if not sdbg.C:
         return [c.new_zeros((0, D)) for c in col]
@@ -138,7 +144,7 @@ def mirror_subs(sdbg: ShardedBandGraph, col: Parts, h: Parts, precise: bool = Tr
                                     for s, c, x in zip(sdbg.shards, col, h)])
     done, subs = {}, []
     m = sdbg.shards[0].n_blocks * sdbg.C
-    for i, (s, t) in enumerate(zip(sdbg.shards, tables)):
+    for i, s, t in zip(sdbg.mesh.local, sdbg.shards, tables):
         if id(t) not in done:
             done[id(t)] = spmm_sorted(s.ccoo, s.w_cov, t)
         subs.append(done[id(t)][i * m: (i + 1) * m])
@@ -157,9 +163,10 @@ def block_split(nb_l: int):
 def spmm_band_sharded(mesh: GpMesh, sdbg: ShardedBandGraph, row: Parts, col: Parts,
                       h: Parts, precise: bool = True,
                       counter: Optional[str] = None) -> Parts:
-    """out = (A ⊙ row⊗col) @ h with every node tensor given as its gp shard
-    pieces (row, col [local_n], h [local_n, D] on each shard's device):
-    the shards' output pieces.  precise and h's storage dtype as in
+    """out = (A ⊙ row⊗col) @ h with every node tensor given as the pieces
+    of the shards this process holds (row, col [local_n], h [local_n, D] on
+    each shard's device): their output pieces.  Where the mesh spans
+    processes the halos and the mirror table cross them.  precise and h's storage dtype as in
     ops/dense_band.spmm_dense_band; K3's launches count under `counter`
     (by default the mode's own).  Not differentiable: spmm_band_sharded_grad
     is."""
@@ -188,7 +195,9 @@ class ShardedBandSpmm(torch.autograd.Function):
     launches["band_halo_bwd"]; with precise=False both run K3's bf16 mode,
     the backward counted under band_halo_bf16_bwd (the JAX package's VJP,
     band_partition.py:312-327).  apply(sdbg, precise, *row, *col, *h) with
-    gp pieces each; returns the gp output pieces.  It raises in the
+    a piece a held shard each; returns the held shards' output pieces.
+    The backward exchanges its own halos, so a mesh that spans processes
+    needs no autograd through the transport.  It raises in the
     backward if a shard's band operands were edited since the forward
     (ops/dense_band.BandSpmm's guard; shard bases that are views share
     their storage's edit counter, so a sever through the whole graph's base
@@ -196,8 +205,8 @@ class ShardedBandSpmm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sdbg, precise, *tensors):
-        gp = sdbg.mesh.gp
-        row, col, h = tensors[:gp], tensors[gp:2 * gp], tensors[2 * gp:]
+        n = len(sdbg.shards)
+        row, col, h = tensors[:n], tensors[n:2 * n], tensors[2 * n:]
         ctx.sdbg = sdbg
         ctx.precise = precise
         ctx.versions = band_versions(sdbg)
@@ -209,12 +218,12 @@ class ShardedBandSpmm(torch.autograd.Function):
     def backward(ctx, *gs):
         sdbg = ctx.sdbg
         check_band_versions(sdbg, ctx.versions)
-        gp = sdbg.mesh.gp
+        n = len(sdbg.shards)
         saved = ctx.saved_tensors
         name = "band_halo_bwd" if ctx.precise else "band_halo_bf16_bwd"
-        dh = spmm_band_sharded(sdbg.mesh, sdbg, list(saved[gp:]), list(saved[:gp]),
+        dh = spmm_band_sharded(sdbg.mesh, sdbg, list(saved[n:]), list(saved[:n]),
                                [g.contiguous() for g in gs], ctx.precise, counter=name)
-        return (None,) * (2 + 2 * gp) + tuple(dh)
+        return (None,) * (2 + 2 * n) + tuple(dh)
 
 
 def spmm_band_sharded_grad(mesh: GpMesh, sdbg: ShardedBandGraph, row: Parts, col: Parts,
@@ -234,15 +243,16 @@ def sever_sharded(sdbg: ShardedBandGraph, src: torch.Tensor, dst: torch.Tensor,
                   valid: torch.Tensor) -> ShardedBandGraph:
     """ops/dense_band.sever_edges on the sharded operator, in place: each
     in-band cell is zeroed (a nibble base's nibble set, clear_cells) in the
-    shard that owns its destination block, each mirror edge's weight in
-    every device's copy."""
-    dev0 = sdbg.mesh.devices[0]
+    shard that owns its destination block (where this process holds it),
+    each mirror edge's weight in every device's copy.  Every process of a
+    mesh that spans processes passes the same severs."""
+    dev0 = sdbg.mesh.home
     src, dst = src.to(dev0, torch.int64), dst.to(dev0, torch.int64)
     valid = valid.to(dev0, torch.bool)
     blk, lr, lc, in_band = sever_cells(sdbg.S, sdbg.B, sdbg.pad_n, src, dst)
     ib = in_band & valid
     nb_l = sdbg.shards[0].n_blocks
-    for i, s in enumerate(sdbg.shards):
+    for i, s in zip(sdbg.mesh.local, sdbg.shards):
         m = ib & (torch.div(blk, nb_l, rounding_mode="floor") == i)
         dev = s.base.device
         clear_cells(s.base, s.nibble, (blk[m] - i * nb_l).to(dev), lr[m].to(dev),

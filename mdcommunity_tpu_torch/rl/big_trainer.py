@@ -35,7 +35,12 @@ With a gp mesh (parallel/mesh.py) the loop runs gp-sharded, as the JAX
 package's train_banded_loop(mesh=...): the operand sets are
 ShardedBandedDuplexes, selection and targets run the unfused forward through
 the sharded band operator (kernel K3) with a global top-k of the gathered
-Q, and the fit differentiates through ShardedBandSpmm.
+Q, and the fit differentiates through ShardedBandSpmm.  The mesh may span
+processes (parallel/mesh.init_distributed): every process then runs the
+same host cascade from the same seed, as every JAX process runs the same
+host code, selects from the same gathered Q, fits its own shards' part of
+the loss, and sums the gradients with the others before the Adam step, so
+the parameters stay bit-identical on every process.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from mdcommunity_tpu_torch.models.net import (
     banded_test_forward,
     banded_train_loss,
 )
+from mdcommunity_tpu_torch.parallel.mesh import all_reduce, reduce_grads
 from mdcommunity_tpu_torch.utils.device import matmul_precision
 
 
@@ -141,7 +147,10 @@ def train_banded_loop(
     ValueError.  Selection and targets then run the unfused forward (the
     fused step is single-device), precise as asked; actions and targets
     stay on the first shard's device; the host env is unchanged and its
-    severs are routed to the shards that own them.
+    severs are routed to the shards that own them.  On a mesh that spans
+    processes every process calls the loop with the same arguments (its
+    own env, made alike) and returns the same net; the history's loss is
+    the whole loss.
 
     precise=False: the bf16 fit (module doc; the JAX package's
     train_banded_loop(precise=False)); with a mesh its gradient is K3's
@@ -265,8 +274,10 @@ def train_banded_loop(
                                              tgts_dev, alpha=alpha_recon, precise=precise,
                                              variant=variant)
                     loss.backward()
+                if mesh is not None:
+                    reduce_grads(mesh, net.parameters())
                 opt.step()
-            loss_v = loss.item()
+            loss_v = (all_reduce(mesh, loss.detach()) if mesh is not None else loss).item()
         t5 = time.perf_counter()
         for layer in range(2):
             _apply_severs(prev, layer, new_sev[layer])

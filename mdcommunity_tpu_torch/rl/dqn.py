@@ -66,6 +66,7 @@ from mdcommunity_tpu_torch.models.net import (
     to_jax_params,
     train_forward,
 )
+from mdcommunity_tpu_torch.parallel.mesh import all_gather_rows, all_reduce, reduce_grads
 from mdcommunity_tpu_torch.utils.config import Config
 from mdcommunity_tpu_torch.utils.device import (
     matmul_precision,
@@ -121,6 +122,7 @@ def train_step(
     use_double_dqn: bool = False,
     use_huber: bool = False,
     max_bp_iter: int = 3,
+    mesh=None,
 ):
     """One SGD step (reference Fit -> fit -> calc_loss, :315-431; the JAX
     package's train_step): the n-step target r + gamma·max_a' Q_target(s',
@@ -138,11 +140,20 @@ def train_step(
 
     Returns (loss, mse, recon, td = target - Q(s, a)), detached, without a
     host sync.  optimizer=None leaves the gradients in the parameters'
-    .grad and takes no step."""
+    .grad and takes no step.
+
+    mesh (parallel/mesh.GpMesh with dp replicas, one process each): the
+    batch arguments are this replica's rows of the global batch (its
+    len/dp rows, in order) and the step is the global batch's, as the JAX
+    package's step on a dp-sharded batch: the mean's denominator is the
+    global batch size and the Laplacian's |E_l| the whole batch's, so the
+    replicas' losses are parts of the global one; their gradients are summed
+    before the step.  Every replica returns the global loss, mse and recon,
+    and td for the whole batch in batch order."""
     if variant == "hca":
         return _hca_train_step(net, target_net, optimizer, g, covered_st, sever_st, actions,
                                rewards, covered_sp, sever_sp, terminal, is_weights, gamma,
-                               alpha_recon, use_double_dqn, use_huber, max_bp_iter)
+                               alpha_recon, use_double_dqn, use_huber, max_bp_iter, mesh)
     with torch.no_grad():
         inputs_sp = make_batch_inputs(g, covered_sp, sever_sp, dense=True, variant=variant)
         q_sp_t = test_forward(target_net, g, inputs_sp, max_bp_iter=max_bp_iter)
@@ -152,11 +163,11 @@ def train_step(
 
     inputs_st = make_batch_inputs(g, covered_st, sever_st, dense=True, variant=variant)
     q, h_f = train_forward(net, g, inputs_st, actions, max_bp_iter=max_bp_iter)
-    mse = _td_loss(q, target, is_weights, use_huber)
+    mse = _td_loss(q, target, is_weights, use_huber, mesh)
     recon = laplacian_regularizer(
         h_f, inputs_st.deg.transpose(0, 1),
-        lambda layer, h: _aggregate(g, inputs_st, layer, h))
-    return _finish_step(net, optimizer, mse, recon, alpha_recon, target - q)
+        lambda layer, h: _aggregate(g, inputs_st, layer, h), mesh, "dp")
+    return _finish_step(net, optimizer, mse, recon, alpha_recon, target - q, mesh)
 
 
 def _max_q(q_sp_t, q_sp_o, terminal):
@@ -169,29 +180,40 @@ def _max_q(q_sp_t, q_sp_o, terminal):
     return torch.where(terminal, torch.zeros_like(max_q), max_q)
 
 
-def _td_loss(q, target, is_weights, use_huber):
+def _td_loss(q, target, is_weights, use_huber, mesh=None):
+    """The weighted TD loss's mean over the batch; with a dp mesh this
+    replica's part of the global batch's mean."""
     if use_huber:
         per = F.huber_loss(q, target, reduction="none", delta=1.0)
     else:
         per = torch.square(target - q)
-    return torch.mean(per if is_weights is None else is_weights * per)
+    per = per if is_weights is None else is_weights * per
+    if mesh is None:
+        return torch.mean(per)
+    return torch.sum(per) / (per.shape[0] * mesh.dp)
 
 
-def _finish_step(net, optimizer, mse, recon, alpha_recon, td):
+def _finish_step(net, optimizer, mse, recon, alpha_recon, td, mesh=None):
     loss = mse + alpha_recon * recon
     net.zero_grad(set_to_none=True)
     loss.backward()
     for p in net.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        reduce_grads(mesh, net.parameters(), "dp")
     if optimizer is not None:
         optimizer.step()
-    return loss.detach(), mse.detach(), recon.detach(), td.detach()
+    out = [loss.detach(), mse.detach(), recon.detach()]
+    if mesh is None:
+        return (*out, td.detach())
+    return (*[all_reduce(mesh, x, "dp") for x in out],
+            all_gather_rows(mesh, td.detach(), "dp"))
 
 
 def _hca_train_step(net, target_net, optimizer, g, covered_st, sever_st, actions, rewards,
                     covered_sp, sever_sp, terminal, is_weights, gamma, alpha_recon,
-                    use_double_dqn, use_huber, max_bp_iter):
+                    use_double_dqn, use_huber, max_bp_iter, mesh=None):
     """train_step for HCA (JAX rl/dqn.py:103-142).  hca_forward is
     differentiable in the parameters; its community ranking (a stable
     argsort) carries no gradient, as jnp.argsort carries none.  The
@@ -208,9 +230,9 @@ def _hca_train_step(net, target_net, optimizer, g, covered_st, sever_st, actions
     inputs_st = make_hca_inputs(g, covered_st, sever_st, c_pad=g.pad_n)
     q_all, h_f = hca_forward(net, inputs_st, max_bp_iter=max_bp_iter)
     q = q_all[torch.arange(actions.shape[0], device=actions.device), actions]
-    mse = _td_loss(q, target, is_weights, use_huber)
-    recon = hca_laplacian(h_f, inputs_st)
-    return _finish_step(net, optimizer, mse, recon, alpha_recon, target - q)
+    mse = _td_loss(q, target, is_weights, use_huber, mesh)
+    recon = hca_laplacian(h_f, inputs_st, mesh)
+    return _finish_step(net, optimizer, mse, recon, alpha_recon, target - q, mesh)
 
 
 def _pack_bits_u8(x: torch.Tensor) -> torch.Tensor:
@@ -374,7 +396,7 @@ def make_valid_pool(cfg: Config, device=None) -> GraphPool:
 
 
 def validation_score(net, g, variant: str = "unit_cost", degree_cost: bool = False,
-                     ce_prune: bool = False, return_extras: bool = False):
+                     ce_prune: bool = False, return_extras: bool = False, mesh=None):
     """Mean normalised dismantling cost over a batch of graphs: a batched
     greedy rollout (CE's pruning with ce_prune), score +
     remaining/(max_rank·N) per graph (reference Test :738-755; the JAX
@@ -382,7 +404,16 @@ def validation_score(net, g, variant: str = "unit_cost", degree_cost: bool = Fal
     With return_extras, (mean, lmcc_final, audc): per graph the final rank
     over max_rank and the mean of its normalised-LMCC curve, score·N /
     max(removals, 1) (reference Test(return_lmcc=True) :913-951), as
-    numpy f32 arrays."""
+    numpy f32 arrays.
+
+    mesh (dp replicas): where the graphs split evenly over the replicas
+    (the JAX agent's rule), each replica rolls out its own share and the
+    per-graph results are gathered in graph order, so every replica gets
+    the whole pool's mean; else each rolls out every graph."""
+    shard = mesh is not None and g.node_mask.shape[0] % mesh.dp == 0
+    if shard:
+        b = g.node_mask.shape[0] // mesh.dp
+        g = g.map(lambda x: x[mesh.dp_rank * b:(mesh.dp_rank + 1) * b])
     state = greedy_rollout(net, g, batched_reset(g), variant, degree_cost=degree_cost,
                            ce_prune=ce_prune)
     covered_cnt = torch.sum(state.covered & g.node_mask, dim=1)
@@ -390,10 +421,13 @@ def validation_score(net, g, variant: str = "unit_cost", degree_cost: bool = Fal
     n_f = g.n_nodes.to(torch.float32)
     max_rank = g.max_rank.to(torch.float32)
     score = state.score + remain / (max_rank * n_f)
-    if not return_extras:
-        return float(torch.mean(score))
     lmcc_final = state.rank.to(torch.float32) / max_rank
     audc = state.score * n_f / torch.clamp(covered_cnt.to(torch.float32), min=1.0)
+    if shard:
+        score, lmcc_final, audc = (all_gather_rows(mesh, x, "dp")
+                                   for x in (score, lmcc_final, audc))
+    if not return_extras:
+        return float(torch.mean(score))
     return float(torch.mean(score)), lmcc_final.cpu().numpy(), audc.cpu().numpy()
 
 
@@ -418,18 +452,33 @@ class DQNAgent:
     in the JAX package).  CE prunes its actions to the boundary in play
     (cfg.action_pruning_train) and validation (cfg.action_pruning_test);
     HCA adds the bridge bonus to its rewards (cfg.hca_bridge_effective).
-    The JAX agent's `mesh=` (data-parallel replicas) is not ported yet.
     cfg.dtype == "bfloat16" runs the dense layers (and the dense
     aggregation, a matmul) under utils/device.matmul_precision(False),
     which on the card is TF32 (10-bit mantissas, f32 sums) for f32 tensors;
     "float32" runs them in true f32.  cfg.debug_nans turns on
-    torch.autograd.set_detect_anomaly, process-wide."""
+    torch.autograd.set_detect_anomaly, process-wide.
 
-    def __init__(self, cfg: Config, seed: Optional[int] = None, device=None):
+    mesh (parallel/mesh.make_mesh(dp=...) after init_distributed; gp = 1):
+    data-parallel replicas, one process each, as the JAX agent's mesh=.
+    Every replica runs the same play and samples the same replay batches
+    from the same seed; fit runs train_step on the replica's batch_size/dp
+    rows of each batch and sums the gradients, so every replica takes the
+    global batch's step and the parameters stay bit-identical; validate
+    splits the pool over the replicas where it divides.  Only the first
+    replica writes files (save, the VC file).  The device is the mesh's
+    unless `device` names one."""
+
+    def __init__(self, cfg: Config, seed: Optional[int] = None, device=None, mesh=None):
         if cfg.variant not in VARIANTS:
             raise ValueError(f"unknown variant {cfg.variant!r}")
+        if mesh is not None and (mesh.gp != 1 or cfg.batch_size % mesh.dp):
+            raise ValueError(f"the agent's mesh shards the batch over dp: gp must be 1 and "
+                             f"batch_size={cfg.batch_size} divisible by dp={mesh.dp}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.primary = mesh is None or (mesh.dp_rank == 0 and mesh.rank == 0)
+        self.device = resolve_device(mesh.home if mesh is not None and device is None
+                                     else device)
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         self.precise = cfg.dtype != "bfloat16"
@@ -614,9 +663,12 @@ class DQNAgent:
         scalar, not synced (a host read would fence the queue every
         iteration)."""
         batch, tree_idx, iw, tree_gen = self.sample_batch()
+        if self.mesh is not None:
+            batch, iw = self._replica_rows(batch, iw)
         with self._prec():
             loss, _, _, td = train_step(self.net, self.target_net, self.optimizer,
-                                        **self.step_args(batch, iw), **self.step_options())
+                                        **self.step_args(batch, iw), **self.step_options(),
+                                        mesh=self.mesh)
         if tree_idx is not None:
             # the previous fit's priorities, one step deferred: its td has
             # finished by now, so reading it does not wait; the write
@@ -624,6 +676,14 @@ class DQNAgent:
             self._flush_priorities()
             self._pending_prio = (tree_idx, td, tree_gen)
         return loss
+
+    def _replica_rows(self, batch, iw):
+        """This replica's rows of a replay batch (and of its IS weights)."""
+        b = self.cfg.batch_size // self.mesh.dp
+        rows = slice(self.mesh.dp_rank * b, (self.mesh.dp_rank + 1) * b)
+        return (dataclasses.replace(batch, **{f.name: getattr(batch, f.name)[rows]
+                                              for f in dataclasses.fields(batch)}),
+                None if iw is None else iw[rows])
 
     def _flush_priorities(self):
         if self._pending_prio is not None:
@@ -640,7 +700,7 @@ class DQNAgent:
         ce_prune = self.cfg.variant == "ce" and self.cfg.action_pruning_test
         with self._prec():
             return validation_score(self.net, self.valid_pool.stacked, self.cfg.variant,
-                                    self.degree_cost, ce_prune, return_extras)
+                                    self.degree_cost, ce_prune, return_extras, self.mesh)
 
     def _ce_prior_diagnostics(self) -> str:
         """The CE-PRIOR line (reference :671-677; the JAX agent's): the mean
@@ -681,7 +741,9 @@ class DQNAgent:
         }
 
     def save(self, path: str):
-        save_agent_state(path, self._state_dict())
+        """Write the agent file (the first replica only, under a mesh)."""
+        if self.primary:
+            save_agent_state(path, self._state_dict())
 
     def load(self, path: str, weights_only: bool = False):
         """Restore an agent file: the port's (full state) or, with
@@ -738,9 +800,9 @@ class DQNAgent:
             self.load(os.path.join(save_dir, "latest.ckpt"))
             start_iter = self.iteration
             log(f"resumed from iter {start_iter}")
-            vc_out = open(vc_file, "a")
+            vc_out = open(vc_file if self.primary else os.devnull, "a")
         else:
-            vc_out = open(vc_file, "w")
+            vc_out = open(vc_file if self.primary else os.devnull, "w")
 
         t0 = time.perf_counter()
         self.prepare_valid_data()

@@ -38,7 +38,7 @@ def test_import_leaves_jax_out():
               "utils.profiling", "cli", "graphs.louvain", "graphs.community",
               "graphs.hca", "models.hca", "models.hca_banded", "graphs.centrality",
               "eval.baselines", "eval.analysis", "eval.plots", "ops.band_spmm",
-              "parallel.partition", "model_vs_heuristics"):
+              "parallel.partition", "model_vs_heuristics", "multihost_smoke"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -28,9 +28,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      library yardstick (torch.bmm of the widened band against materialised
      windows, in bf16 for the bf16 modes) at the main path's shapes, 18,432
      rows with D=64, each beside its bound; then hold the same kernels (and
-     phase 9's modes, on a nibble build) against their plain versions at
-     2^20 rows, the shapes the training paths give them, untimed (their
-     2^20-row times are mdcommunity_tpu_torch/time_band_rows.py's);
+     phase 9's int8 modes: K2's bf16 epilogue, the diag variants, the
+     stream probe) against their plain versions at 2^20 rows, the shapes
+     the training paths give them, untimed (their 2^20-row times are
+     mdcommunity_tpu_torch/time_band_rows.py's);
   4. drive the main path: large-graph greedy dismantling of the 18,222-node
      shuffled synthetic duplex of `large_graph_demo --sizes 18222` by the
      committed unit-cost checkpoint, through eval.real.evaluate_real
@@ -63,7 +64,10 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      one launch a shard), the sharded operator and its backward against K1
      and BandSpmm on the whole graph (max abs difference 0); K3's times at
      18,432 and 2^20 rows beside K1's; the sharded model call at 2^20 nodes,
-     precise and fast, against the unsharded one; and 6 iterations of the
+     precise and fast, against the unsharded one (precise: bit for bit, the
+     dense layers running over utils/device.row_matmul's row chunks, with
+     the GEMM kernels cuBLAS picks at a shard's and the whole graph's rows
+     logged; fast within FAST_Q_TOL); and 6 iterations of the
      sharded trainer loop at 2^20 beside the unsharded loop (the same
      removals), counts set to 0 just before and read just after;
   9. the band kernel's last TPU modes and the stream probe: nibble storage
@@ -150,9 +154,21 @@ Phases, each of which raises (and so exits non-zero) on any failure:
      build: the sharded operator and its VJP in both precise modes, Q
      precise and fast, the loss and its gradients, 3 iterations of
      train_banded_loop(mesh=), DQNAgent(mesh=dp 2)'s fits and validation
-     and the edge partition, each against the one-process run, with K3's
-     launches counted in each child, and the cross-process model call's ms
-     beside the one-process call's and its halo exchange's.
+     and the edge partition, each against the one-process run (Q against
+     the unsharded forward bit for bit in the precise mode; the gradients
+     of the cross-process and of the one-process loss against the same
+     loss in float64 on the CPU), with K3's launches counted in each child,
+     and the cross-process model call's ms beside the one-process call's
+     and its halo exchange's;
+ 16. the measurement tools (tools_phase), each through its main, counts
+     set to 0 just before and read just after: bench_spmm (bench.py's SpMM
+     fwd+bwd edges/s, K1's bf16 mode and precise mode both ways, on phase
+     9's 2^20 ring build; its step first held against K1's plain versions
+     at 18,432 rows), scaling_bench (both gp engines at gp = 1, 2, 4 on the
+     one card: band bit-equal across gp, edge partition within 1e-6),
+     bench_cascade_host (20 batches of the native cascade at 2^20 nodes)
+     and bf16_ab_train (the f32 and TF32 arms, 20 iterations); their four
+     JSON lines are printed before the card's line.
 Prints the card's name and power limit, a `kernels` JSON line, and as its
 last line {"ok": true, "device": {...}}.  Needs one CUDA card; without one it
 exits non-zero and prints no result.  --rehearse runs every phase at a small
@@ -194,11 +210,13 @@ FAST_Q_TOL = 1e-2
 F32_Q_TOL, F32_Q_SHARE, FLIP_Q_TOL = 1e-5, 0.95, 2 ** -7
 TIE = 1e-5               # of max|Q|: a gap no f32 forward of this depth resolves
 LOCKSTEP_CALLS = 100     # main-path model calls held to the CPU's trajectory
-# the sharded precise forward vs the unsharded one, of max|Q|: the same
-# kernels' bits, but cuBLAS picks another f32 GEMM kernel for a shard's rows
-# than for the whole graph's (sharded_forward_phase logs the dense layer's
-# difference), and those last-bit differences pass through three rounds
-SHARD_Q_TOL = 1e-5
+# the sharded precise forward vs the unsharded one, of max|Q|: 0.  K3 gives
+# K1's bits, the graph-wide sums add the shards' partials in shard order,
+# and every node-row product runs over utils/device.row_matmul's fixed row
+# chunks, so a shard's dense layers issue the very GEMMs the whole graph's
+# do (cuBLAS picks its f32 kernel by the row count: sharded_forward_phase
+# logs the kernels at a shard's and at the whole graph's rows)
+SHARD_Q_TOL = 0.0
 BLOCKED_STEPS = 180      # removals of the blocked path's run (step 18): 10 model calls
 GOLDEN_VC = 0.1194451824  # tests/test_golden_models.py, unit cost, 32 graphs
 GOLDEN_SYN = os.path.join(HERE, "results_tpu", "golden_synthetic", "golden.json")
@@ -270,6 +288,14 @@ def synth_banded(n, shuffle, seed, device, reorder=True, with_edges=False, S=256
     return (banded, edges) if with_edges else banded
 
 
+@functools.lru_cache(maxsize=None)
+def check_graph_a(n, device):
+    """The kernel checks' graph A, synth_banded(n, True, 1): shuffled, so
+    its band has mirror lanes and spill.  Built once (the host's reordering
+    takes seconds) and shared by the checks, which only read it."""
+    return synth_banded(n, True, 1, device)
+
+
 def operands(dbg, D, seed, device, unit=False):
     """h [pad_n, D] and live scales (10% of nodes covered), seeded."""
     import torch
@@ -322,7 +348,7 @@ def check_kernels(device, n):
     import torch
 
     errs = {}
-    mirrored = synth_banded(n, True, 1, device)
+    mirrored = check_graph_a(n, device)
     dbg = mirrored.dbg0
     log(f"check graph A: n={n} C={dbg.C} spill={dbg.spill.nnz}")
     if not dbg.C:
@@ -558,7 +584,7 @@ def check_bf16_kernels(device, n):
     import torch
 
     errs = {}
-    dbg = synth_banded(n, True, 1, device).dbg0
+    dbg = check_graph_a(n, device).dbg0
     h, live = operands(dbg, 64, 2, device)
     h2, ones = operands(dbg, 2, 3, device, unit=True)
     clean = synth_banded(n, False, 1, device).dbg0
@@ -953,7 +979,7 @@ def check_backward(device, n):
 
     from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band_grad
 
-    dbg = synth_banded(n, True, 1, device).dbg0
+    dbg = check_graph_a(n, device).dbg0
     log(f"check backward graph: n={n} C={dbg.C} spill={dbg.spill.nnz}")
     row, col = scales(dbg, 7, device)
     gen = torch.Generator().manual_seed(8)
@@ -1361,8 +1387,11 @@ def sharded_forward_phase(device, banded, gp=GP, calls=5):
     difference over max|Q|: within SHARD_Q_TOL precise; fast, with TF32
     dense layers, within FAST_Q_TOL), model-call ms (forward + stable top-k
     + fetch, host clock) for both.  First one dense layer's product per
-    shard against the whole graph's (f32).  Counts set to 0 just before
-    the sharded calls and read just after; returns them summed."""
+    shard against the whole graph's (f32), as one product a shard and by
+    row_matmul, with the GEMM kernels cuBLAS picks at the two row counts
+    (on the card; a diagnostic, logged empty where the profiler lost every
+    record).  Counts set to 0 just before the sharded calls and read
+    just after; returns them summed."""
     import torch
 
     from mdcommunity_tpu_torch.eval.metrics import top_k_stable
@@ -1371,18 +1400,27 @@ def sharded_forward_phase(device, banded, gp=GP, calls=5):
     from mdcommunity_tpu_torch.models.net import banded_test_forward
     from mdcommunity_tpu_torch.ops import band_kernels as bk
     from mdcommunity_tpu_torch.parallel.mesh import make_mesh
-    from mdcommunity_tpu_torch.utils.device import matmul_precision
+    from mdcommunity_tpu_torch.utils.device import ROW_CHUNK, matmul_precision, row_matmul
+    from mdcommunity_tpu_torch.utils.timing import kernel_names
 
     net = load_model(CKPT, device=device)
     sharded = shard_banded_duplex(make_mesh(gp, device), banded)
     covered = ~banded.node_mask
     x = torch.nn.functional.normalize(operands(banded.dbg0, 64, 12, device)[0], dim=-1)
+    w = net.p_node_conv
     with matmul_precision(True):
-        whole = x @ net.p_node_conv
-        pieces = torch.cat([p @ net.p_node_conv for p in torch.chunk(x, gp)])
+        parts = torch.chunk(x, gp)
+        whole = x @ w
+        pieces = torch.cat([p @ w for p in parts])
+        chunked = torch.cat([row_matmul(p, w) for p in parts])
+        names = {} if device == "cpu" else {
+            rows: kernel_names(lambda a=a: a @ w) for rows, a in ((len(parts[0]), parts[0]),
+                                                                   (len(x), x))}
     log(f"dense layer [{banded.pad_n // gp}, 64] @ [64, 64] per shard vs [{banded.pad_n}, 64]"
         f" whole (f32): max abs diff {(pieces - whole).abs().max().item():.3e}, bit-equal "
-        f"{torch.equal(pieces, whole)}")
+        f"{torch.equal(pieces, whole)}; by row_matmul (chunks of {ROW_CHUNK} rows) "
+        f"bit-equal {torch.equal(chunked, row_matmul(x, w))}; GEMM kernels by rows "
+        + json.dumps(names))
     k = max(int(0.001 * banded.n_nodes), 1)
     total = dict.fromkeys(bk.launches, 0)
     for precise, act in ((True, torch.float32), (False, torch.float32),
@@ -2722,7 +2760,7 @@ def check_slice6_kernels(device, n):
                                                  f32_epi=False),
             bk.sage_step_plain(g8, row, col, hh, sub8, aw, bw, precise, f32_epi=False)))
 
-    dbg = synth_banded(n, True, 1, device).dbg0
+    dbg = check_graph_a(n, device).dbg0
     h, live = operands(dbg, 64, 2, device)
     row, col = scales(dbg, 7, device)
     for precise in (True, False):
@@ -2940,34 +2978,40 @@ def probe_phase(device, small=False):
     rows, its timing at 2^18: the 2^20 nibble modes are held in main's
     2^20-row checks), tune_band --diag and probe_hbm_roof at 2^20 (few
     repetitions),
-    every launch count set to 0 just before and read just after.  small:
-    the CPU rehearsal's sizes.  Returns the counts."""
+    every launch count set to 0 just before and read just after; tune_band
+    and probe_hbm_roof share one ring build (graphs/synth.ring_band_graph,
+    n nodes and 4n edges), which phase 16's bench_spmm reuses.  small: the
+    CPU rehearsal's sizes.  Returns the counts and the ring build."""
     from mdcommunity_tpu_torch import bench_nibble, probe_f32_epi, probe_hbm_roof, tune_band
+    from mdcommunity_tpu_torch.graphs.synth import ring_band_graph
 
     import torch
 
     quick = ["--reps", "3", "--warm", "1"]
+    n = 4096 if small else 1 << 20
     if small:
         quick += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    ring = ring_band_graph(n, 4 * n, device=device)
+    log(f"probe ring build (n={n}): {time.perf_counter() - t0:.1f} s")
     runs = [
-        (probe_f32_epi, ["--n", "2048"] if small else []),
+        (probe_f32_epi, ["--n", "2048"] if small else [], {}),
         (bench_nibble, ["--n-check", "4096", "--n", "4096"] if small else
-         ["--n-check", str(1 << 16), "--n", str(1 << 18)]),
-        (tune_band, ["--diag"] + (["--n", "4096"] if small else [])),
-        (probe_hbm_roof, ["--n", "4096"] if small else []),
+         ["--n-check", str(1 << 16), "--n", str(1 << 18)], {}),
+        (tune_band, ["--diag", "--n", str(n)], dict(ring=ring)),
+        (probe_hbm_roof, ["--n", str(n)], dict(ring=ring)),
     ]
     reset_all_launches()
-    t0 = time.perf_counter()
-    for probe, argv in runs:
+    for probe, argv, kw in runs:
         t1 = time.perf_counter()
-        probe.main(argv + quick)
+        probe.main(argv + quick, **kw)
         log(f"probe {probe.__name__.rsplit('.', 1)[1]}: {time.perf_counter() - t1:.1f} s")
     counts = all_launches()
     log(f"probe phase: {time.perf_counter() - t0:.1f} s, launches "
         + json.dumps({k: v for k, v in counts.items() if v}))
     if device != "cpu":
         torch.cuda.empty_cache()
-    return counts
+    return counts, ring
 
 
 # (counter, file:line of the TPU kernel code it replaces, mode) of this
@@ -3000,7 +3044,7 @@ SLICE6 += [("stream_sum", "scripts/probe_pallas_stream.py:20", "make_stream"),
 # the committed checkpoint of each variant beside unit cost
 VARIANT_CKPTS = (("degree_cost", "degree_100k_r5"), ("ce", "ce_100k_r5"),
                  ("hca", "hca_100k_r5"))
-VARIANT_LOCKSTEP = 20    # model calls of each variant's run held to the CPU's forward
+VARIANT_LOCKSTEP = 10    # model calls of each variant's run held to the CPU's forward
 COMM_D = (128, 256)      # K1's widths for the HCA community pass; 512 is chunked
 STRUCTURES = {}          # variant -> (structure, seconds): variant_structures
 
@@ -4168,6 +4212,107 @@ def multiprocess_phase(device, small=False):
     return counts
 
 
+# phase 16's step hold: the kernels' fwd+bwd step against K1's plain
+# versions, of max|g|.  Precise: f32 sums in another order (REL_TOL).  bf16
+# storage: y and the gradient each round to bf16, and a y that rounds the
+# other way moves its cotangent by one bf16 ulp (2^-8 relative) through the
+# backward's sums
+TOOLS_STEP_TOL = {True: REL_TOL, False: 1e-2}
+TOOLS_STEP_N = 18432      # the step hold's build: 72 blocks of 256 rows
+
+
+def tools_step_hold(device, n=TOOLS_STEP_N):
+    """bench_spmm's fwd+bwd step (BandSpmm: K1 forward, K1 with the scales
+    swapped backward) in both arms against the same step by K1's plain
+    versions (bench_spmm.plain_fwd_bwd) on bench.py's workload at n nodes
+    and 4n edges: the gradient within TOOLS_STEP_TOL of max|g|.  Returns
+    the errors by counter (of max|g|)."""
+    from mdcommunity_tpu_torch import bench_spmm
+
+    errs = {}
+    for precise in (False, True):
+        w = bench_spmm.workload(n, 4 * n, precise=precise, device=device)
+        args = (w["dbg"], w["row"], w["col"], w["h"], precise)
+        got, ref = bench_spmm.fwd_bwd(*args).float(), bench_spmm.plain_fwd_bwd(*args).float()
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item() / scale
+        log(f"tools: bench_spmm step at {w['dbg'].pad_n} rows, precise={precise}: kernel vs "
+            f"plain {err:.3e} of max|g| {scale:.3e}")
+        if not err <= TOOLS_STEP_TOL[precise]:
+            raise AssertionError(f"bench_spmm's step differs from K1's plain versions: {err}")
+        for name in (("band_spmm", "band_spmm_bwd") if precise else
+                     ("band_spmm_bf16_act", "band_spmm_bf16_bwd")):
+            errs[name] = err * scale
+    return errs
+
+
+def tools_phase(device, ring, small=False):
+    """Phase 16: the port's measurement entry points through their mains,
+    every launch count set to 0 just before the four and read just after:
+    bench_spmm (bench.py's workload) in its bf16 and precise arms on the
+    probes' ring build `ring` (each arm's edges/s and its sol share, which
+    must lie in (0, 1]), its step first held against K1's plain versions
+    (tools_step_hold); scaling_bench at its defaults (the band engine at
+    gp = 2 and 4 bit-equal to gp = 1, the edge partition within 1e-6 of
+    max: scaling_bench raises otherwise); bench_cascade_host for 20
+    batches; bf16_ab_train for 20 iterations (validations at 0 and 10).
+    small: the CPU rehearsal's sizes.  Returns (the counts, the step
+    hold's errors, the four JSON lines)."""
+    from mdcommunity_tpu_torch import (
+        bench_cascade_host,
+        bench_spmm,
+        bf16_ab_train,
+        scaling_bench,
+    )
+
+    import torch
+
+    t0 = time.perf_counter()
+    errs = tools_step_hold(device, 2048 if small else TOOLS_STEP_N)
+    cpu = ["--cpu"] if small else []
+    n = ring.n
+    runs = [
+        ("bench_spmm", lambda: bench_spmm.main(cpu + ["--n", str(n), "--edges", str(4 * n)],
+                                               ring=ring)),
+        ("bench_spmm_precise", lambda: bench_spmm.main(
+            cpu + ["--precise", "--n", str(n), "--edges", str(4 * n)], ring=ring)),
+        ("scaling_bench", lambda: scaling_bench.main(
+            cpu + (["--nodes", "4096", "--edges", "16384"] if small else []))),
+        ("bench_cascade_host", lambda: bench_cascade_host.main(
+            ["--max-batches", "20"] + (["--n", "4096", "--batch", "16"] if small else []))),
+        ("bf16_ab_train", lambda: bf16_ab_train.main(
+            cpu + ["--out", os.path.join(OUT, "bf16_ab")]
+            + (["--smoke", "--iters", "4", "--save-frequency", "2"] if small
+               else ["--iters", "20", "--save-frequency", "10"]))),
+    ]
+    reset_all_launches()
+    lines = {}
+    for name, run in runs:
+        t1 = time.perf_counter()
+        lines[name] = run()
+        log(f"tool {name}: {time.perf_counter() - t1:.1f} s")
+    counts = all_launches()
+    for name in ("bench_spmm", "bench_spmm_precise"):
+        sol = lines[name]["sol"]["sol_fraction"]
+        if not small and not 0.0 < sol <= 1.0:
+            raise AssertionError(f"{name}: sol share {sol} outside (0, 1]: the timing is wrong")
+    if lines["bench_cascade_host"]["batches"] != 20:
+        raise AssertionError("bench_cascade_host did not run its 20 batches")
+    ab = lines["bf16_ab_train"]
+    if not (len(ab["f32"]) == len(ab["bf16"]) == 2
+            and all(math.isfinite(v) for v in ab["f32"] + ab["bf16"])):
+        raise AssertionError(f"bf16_ab_train's curves: {ab}")
+    if device != "cpu":
+        for name in ("band_spmm_bf16_act", "band_spmm_bf16_bwd", "band_spmm", "band_spmm_bwd",
+                     "band_halo_bf16", "band_halo_bf16_bwd"):
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the tools")
+        torch.cuda.empty_cache()
+    log(f"tools phase: {time.perf_counter() - t0:.1f} s, launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    return counts, errs, lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4221,11 +4366,10 @@ def main(argv=None):
                     synth_banded(2048, True, 0, "cpu", nibble=True),
                     synth_banded(2048, False, 0, "cpu", reorder=False, nibble=True), "rehearsal")
         # the untimed holds at the 2^20 rows' build options
-        small_nib = synth_banded(2048, False, 0, "cpu", reorder=False, simple=True, nibble=True)
-        time_kernels("cpu", small, "rehearsal", timed=False)
-        time_bf16_kernels("cpu", small, "rehearsal", timed=False)
-        time_slice6("cpu", small, small_nib, small_nib, "rehearsal", timed=False)
-        probe_phase("cpu", small=True)
+        for hold in (time_kernels, time_bf16_kernels, time_epi_kernels, time_diag_kernels,
+                     time_stream):
+            hold("cpu", small, "rehearsal", timed=False)
+        ring = probe_phase("cpu", small=True)[1]
         import dataclasses
 
         from mdcommunity_tpu_torch.utils.config import Config
@@ -4240,6 +4384,7 @@ def main(argv=None):
         baselines_phase("cpu", *synth_banded(2048, True, 0, "cpu", with_edges=True),
                         2048, edges, small=True)
         multiprocess_phase("cpu", small=True)
+        tools_phase("cpu", ring, small=True)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -4285,14 +4430,15 @@ def main(argv=None):
                                   with_edges=True)
     lap("2^20-row build")
     # the same kernels against their plain versions at the 2^20 rows that
-    # the training, bf16-fit, variant-training and probe paths give them;
-    # their times there are time_band_rows.py's (PERF.md §6)
-    big_nib = synth_banded(1 << 20, False, 0, device, reorder=False, simple=True, nibble=True)
+    # the training, bf16-fit, variant-training and probe paths give them
+    # (the nibble modes, which only the probes run, at 2^16 and 18,432
+    # rows); their times there are time_band_rows.py's (PERF.md §6)
     for more in (time_kernels(device, big, "2^20 rows", timed=False),
                  time_bf16_kernels(device, big, "2^20 rows", timed=False),
-                 time_slice6(device, big, big_nib, big_nib, "2^20 rows", timed=False)):
+                 time_epi_kernels(device, big, "2^20 rows", timed=False),
+                 time_diag_kernels(device, big, "2^20 rows", timed=False),
+                 time_stream(device, big, "2^20 rows", timed=False)):
         errs.update({k: max(v["max_abs_err"], errs.get(k, 0.0)) for k, v in more.items()})
-    del big_nib
     torch.cuda.empty_cache()
     lap("2^20-row checks")
     blocked_errs, blocked_times = blocked_kernel_phases(device)
@@ -4327,7 +4473,7 @@ def main(argv=None):
     bf16_fit_counts = bf16_fit_phase(device, big, big_edges, 1048)
     lap("bf16 fit")
 
-    probe_counts = probe_phase(device)
+    probe_counts, ring = probe_phase(device)
     for name, _, _ in SLICE6:
         if probe_counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the probes' path")
@@ -4358,6 +4504,11 @@ def main(argv=None):
     lap("baselines and tools")
     mp_counts = multiprocess_phase(device)
     lap("multiprocess")
+    tool_counts, tool_errs, tool_lines = tools_phase(device, ring)
+    del ring
+    for k, v in tool_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    lap("measurement tools")
 
     kernels = []
     for name, launched, replaces in (
@@ -4432,6 +4583,9 @@ def main(argv=None):
         multi = {k: c.get(row["name"], 0) for k, c in mp_counts.items()}
         if any(multi.values()):
             row["launches_multiprocess"] = multi
+        # phase 16: the measurement entry points (bench_spmm, scaling_bench)
+        if tool_counts.get(row["name"]):
+            row["launches_tools"] = tool_counts[row["name"]]
         if row["name"] in ("band_spmm", "band_sage"):
             row["launches_variants"] = {v: c[row["name"]] for v, c in variant_counts.items()}
         # slice D2's paths: the degree-cost and CE banded loops, degree cost
@@ -4446,6 +4600,8 @@ def main(argv=None):
                                "train_step_loss_rel", "train_step_worst_leaf", "rollout")}
          for v, r in vt.items() if v in ("ce", "hca")}, default=str))
     log("baselines and tools: " + json.dumps(tools))
+    for name, line in tool_lines.items():
+        log(f"{name}: " + json.dumps(line))
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -27,6 +27,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from mdcommunity_tpu_torch.utils.device import row_matmul
+
 FusionParams = Dict[str, torch.Tensor]
 
 
@@ -86,13 +88,14 @@ FUSION_INITS = {
 def bitwise_logis_fuse(
     p: FusionParams, e0: torch.Tensor, e1: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fuse two layers' row embeddings [..., D] -> (out0, out1)."""
-    f0 = torch.tanh(e0 @ p["trans"] + p["bias"])
-    f1 = torch.tanh(e1 @ p["trans"] + p["bias"])
+    """Fuse two layers' row embeddings [..., D] -> (out0, out1); the row
+    products over utils/device.row_matmul's fixed row chunks."""
+    f0 = torch.tanh(row_matmul(e0, p["trans"]) + p["bias"])
+    f1 = torch.tanh(row_matmul(e1, p["trans"]) + p["bias"])
 
     def one(fl, fo):
-        a_self = torch.sigmoid((fl * fl) @ p["logis_w"] + p["logis_b"])
-        a_other = torch.sigmoid((fo * fl) @ p["logis_w"] + p["logis_b"])
+        a_self = torch.sigmoid(row_matmul(fl * fl, p["logis_w"]) + p["logis_b"])
+        a_other = torch.sigmoid(row_matmul(fo * fl, p["logis_w"]) + p["logis_b"])
         w = torch.softmax(torch.cat([a_self, a_other], dim=-1), dim=-1)
         return fl + w[..., 1:2] * fo
 
@@ -104,8 +107,8 @@ def additive_fuse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The duplex closed form of the three attention alternatives:
     out_l = f_l + f_o."""
-    f0 = torch.tanh(e0 @ p["trans"] + p["bias"])
-    f1 = torch.tanh(e1 @ p["trans"] + p["bias"])
+    f0 = torch.tanh(row_matmul(e0, p["trans"]) + p["bias"])
+    f1 = torch.tanh(row_matmul(e1, p["trans"]) + p["bias"])
     return f0 + f1, f1 + f0
 
 

@@ -73,7 +73,7 @@ from mdcommunity_tpu_torch.parallel.mesh import (
     own_rows,
     split_nodes,
 )
-from mdcommunity_tpu_torch.utils.device import resolve_device
+from mdcommunity_tpu_torch.utils.device import resolve_device, row_matmul
 
 _DENSE = (
     "w_n2l", "p_node_conv", "p_node_conv2", "p_node_conv3", "h1_weight",
@@ -353,12 +353,9 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
     ones_feat = torch.cat([torch.ones(2, dtype=dt, device=dev),
                            torch.zeros(f_dim - 2, dtype=dt, device=dev)])
 
-    def dense(x, w):
-        return x @ w.to(x.device)
-
     node_embs, virt_embs = [], []
     for layer in range(2):
-        h = [l2_normalize(torch.relu(dense(x[layer], net.w_n2l))) for x in node_input]
+        h = [l2_normalize(torch.relu(row_matmul(x[layer], net.w_n2l))) for x in node_input]
         y = l2_normalize(torch.relu(ones_feat @ net.w_n2l)).expand(h[0].shape[:-2] + (d,))
         if sage is not None and store is not None:
             h = [x.to(store) for x in h]
@@ -369,8 +366,8 @@ def _embed(net: DuplexQNet, node_input, active, aggregate, max_bp_iter=3,
                 h = sage(layer, h)
             else:
                 pool = aggregate(layer, h)
-                h = [l2_normalize(torch.relu(dense(torch.cat([dense(p, c1), dense(x, c2)], -1),
-                                                   c3)))
+                h = [l2_normalize(torch.relu(row_matmul(
+                         torch.cat([row_matmul(p, c1), row_matmul(x, c2)], -1), c3)))
                      for p, x in zip(pool, h)]
             y = l2_normalize(torch.relu(y_new @ c3))
         node_embs.append([x.to(dt) for x in h])
@@ -409,13 +406,47 @@ def _q_values(net: DuplexQNet, rows, y_f, aux):
     q_layers = []
     for layer in range(2):
         scal = y_f[layer] @ net.cross_product.to(dev)                   # [..., 1]
-        hidden = torch.relu((rows[layer] * scal[..., None, :]) @ net.h1_weight.to(dev))
+        hidden = torch.relu(row_matmul(rows[layer] * scal[..., None, :], net.h1_weight))
         aux_l = aux[layer][..., None, :].expand(hidden.shape[:-1] + (aux.shape[-1],))
         last = torch.cat([hidden, aux_l], dim=-1)
-        q_layers.append((last @ net.h2_weight.to(dev))[..., 0])
+        q_layers.append(row_matmul(last, net.h2_weight)[..., 0])
     s = torch.relu(y_f @ net.w_layer1.to(dev)) @ net.w_layer2.to(dev)  # [2, ..., 1]
-    w = torch.softmax(s[..., 0], dim=0)
-    return w[0][..., None] * q_layers[0] + w[1][..., None] * q_layers[1]
+    return mix_layers(torch.softmax(s[..., 0], dim=0), q_layers)
+
+
+def mix_layers(w: torch.Tensor, q_layers) -> torch.Tensor:
+    """The layer gate's mixture w_0·q_0 + w_1·q_1 (w a softmax over the two
+    layers, [2, ...]; q_l [..., M]): MixLayers."""
+    return MixLayers.apply(w, q_layers[0], q_layers[1])
+
+
+class MixLayers(torch.autograd.Function):
+    """w_0·q_0 + w_1·q_1 for w from a softmax over the two layers, with the
+    JAX package's bits, whose gradient for w does not cancel.
+
+    Autograd's gradient of the product form, (Σ g·q_0, Σ g·q_1), reaches
+    the gate's logits through the softmax as w_0·w_1·(Σ g·q_0 − Σ g·q_1):
+    two row sums of nearly equal terms (the layers' Q nearly agree) whose
+    f32 difference loses most of its digits.  On an H100 at 2^18 nodes and
+    262 actions that put the f32 gradients of w_layer1 and w_layer2 15 and
+    29 times outside tests/gradient_rules.py's rule from a float64 referee.
+    The backward here gives w the gradient (Σ g·(q_0 − q_1), 0): it differs
+    from autograd's by Σ g·q_1 times (1, 1), which a softmax's backward
+    maps to 0 (its weights sum to 1), so the logits get the same gradient
+    in exact arithmetic, now from one row sum of small terms.  The
+    gradients for q_0 and q_1 are autograd's, g·w_0 and g·w_1."""
+
+    @staticmethod
+    def forward(ctx, w, q0, q1):
+        ctx.save_for_backward(w, q0, q1)
+        return w[0][..., None] * q0 + w[1][..., None] * q1
+
+    @staticmethod
+    def backward(ctx, g):
+        w, q0, q1 = ctx.saved_tensors
+        dw0 = torch.sum(g * (q0 - q1), dim=-1)
+        return (torch.stack([dw0, torch.zeros_like(dw0)]), g * w[0][..., None],
+                g * w[1][..., None])
 
 
 def _banded_aggregate(bdx, live, spmm=spmm_dense_band, precise=True, store=None):

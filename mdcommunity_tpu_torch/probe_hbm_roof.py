@@ -37,7 +37,9 @@ STREAMS = ((4096, 256, 512, 8), (4096, 256, 512, 32), (512, 2048, 512, 4))
 KERNEL_TOL = 1e-4   # K1 variants vs plain: f32 sums in another order
 
 
-def main(argv=None):
+def main(argv=None, ring=None):
+    """ring: the K1 workload's build, ring_band_graph(n, 4n), when the
+    caller has it (chip_smoke.py builds it once for its probes)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--n", type=int, default=1 << 20, help="nodes of the K1 workload "
@@ -83,7 +85,8 @@ def main(argv=None):
     out["copy"] = copies
 
     # 2. the stream probe over the JAX shapes, the base's shape, and extra
-    dbg = ring_band_graph(args.n, 4 * args.n, device=str(device))
+    dbg = ring if ring is not None else ring_band_graph(args.n, 4 * args.n,
+                                                        device=str(device))
     gen = torch.Generator(device=device).manual_seed(0)
     shapes = [(nb, r, w, G, False) for nb, r, w, G in STREAMS]
     shapes += [(STREAMS[0][0], STREAMS[0][1], STREAMS[0][2], STREAMS[0][3], True)]

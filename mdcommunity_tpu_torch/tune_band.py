@@ -43,7 +43,9 @@ SWEEP = ((128, 128), (256, 128), (512, 128))
 PROTO_V4 = ((512, 256), (256, 128), (256, 256), (128, 128))
 
 
-def main(argv=None):
+def main(argv=None, ring=None):
+    """ring: the --diag workload's build, ring_band_graph(n, 4n), when the
+    caller has it (chip_smoke.py builds it once for its probes)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--diag", action="store_true")
     ap.add_argument("--sweep", action="store_true")
@@ -109,7 +111,9 @@ def main(argv=None):
 
     out = dict(probe="tune_band", n=args.n, device=str(device), gpu=gpu_line(), D=D)
     if args.diag:
-        dbg = ring_band_graph(args.n, 4 * args.n, device=str(device))
+        if ring is None:
+            ring = ring_band_graph(args.n, 4 * args.n, device=str(device))
+        dbg = ring
         out["diag"] = dict(S=dbg.S, B=dbg.B, C=dbg.C, pad_n=dbg.pad_n,
                            **variants(dbg, DIAG_ORDER))
     if args.sweep:

@@ -6,7 +6,8 @@ caller's host work before the launch too, so for a kernel of a few
 microseconds it measures the host's enqueue.  `device_ms` is the device's
 own time: the kernels (and copies) one call launches, summed, from
 torch.profiler over `reps` calls.  Both raise on a machine without a card,
-since a host-clock time of the plain versions is no device number.  `gpu_line` is the card's
+since a host-clock time of the plain versions is no device number.
+`kernel_names` lists the kernels a call launches.  `gpu_line` is the card's
 name and power limit as nvidia-smi reports them, to stand beside every
 number; `PEAK_BYTES_S` is the data sheet's memory rate of an H100 SXM.
 """
@@ -14,7 +15,7 @@ number; `PEAK_BYTES_S` is the data sheet's memory rate of an H100 SXM.
 from __future__ import annotations
 
 import subprocess
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -75,6 +76,30 @@ def device_ms(fn: Callable[[], object], reps: int = 20, warm: int = 3,
             us = sum(e.self_device_time_total / e.count * n for e, n in zip(seen, per_call))
             return us / 1e3
     raise RuntimeError(f"device_ms: {tries} profiling sessions lost most device records")
+
+
+def kernel_names(fn: Callable[[], object], tries: int = 5) -> List[str]:
+    """The names of the device kernels one call of fn launches, in order
+    of their first launch (torch.profiler, after one warm-up call; a
+    session that saw no device record runs again, up to `tries`, and then
+    the list is empty: a long-lived process's sessions can lose every
+    device record, as device_ms says)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_names reads the card's profile; there is none")
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = list(dict.fromkeys(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation))
+        if names:
+            return names
+    return []
 
 
 def gpu_line() -> Optional[str]:

@@ -25,16 +25,15 @@ the sum's terms, not of the sum:
   mode, the banded degree-cost and CE loss, HCA's train step).  TERMS_TOL
   is 2e-6, about 17 ulps.
 
-Two runs of one f32 engine that add the action rows in other groupings
-(the processes' parts of a loss that spans processes against the one
-process's) differ by the rounding of the row sums behind ∂L/∂(x W), which
-gate_terms does not see: the layer gate's ∂L/∂s is a sum over the action
-rows whose terms cancel (the two layers' Q nearly agree), and on a 2^18-node
-build with 262 actions it moved w_layer1 and w_layer2 by 15–29 times their
-TERMS_TOL.  order_noise_tolerances widens such a leaf to ORDER_FACTOR times
-the leaf's own noise under a reordering of the rows (the reference run's
-gradient with the actions in another order), as chip_smoke.py's check_fit
-takes four times the CPU's own f32 error.
+The layer gate's own mixture once broke this: autograd's gradient of the
+product form w_0·q_0 + w_1·q_1 reaches ∂L/∂s through the softmax as a
+difference of two row sums of nearly equal terms, which gate_terms does
+not see, and on a 2^18-node build with 262 actions the f32 gradients of
+w_layer1 and w_layer2 sat 15 and 29 times outside this rule from a float64
+referee (the cross-process loss's, adding the rows in two groups, happened
+to sit inside).  The port's mixture (models/net.MixLayers) keeps the
+product form's bits and gives the softmax one row sum of small terms, and
+both gradients meet the rule against the referee.
 """
 
 import numpy as np
@@ -45,7 +44,6 @@ GRAD_TOL = 1e-4    # of a gradient leaf's own max|grad|
 LEAF_FLOOR = 1e-6  # of the largest leaf's max|grad|: the least scale of a leaf
 TERMS_TOL = 2e-6   # of a gate leaf's Σ|terms|
 HCA_TD_TOL = 1e-5  # of an HCA TD's operands' magnitude, max(|Q(s, a)|, |target|, 1)
-ORDER_FACTOR = 4   # times a leaf's noise under a reordering of the action rows
 
 # the weights whose right-hand matmuls gate_terms follows, and the leaves
 # each gives terms for: (the weight's, the bias added to its product's)
@@ -112,12 +110,3 @@ def hca_leaf_tolerances(grads, terms):
     GRAD_TOL of its own max|grad| (no floor), a gate leaf also to TERMS_TOL
     of its Σ|terms| (tests/test_torch_hca_train.py)."""
     return leaf_tolerances(grads, terms, floor=0.0)
-
-
-def order_noise_tolerances(tols, grads, reordered, factor=ORDER_FACTOR):
-    """tols (leaf_tolerances) widened to `factor` times each leaf's f32
-    noise under a reordering of the action rows: max|grads - reordered|,
-    the reference's gradients and the same run's with the rows in another
-    order (numpy arrays by name)."""
-    return {k: max(t, factor * float(np.abs(grads[k] - reordered[k]).max()))
-            for k, t in tols.items()}

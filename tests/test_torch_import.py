@@ -38,7 +38,8 @@ def test_import_leaves_jax_out():
               "utils.profiling", "cli", "graphs.louvain", "graphs.community",
               "graphs.hca", "models.hca", "models.hca_banded", "graphs.centrality",
               "eval.baselines", "eval.analysis", "eval.plots", "ops.band_spmm",
-              "parallel.partition", "model_vs_heuristics", "multihost_smoke"):
+              "parallel.partition", "model_vs_heuristics", "multihost_smoke",
+              "bench_spmm", "scaling_bench", "bench_cascade_host", "bf16_ab_train"):
         assert f"mdcommunity_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

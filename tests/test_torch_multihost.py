@@ -1,5 +1,6 @@
-"""The port across OS processes: parallel/mesh.init_distributed, a GpMesh
-whose gp axis spans processes, and the dp agent (DQNAgent(mesh=...)).
+"""The port across OS processes: parallel/mesh.init_distributed and a GpMesh
+whose gp axis spans processes (the dp agent, the CLI smoke and the dp × gp
+mesh are in tests/test_torch_multihost_dp.py).
 
 mdcommunity_tpu_torch.multihost_smoke spawns 2 CPU processes with gloo,
 each importing the port only; they write their results into tmp_path and
@@ -10,25 +11,17 @@ this process holds them against the JAX package on its 8-device CPU mesh:
   spmm_band_sharded(make_mesh(dp=1, gp=4), precise=True) to 1e-5 of
   max|ref|, Q against its f32 XLA forward to 1e-5, banded_train_loss's value
   against JAX's banded_train_loss(mesh=..., precise=True) to rtol 1e-5 and
-  its gradients, with JAX's, against the port's float64 loss by
-  tests/gradient_rules.py; the children hold the same calls to the
-  one-process gp = 4 port bit for bit (operator, VJP, Q; the loss, a sum of
-  the processes' parts, to 1e-6, its gradients by the same rules);
-* dp = 2: three fits of DQNAgent(mesh=dp 2), uniform and prioritized
-  replay, from the JAX agent DQNAgent(mesh=make_mesh(dp=2, gp=1))'s weights,
-  replay and generator state, against that agent's three fits: losses to
-  rtol 1e-5, the same replay indices, and parameters and indices the same on
-  both processes;
-* validate under dp (each process half the pool) against the single-process
-  score; the edge partition across processes against one process; the
-  command-line smoke's OK line; a dp × gp mesh over four processes;
-  init_distributed without a cluster.
+  its gradients, with JAX's and the one-process f32 loss's, against the
+  port's float64 loss by tests/gradient_rules.py; the children hold the
+  same calls to the one-process gp = 4 port bit for bit (operator, VJP, Q;
+  the loss, a sum of the processes' parts, to 1e-6) and both losses'
+  gradients to their own float64 referee;
+* validate under dp (each process half the pool) against the
+  single-process score; the edge partition across processes against one
+  process; init_distributed without a cluster.
 """
 
-import json
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -46,8 +39,6 @@ from mdcommunity_tpu.models.net import banded_test_forward as jax_forward  # noq
 from mdcommunity_tpu.models.net import banded_train_loss as jax_train_loss  # noqa: E402
 from mdcommunity_tpu.parallel import band_partition as jbp  # noqa: E402
 from mdcommunity_tpu.parallel.mesh import make_mesh as jax_mesh  # noqa: E402
-from mdcommunity_tpu.rl import dqn as jdqn  # noqa: E402
-from mdcommunity_tpu.utils.config import Config as JaxConfig  # noqa: E402
 from mdcommunity_tpu_torch import multihost_smoke as mh  # noqa: E402
 from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex  # noqa: E402
 from mdcommunity_tpu_torch.models.checkpoint import load_params  # noqa: E402
@@ -124,9 +115,11 @@ def _flat(tree, prefix=""):
 
 def test_gp_loss_matches_jax(gp_run, builds):
     """The loss (the two processes' parts summed) to rtol 1e-5 of JAX's
-    sharded loss; every gradient leaf of the two-process loss and of JAX's
-    against the port's float64 one-process loss by tests/gradient_rules.py
-    (the gate leaves also to TERMS_TOL of their terms)."""
+    sharded loss; every gradient leaf of the two-process loss, of the
+    one-process f32 loss (the child's reference) and of JAX's against the
+    port's float64 one-process loss by tests/gradient_rules.py (the gate
+    leaves, w_layer1 and w_layer2 among them, also to TERMS_TOL of their
+    terms)."""
     results, arrays = gp_run
     jb, tb = builds
     gp = results[0]["gp"]
@@ -153,7 +146,8 @@ def test_gp_loss_matches_jax(gp_run, builds):
     jflat = _flat(jgrads)
     assert set(jflat) == set(grads64)
     for k, g64 in grads64.items():
-        for name, g in (("two processes", arrays[f"grad.{k}"]), ("jax", jflat[k])):
+        for name, g in (("two processes", arrays[f"grad.{k}"]),
+                        ("one process", arrays[f"grad1.{k}"]), ("jax", jflat[k])):
             np.testing.assert_allclose(g, g64, rtol=0, atol=tols[k], err_msg=f"{name} {k}")
 
 
@@ -167,76 +161,6 @@ def test_validate_under_dp(gp_run):
     v = results[0]["validate"]
     assert v["graphs"] == SMOKE["n_valid"] and abs(v["vc"] - v["single"]) <= 1e-6
     assert results[1]["validate"]["vc"] == v["vc"]
-
-
-def _save_state(agent, path):
-    """The JAX agent's params, replay and numpy generator, as
-    multihost_smoke's dp_agent phase loads them."""
-    arrays = {f"param.{k}": v for k, v in _flat(jax.tree_util.tree_map(
-        lambda x: np.asarray(x, np.float32), agent.params)).items()}
-    for k, v in vars(agent.replay).items():
-        if k == "tree":
-            arrays["replay.tree"] = v.tree
-        elif isinstance(v, (np.ndarray, int, float)) and not isinstance(v, bool):
-            arrays[f"replay.{k}"] = np.asarray(v)
-    arrays["nprng"] = np.array(json.dumps(agent.nprng.bit_generator.state))
-    np.savez(path, **arrays)
-
-
-@pytest.mark.parametrize("prioritized", [False, True])
-def test_dp_agent_fits_match_jax(tmp_path, prioritized):
-    """Three fits of the port's dp = 2 agent (two processes) and of the JAX
-    agent on a dp = 2 mesh from the same state: the same losses to rtol
-    1e-5 and the same replay draws."""
-    jcfg = JaxConfig(**dict(SMOKE, use_prioritized=prioritized))
-    ja = jdqn.DQNAgent(jcfg, seed=0, mesh=jax_mesh(dp=2, gp=1, devices=jax.devices()[:2]))
-    ja.gen_new_graphs()
-    ja.play_games(SMOKE["warmup_traj"], 1.0)
-    ja.take_snapshot()
-    state = str(tmp_path / "state.npz")
-    _save_state(ja, state)
-    picked = []
-    if prioritized:
-        draw = ja.replay.sample_prioritized
-        ja.replay.sample_prioritized = lambda *a, **k: (lambda pb: (
-            picked.append(pb.tree_idx.tolist()), pb)[1])(draw(*a, **k))
-    else:
-        gather = ja.replay._gather
-        ja.replay._gather = lambda idx: (picked.append(np.asarray(idx).tolist()),
-                                         gather(idx))[1]
-    jlosses = [float(ja.fit()) for _ in range(3)]
-
-    cfg = dict(phases=["dp_agent"], agent=dict(
-        config=dict(SMOKE, use_prioritized=prioritized), state=state, fits=3))
-    results, _ = mh.run("cpu", "gloo", cfg, str(tmp_path / "run"), timeout=120)
-    mh.check_agreement(results)  # losses, replay draws and parameters
-    d = results[0]["dp_agent"]
-    np.testing.assert_allclose(d["losses"], jlosses, rtol=1e-5)
-    assert d["picked_digest"] == mh.hashlib.sha256(
-        json.dumps(picked).encode()).hexdigest()[:16]
-    assert d["picked_same_as_single"]
-
-
-def test_cli_smoke(tmp_path):
-    """python -m mdcommunity_tpu_torch.multihost_smoke --device cpu: the dp
-    step and the gp phase on the JAX smoke's ring, one OK line."""
-    out = subprocess.run(
-        [sys.executable, "-m", "mdcommunity_tpu_torch.multihost_smoke", "--device", "cpu",
-         "--out", str(tmp_path)], capture_output=True, text=True, timeout=240, cwd=mh.REPO)
-    assert out.returncode == 0, out.stdout + out.stderr
-    assert "multihost_smoke OK: 2 processes (cpu, gloo)" in out.stdout, out.stdout
-    assert "gp=4 spanning both processes" in out.stdout, out.stdout
-
-
-def test_dp_by_gp_mesh_over_four_processes(tmp_path):
-    """dp = 2 replicas of gp = 4 shards over four processes (each axis its
-    own process group): halos, gathers and shard-order sums as in one
-    process, an all-reduce over dp."""
-    results, _ = mh.run("cpu", "gloo", dict(processes=4, dp=2, phases=["mesh"]),
-                        str(tmp_path), timeout=120)
-    assert [(r["mesh"]["dp_rank"], r["mesh"]["gp_rank"], r["mesh"]["local"])
-            for r in results] == [(0, 0, [0, 1]), (0, 1, [2, 3]), (1, 0, [0, 1]),
-                                  (1, 1, [2, 3])]
 
 
 def test_init_distributed_without_a_cluster(monkeypatch):

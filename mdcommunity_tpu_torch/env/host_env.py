@@ -17,10 +17,13 @@ Semantics (the reference's mvc_env.py:31-162 and Mcc.py:30-38):
   endpoints uncovered).
 * newly severed undirected edges are reported per step, so the device-side
   band adjacency can be edited incrementally (graphs/banded.apply_severs).
+* `cascade_stats` holds the last cascade's counters under the native
+  engine's names (native.CASCADE_STATS) where this engine has them.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import List, Optional, Tuple
 
@@ -90,13 +93,16 @@ class HostDuplexEnv:
     # -- cascade ------------------------------------------------------------
 
     def _labels(self, layer: int) -> np.ndarray:
+        """Component labels of the live edges of `layer`; the pass's live
+        edges and time go to the cascade's counters."""
+        t0 = time.perf_counter_ns()
         e = self.edges[layer]
         live = self.alive_edge[layer]
-        m = sp.coo_matrix(
-            (np.ones(int(live.sum())), (e[live, 0], e[live, 1])),
-            shape=(self.n, self.n),
-        )
+        k = int(live.sum())
+        m = sp.coo_matrix((np.ones(k), (e[live, 0], e[live, 1])), shape=(self.n, self.n))
         _, lab = connected_components(m, directed=False)
+        self.cascade_stats["edges_walked"] += k
+        self.cascade_stats["relabel_ns"] += time.perf_counter_ns() - t0
         return lab
 
     def _refresh_alive(self, layer: int):
@@ -105,33 +111,42 @@ class HostDuplexEnv:
             ~self.sever[layer] & ~self.covered[e[:, 0]] & ~self.covered[e[:, 1]]
         )
 
-    def _cascade(self) -> Tuple[int, List[np.ndarray]]:
+    def _sever_cross(self, layer: int, lab: np.ndarray, new_sev) -> bool:
+        """Sever the live edges of `layer` whose ends the other layer's
+        labels `lab` put in two components; True when there were any."""
+        t0 = time.perf_counter_ns()
+        e = self.edges[layer]
+        cross = self.alive_edge[layer] & (lab[e[:, 0]] != lab[e[:, 1]])
+        k = int(cross.sum())
+        if k:
+            new_sev[layer].append(e[cross])
+            self.sever[layer] |= cross
+            self._refresh_alive(layer)
+        self.cascade_stats["edges_severed"] += k
+        self.cascade_stats["sever_test_ns"] += time.perf_counter_ns() - t0
+        return k > 0
+
+    def _cascade(self, t0_ns: int) -> Tuple[int, List[np.ndarray]]:
         """Alternating MCC sever loop; returns (rank, new undirected severed
-        edge arrays per layer [K, 2])."""
+        edge arrays per layer [K, 2]).  t0_ns: when the seeding (covering)
+        began, booked as the cascade's cover_ns.  Counters: rounds, the live
+        edges the label passes walked (the rank's too) and their ns, edges
+        severed and the sever tests' ns, the rank's bincount ns."""
+        self.cascade_stats = dict(rounds=0, edges_walked=0, edges_severed=0,
+                                  cover_ns=time.perf_counter_ns() - t0_ns,
+                                  relabel_ns=0, sever_test_ns=0, rank_ns=0)
         new_sev = [[], []]
         changed = True
         while changed:
-            changed = False
-            lab0 = self._labels(0)
-            e1 = self.edges[1]
-            cross1 = self.alive_edge[1] & (lab0[e1[:, 0]] != lab0[e1[:, 1]])
-            if cross1.any():
-                new_sev[1].append(e1[cross1])
-                self.sever[1] |= cross1
-                self._refresh_alive(1)
-                changed = True
-            lab1 = self._labels(1)
-            e0 = self.edges[0]
-            cross0 = self.alive_edge[0] & (lab1[e0[:, 0]] != lab1[e0[:, 1]])
-            if cross0.any():
-                new_sev[0].append(e0[cross0])
-                self.sever[0] |= cross0
-                self._refresh_alive(0)
-                changed = True
+            self.cascade_stats["rounds"] += 1
+            changed = self._sever_cross(1, self._labels(0), new_sev)
+            changed = self._sever_cross(0, self._labels(1), new_sev) or changed
         # rank: largest common component counted over alive nodes
         lab = self._labels(0)
+        t0 = time.perf_counter_ns()
         alive = ~self.covered[: self.n]
         rank = int(np.bincount(lab[alive], minlength=1).max(initial=0))
+        self.cascade_stats["rank_ns"] = time.perf_counter_ns() - t0
         outs = [
             np.concatenate(s, axis=0) if s else np.zeros((0, 2), np.int64)
             for s in new_sev
@@ -141,12 +156,13 @@ class HostDuplexEnv:
     # -- MDP ----------------------------------------------------------------
 
     def reset(self):
+        t0 = time.perf_counter_ns()
         self.covered = np.zeros(self.n, bool)
         self.sever = [np.zeros(len(e), bool) for e in self.edges]
         self.alive_edge = [None, None]
         self._refresh_alive(0)
         self._refresh_alive(1)
-        self.rank, _ = self._cascade()
+        self.rank, _ = self._cascade(t0)
         self.score = 0.0
         self.curve = [1.0]
         self.t = 0
@@ -184,6 +200,7 @@ class HostDuplexEnv:
         """Batched removal with ONE cascade; the same contract as
         NativeDuplexEnv.step_many.  Returns (rank, new severs per layer,
         n_removed)."""
+        t0 = time.perf_counter_ns()
         acts = np.asarray(actions, np.int64).reshape(-1)
         acts = acts[(acts >= 0) & (acts < self.n)]
         acts = np.unique(acts[~self.covered[acts]])
@@ -192,7 +209,7 @@ class HostDuplexEnv:
         self.covered[acts] = True
         self._refresh_alive(0)
         self._refresh_alive(1)
-        self.rank, new_sev = self._cascade()
+        self.rank, new_sev = self._cascade(t0)
         self._record(acts, degree_cost)
         return self.rank, new_sev, len(acts)
 
@@ -200,9 +217,10 @@ class HostDuplexEnv:
         """Cover node a, cascade; returns (rank, new severed undirected edges
         per layer).  Score/curve follow mvc_env.stepWithoutReward :74-87."""
         assert not self.covered[a], a
+        t0 = time.perf_counter_ns()
         self.covered[a] = True
         self._refresh_alive(0)
         self._refresh_alive(1)
-        self.rank, new_sev = self._cascade()
+        self.rank, new_sev = self._cascade(t0)
         self._record([a], degree_cost)
         return self.rank, new_sev

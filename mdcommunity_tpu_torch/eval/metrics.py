@@ -34,6 +34,7 @@ from mdcommunity_tpu_torch.models.net import (
 )
 from mdcommunity_tpu_torch.rl.dqn import predict_q
 from mdcommunity_tpu_torch.utils.device import matmul_precision, set_precise_matmul
+from mdcommunity_tpu_torch.utils.profiling import span
 
 
 def audc_from_curve(curve: List[float], n: int) -> float:
@@ -260,8 +261,13 @@ def dismantle_greedy_banded(
     (kernel K2); None decides per build, on the host: fused exactly when
     both layers' spill sets are empty, as the JAX package's packed engine
     decides.  stats, when given, receives the number of model calls and
-    their total seconds (forward + top-k + the fetch that ends them), and
-    the mode (fuse_sage, precise, act_dtype).
+    their total seconds (forward + top-k + the fetch that ends them), the
+    mode (fuse_sage, precise, act_dtype), and under "batches" one row per
+    model call: host seconds of utils/profiling.span, t_call_s (the call),
+    t_env_s (the env steps of its batch), t_sever_s (the covered update and
+    the band's severs, with no wait for the card), and the env's
+    cascade_stats (summed over the batch's cascades; none when the env
+    removed nothing).
 
     shadow, when given, watches a batch_env rollout (step > 1) without
     changing it: each model call, before its batch is taken, it is called
@@ -289,7 +295,8 @@ def dismantle_greedy_banded(
     pad_n, n = banded.pad_n, env.n
     max_steps = max_steps or n
     sol: List[int] = []
-    calls, call_s, shadow_s = 0, 0.0, 0.0
+    rows: List[dict] = []
+    shadow_s = 0.0
 
     def apply(layer: int, ns: np.ndarray) -> None:
         # a cascade report of any size, the t≈0 one of a badly coupled graph
@@ -302,19 +309,27 @@ def dismantle_greedy_banded(
             apply_severs(banded, layer, e[:, 0], e[:, 1], ok)
 
     def q_top(covered: torch.Tensor, k: int):
-        nonlocal calls, call_s
-        t0 = time.perf_counter()
-        with matmul_precision(precise):
-            if hca:
-                q = banded_hca_forward(net, banded, hca_data, covered, precise=precise)
-            else:
-                q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
-                                        precise=precise, act_dtype=act_dtype,
-                                        variant=variant)
-        vals, order = top_k_stable(q, k)
-        call_s += time.perf_counter() - t0
-        calls += 1
+        """One model call; its row is rows[-1] (the rows are kept for stats
+        only)."""
+        if stats is None:
+            rows.clear()
+        row: dict = {}
+        rows.append(row)
+        with span(row, "t_call_s"):
+            with matmul_precision(precise):
+                if hca:
+                    q = banded_hca_forward(net, banded, hca_data, covered, precise=precise)
+                else:
+                    q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
+                                            precise=precise, act_dtype=act_dtype,
+                                            variant=variant)
+            vals, order = top_k_stable(q, k)
         return vals, order, q
+
+    def count(counts: Dict[str, int]) -> None:
+        row = rows[-1]
+        for key, v in counts.items():
+            row[key] = row.get(key, 0) + v
 
     # sync the band with the edges the env severed at reset (the t=0
     # cascade usually severs some: the two layers' partitions rarely agree)
@@ -332,13 +347,16 @@ def dismantle_greedy_banded(
             v, a = float(vals[0]), int(order[0])
             if not np.isfinite(v) or env.covered[a]:
                 break
-            _, new_sev = env.step(a, degree_cost=degree_cost)
+            with span(rows[-1], "t_env_s"):
+                _, new_sev = env.step(a, degree_cost=degree_cost)
+            count(env.cascade_stats)
             sol.append(a)
             if env.terminal or len(sol) >= max_steps:
                 break
-            for layer in range(2):
-                apply(layer, new_sev[layer])
-            covered[a] = True
+            with span(rows[-1], "t_sever_s"):
+                for layer in range(2):
+                    apply(layer, new_sev[layer])
+                covered[a] = True
             vals, order, _ = q_top(covered, 1)
     else:
         while not env.terminal and len(sol) < max_steps:
@@ -355,24 +373,32 @@ def dismantle_greedy_banded(
                     shadow_s += time.perf_counter() - t0
                 if len(acts) == 0:
                     break
-                _, new_sev, _ = env.step_many(acts, degree_cost=degree_cost)
+                with span(rows[-1], "t_env_s"):
+                    _, new_sev, removed = env.step_many(acts, degree_cost=degree_cost)
+                if removed:
+                    count(env.cascade_stats)
                 sol.extend(int(a) for a in acts)
-                covered[torch.from_numpy(acts.astype(np.int64)).to(device)] = True
-                for layer in range(2):
-                    apply(layer, new_sev[layer])
+                with span(rows[-1], "t_sever_s"):
+                    covered[torch.from_numpy(acts.astype(np.int64)).to(device)] = True
+                    for layer in range(2):
+                        apply(layer, new_sev[layer])
                 continue
             for v, a in zip(vals, order):
                 if env.terminal or len(sol) >= max_steps:
                     break
                 if not np.isfinite(v) or env.covered[a]:
                     break
-                _, new_sev = env.step(int(a), degree_cost=degree_cost)
+                with span(rows[-1], "t_env_s"):
+                    _, new_sev = env.step(int(a), degree_cost=degree_cost)
+                count(env.cascade_stats)
                 sol.append(int(a))
-                covered[int(a)] = True
-                for layer in range(2):
-                    apply(layer, new_sev[layer])
+                with span(rows[-1], "t_sever_s"):
+                    covered[int(a)] = True
+                    for layer in range(2):
+                        apply(layer, new_sev[layer])
     if stats is not None:
-        stats.update(model_calls=calls, model_call_s=call_s, shadow_s=shadow_s, fuse_sage=fuse,
-                     precise=precise, act_dtype=str(act_dtype).replace("torch.", ""),
-                     variant=variant)
+        stats.update(model_calls=len(rows), model_call_s=sum(r["t_call_s"] for r in rows),
+                     shadow_s=shadow_s, fuse_sage=fuse, precise=precise,
+                     act_dtype=str(act_dtype).replace("torch.", ""), variant=variant,
+                     batches=rows)
     return sol, float(env.score), list(env.curve)

@@ -5,18 +5,32 @@ first use and returns None when no toolchain is available.
 `NativeDuplexEnv` has the same surface as env/host_env.HostDuplexEnv and is
 the engine of the large-graph eval path; `gmm_connect` is the GMM
 generator's pair sampler for large N (graphs/gmm.py).
+
+Every cascade (reset, step, step_many) records its work and time;
+`NativeDuplexEnv.cascade_stats` reads the last one's as a dict keyed by
+CASCADE_STATS.
 """
 
 from __future__ import annotations
 
 import ctypes
 import warnings
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 _lib = None
 _load_attempted = False
+
+# The engine's counters of one cascade, in mdc_env_cascade_stats's order:
+# rounds of the alternating loop; records relabelled; nodes and edges their
+# relabels walked; nodes that changed record; the other layer's incident
+# edges tested for a sever; edges severed; ns seeding (covering the step's
+# nodes, or reset's seed records), relabelling, testing severs, scanning
+# for the rank.
+CASCADE_STATS = ("rounds", "records_relabelled", "nodes_walked", "edges_walked",
+                 "nodes_moved", "edges_tested", "edges_severed",
+                 "cover_ns", "relabel_ns", "sever_test_ns", "rank_ns")
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -59,6 +73,8 @@ def load() -> Optional[ctypes.CDLL]:
     lib.mdc_env_alive_nodes.argtypes = [p, i32, p]
     lib.mdc_env_sever_mask.argtypes = [p, i32, p]
     lib.mdc_env_set_uf_epoch.argtypes = [p, u32]
+    lib.mdc_env_cascade_stats.restype = i64
+    lib.mdc_env_cascade_stats.argtypes = [p, p]
     lib.mdc_gmm_connect.restype = i64
     lib.mdc_gmm_connect.argtypes = [i64, p, p, f64, f64, ctypes.c_uint64, p, i64]
     _lib = lib
@@ -179,6 +195,15 @@ class NativeDuplexEnv:
                 self._lib.mdc_env_new_sever(self._handle, layer, _ptr(buf))
             out.append(buf)
         return out
+
+    @property
+    def cascade_stats(self) -> Dict[str, int]:
+        """The last cascade's counters (CASCADE_STATS); a step_many that
+        removed nothing ran none and leaves them as they were."""
+        out = np.zeros(len(CASCADE_STATS), np.int64)
+        got = self._lib.mdc_env_cascade_stats(self._handle, _ptr(out))
+        assert got == len(CASCADE_STATS), got
+        return dict(zip(CASCADE_STATS, out.tolist()))
 
     def alive_nodes(self, layer: int) -> np.ndarray:
         """bool [n]: nodes with at least one live edge in `layer`."""

@@ -24,6 +24,10 @@
 //    not to the whole live graph — previously every round re-merged every
 //    live edge and re-scanned every live cross edge.
 //
+//    Every cascade (reset, step, step_many) records its work and time
+//    (CascadeStat; mdc_env_cascade_stats): counts from list sizes and
+//    incidence ranges, times from a few steady_clock reads a round.
+//
 // 2. GMM pairwise connector — the O(N^2) inner loop of the geometric
 //    multiplex generator (reference Hyperbolic.py:101-117): Fermi-Dirac
 //    connection probability p = 1/(1 + (d/(mu*k*k'))^(1/T)) over all pairs.
@@ -37,6 +41,7 @@
 #include <cmath>
 #include <vector>
 #include <algorithm>
+#include <chrono>
 
 namespace {
 
@@ -99,6 +104,25 @@ struct StampedUF {
 };
 
 // ------------------------------------------------------------------ cascade
+// The last cascade's counters, in the order mdc_env_cascade_stats writes
+// them (native/__init__.py's CASCADE_STATS names them).  COVER_NS is the
+// seeding before the rounds: covering the step's nodes, or at reset the
+// seed records.  *_WALKED are the affected records' node and edge lists as
+// relabel_record walks them (stale entries included), NODES_MOVED the nodes
+// whose record changed (v_scratch), EDGES_TESTED the other layer's
+// incidence entries of those nodes.
+enum CascadeStat {
+  ROUNDS, RECORDS_RELABELLED, NODES_WALKED, EDGES_WALKED, NODES_MOVED,
+  EDGES_TESTED, EDGES_SEVERED, COVER_NS, RELABEL_NS, SEVER_TEST_NS, RANK_NS,
+  N_CASCADE_STATS
+};
+
+using Clock = std::chrono::steady_clock;
+
+inline int64_t ns_between(Clock::time_point a, Clock::time_point b) {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(b - a).count();
+}
+
 struct Layer {
   std::vector<int32_t> u, v;   // undirected edge endpoints
   std::vector<uint8_t> sever;  // persistent cascade-severed flag
@@ -215,6 +239,13 @@ struct DuplexEnv {
   std::vector<int32_t> root_rec;   // UF root -> new record id (same epoch)
   std::vector<int32_t> v_scratch;  // relabel node gather
   std::vector<int64_t> e_scratch;  // relabel edge gather
+  int64_t stats[N_CASCADE_STATS] = {};  // the last cascade's (CascadeStat)
+
+  // A cascade begins: clear its counters and book the seeding since t0.
+  void begin_stats(Clock::time_point t0) {
+    std::fill(stats, stats + N_CASCADE_STATS, 0);
+    stats[COVER_NS] = ns_between(t0, Clock::now());
+  }
 
   void refresh_alive(int l) {
     Layer& L = layers[l];
@@ -256,6 +287,8 @@ struct DuplexEnv {
     // (invalidating references into them); moved-out locals stay stable
     std::vector<int32_t> rn = std::move(R.nodes[r]);
     std::vector<int64_t> re = std::move(R.edges[r]);
+    stats[NODES_WALKED] += (int64_t)rn.size();
+    stats[EDGES_WALKED] += (int64_t)re.size();
     // rr_stamp is co-stamped with uf's epoch, so a wrap clears it as well:
     // a stale stamp equal to the restarted epoch would map a root to a
     // record of an earlier relabel
@@ -326,6 +359,7 @@ struct DuplexEnv {
     // swap out: relabel_record may alloc records, but never re-marks l
     aff_scratch.assign(R.affected.begin(), R.affected.end());
     R.affected.clear();
+    stats[RECORDS_RELABELLED] += (int64_t)aff_scratch.size();
     for (int32_t r : aff_scratch) {
       R.aff_flag[r] = 0;
       relabel_record(l, r);
@@ -340,9 +374,14 @@ struct DuplexEnv {
     layers[0].new_sever.clear();
     layers[1].new_sever.clear();
     while (!recs[0].affected.empty() || !recs[1].affected.empty()) {
+      ++stats[ROUNDS];
       for (int side = 0; side < 2; ++side) {
         if (recs[side].affected.empty()) continue;
+        Clock::time_point t0 = Clock::now();
         relabel(side);  // v_scratch := nodes whose side-component changed
+        Clock::time_point t1 = Clock::now();
+        stats[RELABEL_NS] += ns_between(t0, t1);
+        stats[NODES_MOVED] += (int64_t)v_scratch.size();
         Recs& S = recs[side];
         Recs& O = recs[1 - side];
         Layer& other = layers[1 - side];
@@ -351,6 +390,7 @@ struct DuplexEnv {
         // kept nodes keep their record id, so their pairwise equality is
         // unchanged).
         for (int32_t x : v_scratch) {
+          stats[EDGES_TESTED] += other.inc_ptr[x + 1] - other.inc_ptr[x];
           for (int64_t k = other.inc_ptr[x]; k < other.inc_ptr[x + 1]; ++k) {
             int64_t i = other.inc_ids[k];
             if (!other.alive[i]) continue;
@@ -364,11 +404,15 @@ struct DuplexEnv {
             O.mark_affected(O.comp_rec[other.u[i]]);
           }
         }
+        stats[SEVER_TEST_NS] += ns_between(t1, Clock::now());
       }
     }
+    stats[EDGES_SEVERED] =
+        (int64_t)(layers[0].new_sever.size() + layers[1].new_sever.size());
     // rank: largest layer-0 component over uncovered nodes.  Records hold
     // exactly the uncovered nodes of every component with >= 2 members;
     // isolated uncovered nodes are singletons of size 1.
+    Clock::time_point t0 = Clock::now();
     int64_t best = 0;
     for (int32_t r : recs[0].live) {
       int64_t s = recs[0].rec_size[r];
@@ -376,9 +420,11 @@ struct DuplexEnv {
     }
     if (best == 0) best = n_uncovered > 0 ? 1 : 0;
     rank = best;
+    stats[RANK_NS] = ns_between(t0, Clock::now());
   }
 
   void reset() {
+    Clock::time_point t0 = Clock::now();
     std::fill(covered.begin(), covered.end(), 0);
     n_uncovered = n;
     for (int l = 0; l < 2; ++l) {
@@ -398,6 +444,7 @@ struct DuplexEnv {
       R.rec_size[r0] = n;
       R.mark_affected(r0);
     }
+    begin_stats(t0);
     cascade();
     score = 0.0;
     curve.assign(1, 1.0);
@@ -428,7 +475,9 @@ struct DuplexEnv {
   }
 
   int64_t step(int32_t a, bool degree_cost) {
+    Clock::time_point t0 = Clock::now();
     cover(a);
+    begin_stats(t0);
     cascade();
     double norm = (double)rank / (double)std::max<int64_t>(max_rank, 1);
     if (degree_cost) {
@@ -456,6 +505,7 @@ struct DuplexEnv {
   // summed over a whole dismantling the bias is ≤ k/n (one part per
   // thousand at StepRatio 0.001).
   int64_t step_many(const int64_t* actions, int64_t k, bool degree_cost) {
+    Clock::time_point t0 = Clock::now();
     int64_t removed = 0;
     static thread_local std::vector<int32_t> done;
     done.clear();
@@ -468,6 +518,7 @@ struct DuplexEnv {
       ++removed;
     }
     if (!removed) return 0;
+    begin_stats(t0);
     cascade();
     double norm = (double)rank / (double)std::max<int64_t>(max_rank, 1);
     for (int32_t a : done) {
@@ -624,6 +675,14 @@ void mdc_env_alive_nodes(void* p, int32_t layer, uint8_t* out) {
       out[L.v[i]] = 1;
     }
   }
+}
+
+// The last cascade's counters (CascadeStat order) into out[N_CASCADE_STATS];
+// returns N_CASCADE_STATS.
+int64_t mdc_env_cascade_stats(void* p, int64_t* out) {
+  auto& env = *(DuplexEnv*)p;
+  std::memcpy(out, env.stats, sizeof(env.stats));
+  return N_CASCADE_STATS;
 }
 
 // Set the relabel union-find's epoch counter (test hook for the u32 wrap).

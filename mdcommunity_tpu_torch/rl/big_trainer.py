@@ -67,6 +67,7 @@ from mdcommunity_tpu_torch.models.net import (
 )
 from mdcommunity_tpu_torch.parallel.mesh import all_reduce, reduce_grads
 from mdcommunity_tpu_torch.utils.device import matmul_precision
+from mdcommunity_tpu_torch.utils.profiling import span
 
 
 def _apply_severs(banded, layer: int, ns: np.ndarray) -> None:
@@ -123,8 +124,11 @@ def train_banded_loop(
     banded0: the pristine BandedDuplex in the env's (band) node order, on
     the device the loop runs on; it is never edited (episode resets copy
     it).  history: one row per iteration (the JAX package's keys, plus the
-    iteration's time split: t_select_s, t_env_s, t_sever_s, t_target_s,
-    t_fit_s), one row per finished episode (AUDC) and a closing row.
+    iteration's time split, host seconds of utils/profiling.span: t_iter_s
+    holding t_select_s (t_mix_s inside it: the eps draw to the
+    de-duplication), t_env_s, t_sever_s, t_target_s, t_fit_s; and the
+    iteration's cascade counters, env.cascade_stats), one row per finished
+    episode (AUDC) and a closing row.
 
     packed=True runs the eval forward with fused SAGE steps (kernel K2)
     when the build is spill-free.  Adam is torch.optim.Adam with optax.adam's
@@ -206,96 +210,94 @@ def train_banded_loop(
     t_loop = time.perf_counter()
 
     for it in range(iters):
-        t0 = time.perf_counter()
         eps = eps_start + (eps_end - eps_start) * it / max(iters - 1, 1)
-
-        # --- action selection: device top-k, host eps mixing ------------
-        with matmul_precision(precise):
-            q = banded_test_forward(net, cur, covered, fuse_sage=fuse, precise=precise,
-                                    variant=variant)
-        vals, order = top_k_stable(q, k)
-        ok = np.isfinite(vals) & ~env.covered[order]
-        cut = int(np.argmin(ok)) if not ok.all() else len(ok)
-        acts = order[:cut].astype(np.int64)
-        if len(acts) == 0:
-            # no live action (the forward masks dead nodes to -inf)
-            covered = reset_episode()
-            episode += 1
-            continue
-        mix = rng.random(len(acts)) < eps
-        if mix.any():
-            valid = env.alive_nodes(0) & env.alive_nodes(1) & ~env.covered
-            valid[acts[~mix]] = False
-            pool = np.flatnonzero(valid)
-            n_mix = min(int(mix.sum()), len(pool))
-            if n_mix:
-                repl = rng.choice(pool, size=n_mix, replace=False)
-                acts[np.flatnonzero(mix)[:n_mix]] = repl
-            _, first = np.unique(acts, return_index=True)
-            acts = acts[np.sort(first)]
-        t1 = time.perf_counter()
-
-        # --- env macro-step (one cascade), rewards ----------------------
-        _, new_sev, removed = env.step_many(acts, degree_cost=variant == "degree_cost")
-        norm = env.rank / max(env.max_rank, 1)
-        rewards = -norm * cost[acts]
-        t2 = time.perf_counter()
-
-        # --- next state on the device: a new covered mask, cur severed ---
-        acts_dev = torch.from_numpy(acts).to(device)
-        prev_covered = covered
-        covered = covered.clone()
-        covered[acts_dev] = True
-        for layer in range(2):
-            _apply_severs(cur, layer, new_sev[layer])
-        _sync(device)
-        t3 = time.perf_counter()
-
-        # --- TD targets ---------------------------------------------------
-        if env.terminal:
-            targets = rewards
-            maxq = 0.0
-        else:
-            with matmul_precision(precise):
-                q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse,
-                                             precise=precise, variant=variant)
-            maxq = float(q_next.max())
-            targets = rewards + gamma * maxq
-        t4 = time.perf_counter()
-
-        # --- fit on the pre-step state s_t (prev), then sever prev --------
-        loss_v = float("nan")
-        if len(acts) == k:  # the JAX package skips the short terminal batch
-            tgts_dev = torch.from_numpy(targets.astype(np.float32)).to(device)
-            for _ in range(fits_per_step):
-                opt.zero_grad(set_to_none=True)
+        row = {"iter": it, "episode": episode, "eps": round(float(eps), 4)}
+        with span(row, "t_iter_s"):
+            # --- action selection: device top-k, host eps mixing --------
+            with span(row, "t_select_s"):
                 with matmul_precision(precise):
-                    loss = banded_train_loss(net, prev, prev_covered, acts_dev,
-                                             tgts_dev, alpha=alpha_recon, precise=precise,
-                                             variant=variant)
-                    loss.backward()
-                if mesh is not None:
-                    reduce_grads(mesh, net.parameters())
-                opt.step()
-            loss_v = (all_reduce(mesh, loss.detach()) if mesh is not None else loss).item()
-        t5 = time.perf_counter()
-        for layer in range(2):
-            _apply_severs(prev, layer, new_sev[layer])
-        _sync(device)
-        t6 = time.perf_counter()
+                    q = banded_test_forward(net, cur, covered, fuse_sage=fuse,
+                                            precise=precise, variant=variant)
+                vals, order = top_k_stable(q, k)
+                ok = np.isfinite(vals) & ~env.covered[order]
+                cut = int(np.argmin(ok)) if not ok.all() else len(ok)
+                acts = order[:cut].astype(np.int64)
+                if len(acts) == 0:
+                    # no live action (the forward masks dead nodes to -inf)
+                    covered = reset_episode()
+                    episode += 1
+                    continue
+                with span(row, "t_mix_s"):
+                    mix = rng.random(len(acts)) < eps
+                    if mix.any():
+                        valid = env.alive_nodes(0) & env.alive_nodes(1) & ~env.covered
+                        valid[acts[~mix]] = False
+                        pool = np.flatnonzero(valid)
+                        n_mix = min(int(mix.sum()), len(pool))
+                        if n_mix:
+                            repl = rng.choice(pool, size=n_mix, replace=False)
+                            acts[np.flatnonzero(mix)[:n_mix]] = repl
+                        _, first = np.unique(acts, return_index=True)
+                        acts = acts[np.sort(first)]
 
-        if (it + 1) % target_update == 0:
-            target.load_state_dict(net.state_dict())
+            # --- env macro-step (one cascade), rewards -------------------
+            with span(row, "t_env_s"):
+                _, new_sev, removed = env.step_many(
+                    acts, degree_cost=variant == "degree_cost")
+                norm = env.rank / max(env.max_rank, 1)
+                rewards = -norm * cost[acts]
+            if removed:
+                row.update(env.cascade_stats)
 
-        row = {
-            "iter": it, "episode": episode, "eps": round(float(eps), 4),
-            "removed": int(removed), "norm": round(float(norm), 6),
-            "maxq": round(float(maxq), 6), "loss": loss_v,
-            "t_iter_s": round(time.perf_counter() - t0, 3),
-            "t_select_s": round(t1 - t0, 4), "t_env_s": round(t2 - t1, 4),
-            "t_sever_s": round(t3 - t2 + t6 - t5, 4),
-            "t_target_s": round(t4 - t3, 4), "t_fit_s": round(t5 - t4, 4),
-        }
+            # --- next state on the device: a new covered mask, cur severed
+            with span(row, "t_sever_s"):
+                acts_dev = torch.from_numpy(acts).to(device)
+                prev_covered = covered
+                covered = covered.clone()
+                covered[acts_dev] = True
+                for layer in range(2):
+                    _apply_severs(cur, layer, new_sev[layer])
+                _sync(device)
+
+            # --- TD targets ----------------------------------------------
+            with span(row, "t_target_s"):
+                if env.terminal:
+                    targets = rewards
+                    maxq = 0.0
+                else:
+                    with matmul_precision(precise):
+                        q_next = banded_test_forward(target, cur, covered, fuse_sage=fuse,
+                                                     precise=precise, variant=variant)
+                    maxq = float(q_next.max())
+                    targets = rewards + gamma * maxq
+
+            # --- fit on the pre-step state s_t (prev), then sever prev ---
+            with span(row, "t_fit_s"):
+                loss_v = float("nan")
+                if len(acts) == k:  # the JAX package skips the short terminal batch
+                    tgts_dev = torch.from_numpy(targets.astype(np.float32)).to(device)
+                    for _ in range(fits_per_step):
+                        opt.zero_grad(set_to_none=True)
+                        with matmul_precision(precise):
+                            loss = banded_train_loss(net, prev, prev_covered, acts_dev,
+                                                     tgts_dev, alpha=alpha_recon,
+                                                     precise=precise, variant=variant)
+                            loss.backward()
+                        if mesh is not None:
+                            reduce_grads(mesh, net.parameters())
+                        opt.step()
+                    loss_v = (all_reduce(mesh, loss.detach()) if mesh is not None
+                              else loss).item()
+            with span(row, "t_sever_s"):
+                for layer in range(2):
+                    _apply_severs(prev, layer, new_sev[layer])
+                _sync(device)
+
+            if (it + 1) % target_update == 0:
+                target.load_state_dict(net.state_dict())
+
+        row.update(removed=int(removed), norm=round(float(norm), 6),
+                   maxq=round(float(maxq), 6), loss=loss_v)
         history.append(row)
         if on_iter is not None:
             on_iter(row)

@@ -818,7 +818,7 @@ class DQNAgent:
         # per-window device-fenced timing and throughput counters
         # (reference observability: wall-clock prints :497,510-523)
         prof: dict = {}
-        fit_meter = ThroughputMeter("fit-iters")
+        fit_meter = ThroughputMeter()
         try:
             for it in range(start_iter, cfg.max_iteration):
                 self.iteration = it

@@ -2,19 +2,20 @@
 
 The reference's observability is wall-clock prints around validation windows
 (MultiDismantler_torch.py:497,510-523) and per-dataset solve-time CSVs.
-Here: a torch.profiler trace, a timing context that waits for the card's
-queued work at its exit, and throughput counters (fit iterations a second
-for the training loop).
+Here: `span`, the host phases of the large-graph loops as seconds in their
+rows (and as profiler ranges while a profiler runs), a timing context that
+waits for the card's queued work at its exit, and throughput counters (fit
+iterations a second for the training loop).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import time
 from typing import Dict, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
 
 
 def _sync() -> None:
@@ -37,28 +38,24 @@ def device_timer(name: str, sink: Optional[Dict[str, float]] = None, log=None):
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "./runs/torch-trace"):
-    """A torch.profiler trace of the block (CPU, and CUDA where there is a
-    card), written to log_dir as a Chrome trace that TensorBoard's profiler
-    plugin or chrome://tracing reads."""
-    import os
-
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield log_dir
+def span(row: dict, key: str):
+    """Add the block's host seconds to row[key] (a history row of one
+    iteration or batch; spans nest, and a key may take several blocks).
+    While a torch profiler runs, the block is also the profiler range
+    "mdc.<key>", in the host records that share the device trace's clock;
+    without one, no range is entered (two clock reads and a flag read)."""
+    with (_profiler.record_function("mdc." + key) if _profiler._is_profiler_enabled
+          else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        yield
+        row[key] = row.get(key, 0.0) + time.perf_counter() - t0
 
 
 class ThroughputMeter:
     """Accumulates (units, seconds) and reports units/s: the trainer's fit
     iterations a second."""
 
-    def __init__(self, unit: str = "edges"):
-        self.unit = unit
+    def __init__(self):
         self.units = 0.0
         self.seconds = 0.0
 
@@ -69,8 +66,3 @@ class ThroughputMeter:
     @property
     def rate(self) -> float:
         return self.units / self.seconds if self.seconds > 0 else 0.0
-
-    def json(self, name: str) -> str:
-        return json.dumps(
-            {"metric": name, "value": round(self.rate, 1), "unit": f"{self.unit}/s"}
-        )

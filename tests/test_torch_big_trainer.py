@@ -23,6 +23,7 @@ from mdcommunity_tpu_torch.env.host_env import make_host_env  # noqa: E402
 from mdcommunity_tpu_torch.graphs.banded import build_banded_duplex, fork_banded  # noqa: E402
 from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges  # noqa: E402
 from mdcommunity_tpu_torch.models.net import banded_test_forward, from_jax_params, to_jax_params  # noqa: E402
+from mdcommunity_tpu_torch.native import CASCADE_STATS  # noqa: E402
 from mdcommunity_tpu_torch.ops.dense_band import build_dense_band  # noqa: E402
 from mdcommunity_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from mdcommunity_tpu_torch.rl import big_trainer  # noqa: E402
@@ -99,6 +100,23 @@ def test_loop_runs_and_learns_shapes(setup):
                                    "t_target_s", "t_fit_s"))
         assert 0 < split <= h["t_iter_s"] + 1e-3
 
+
+
+def test_rows_hold_the_mix_span_and_the_cascade_counters(setup):
+    """Each iteration row holds t_mix_s inside t_select_s, and its
+    cascade's counters, whose engine times lie inside t_env_s."""
+    _, banded, o0, o1, params = setup
+    env = _env(o0, o1)
+    _, hist = train_banded_loop(from_jax_params(params, device="cpu"), banded, env,
+                                iters=4, k=16, eps_start=0.5, eps_end=0.5, **QUIET)
+    rows = _rows(hist)
+    assert len(rows) == 4
+    for h in rows:
+        assert 0 < h["t_mix_s"] <= h["t_select_s"]
+        assert set(CASCADE_STATS) <= set(h)
+        assert h["rounds"] >= 1 and h["edges_walked"] > 0 and h["nodes_walked"] > 0
+        engine_ns = h["cover_ns"] + h["relabel_ns"] + h["sever_test_ns"] + h["rank_ns"]
+        assert 0 < engine_ns <= 1e9 * h["t_env_s"]
 
 def test_episode_terminal_reset_and_audc(setup):
     _, banded, o0, o1, params = setup

@@ -183,6 +183,60 @@ def test_short_run_matches_packed_engine(models, edges):
     assert abs(tscore - jscore) <= AUDC_TOL
 
 
+
+class _StopAfter:
+    """The port's env, stopped after `batches` cascades as a benchmark's
+    window stops it: step_many then removes nothing and the env reads as
+    terminal."""
+
+    def __init__(self, env, batches):
+        self._env, self.left = env, batches
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    @property
+    def terminal(self):
+        return self.left < 0 or self._env.terminal
+
+    def step_many(self, actions, degree_cost=False):
+        self.left -= 1
+        if self.left < 0:
+            empty = np.zeros((0, 2), np.int64)
+            return self._env.rank, [empty, empty], 0
+        return self._env.step_many(actions, degree_cost=degree_cost)
+
+
+@pytest.mark.parametrize("batch_env", [True, False])
+def test_stats_hold_a_row_per_model_call(models, edges, batch_env):
+    """stats["batches"]: one row a model call, whose t_call_s sum to
+    model_call_s; each batch's cascade counters (summed over its 32
+    cascades without batch_env), with the engine's times inside t_env_s;
+    a batch that removed nothing carries none."""
+    _, net = models
+    e0, e1 = edges
+    tb, _, (t0, t1) = build_banded_duplex(N, e0, e1, device="cpu")
+    env = make_host_env(N, t0, t1)
+    if batch_env:
+        env = _StopAfter(env, 6)
+    hooks, stats = [], {}
+    dismantle_greedy_banded(net, tb, env, step=32, max_steps=256, batch_env=batch_env,
+                            fuse_sage=False, stats=stats,
+                            shadow=(lambda *a: hooks.append(len(a[3]))) if batch_env else None)
+    rows = stats["batches"]
+    assert len(rows) == stats["model_calls"] == (7 if batch_env else 8)
+    assert len(hooks) == (7 if batch_env else 0)
+    assert sum(r["t_call_s"] for r in rows) == pytest.approx(stats["model_call_s"], rel=1e-12)
+    ran = [r for r in rows if "rounds" in r]
+    assert len(ran) == (6 if batch_env else 8)
+    for r in ran:
+        assert r["rounds"] >= (1 if batch_env else 32) and r["edges_walked"] > 0
+        engine_ns = r["cover_ns"] + r["relabel_ns"] + r["sever_test_ns"] + r["rank_ns"]
+        assert 0 < engine_ns <= 1e9 * r["t_env_s"]
+        assert r["t_sever_s"] > 0
+    if batch_env:
+        assert "t_env_s" in rows[-1] and "rounds" not in rows[-1]
+
 def test_large_graph_demo_on_the_cpu(tmp_path, capsys):
     """The demo entry point end to end with --device cpu: one JSON line per
     size, with the result files beside it."""

@@ -231,7 +231,12 @@ def log(*a):
 
 def build_all():
     from mdcommunity_tpu_torch.native import build as native_build
-    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels, probe_kernels
+    from mdcommunity_tpu_torch.ops import (
+        band_kernels,
+        blocked_kernels,
+        cascade_kernels,
+        probe_kernels,
+    )
 
     errs, times = {}, {}
 
@@ -247,6 +252,7 @@ def build_all():
         threading.Thread(target=run, args=("band.cu (nvcc)", band_kernels.build)),
         threading.Thread(target=run, args=("blocked.cu (nvcc)", blocked_kernels.build)),
         threading.Thread(target=run, args=("probe.cu (nvcc)", probe_kernels.build)),
+        threading.Thread(target=run, args=("cascade.cu (nvcc)", cascade_kernels.build)),
         threading.Thread(target=run, args=("mdc_native.cpp (g++)", native_build.build)),
     ]
     t0 = time.perf_counter()
@@ -258,7 +264,7 @@ def build_all():
         raise RuntimeError(f"build of {name} failed") from exc
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    for name in ("band", "blocked", "probe"):
+    for name in ("band", "blocked", "probe", "cascade"):
         with open(os.path.join(os.path.dirname(band_kernels.LIB), f"{name}_ptxas.log")) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -2045,17 +2051,29 @@ def check_blocked_backward(device, bd):
 
 
 def reset_all_launches():
-    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels, probe_kernels
+    from mdcommunity_tpu_torch.ops import (
+        band_kernels,
+        blocked_kernels,
+        cascade_kernels,
+        probe_kernels,
+    )
 
     band_kernels.reset_launches()
     blocked_kernels.reset_launches()
     probe_kernels.reset_launches()
+    cascade_kernels.reset_launches()
 
 
 def all_launches():
-    from mdcommunity_tpu_torch.ops import band_kernels, blocked_kernels, probe_kernels
+    from mdcommunity_tpu_torch.ops import (
+        band_kernels,
+        blocked_kernels,
+        cascade_kernels,
+        probe_kernels,
+    )
 
-    return {**band_kernels.launches, **blocked_kernels.launches, **probe_kernels.launches}
+    return {**band_kernels.launches, **blocked_kernels.launches, **probe_kernels.launches,
+            **cascade_kernels.launches}
 
 
 def small_graph_phase(device, n_valid=32, sizes=(32, 64, 128), n_graphs=5):
@@ -2270,6 +2288,7 @@ def main_path(device, n, step_ratio):
     from mdcommunity_tpu_torch.models.checkpoint import load_model
     from mdcommunity_tpu_torch.models.net import banded_test_forward
     from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops import cascade_kernels as ck
 
     net = load_model(CKPT, device=device)
     # the graph of `large_graph_demo --sizes n`: the generator's first draw
@@ -2300,6 +2319,7 @@ def main_path(device, n, step_ratio):
 
     stats = {}
     bk.reset_launches()
+    ck.reset_launches()
     t0 = time.perf_counter()
     sol, solve_s, score = evaluate_real(
         net, OUT, name, os.path.join(OUT, "results"), n_nodes=n, layers=(1, 2),
@@ -2309,7 +2329,7 @@ def main_path(device, n, step_ratio):
     )
     if device != "cpu":
         torch.cuda.synchronize()
-    counts = dict(bk.launches)
+    counts = {**bk.launches, **ck.launches}  # the cascade's: the env went to the card
     lockstep = shadow.summary()
     mean_fwd = 1e3 * stats["model_call_s"] / max(stats["model_calls"], 1)
     log("main path: " + json.dumps(dict(
@@ -2339,10 +2359,11 @@ def main_path(device, n, step_ratio):
             raise AssertionError("the unshuffled build has spill")
         env = make_host_env(n, o0, o1, engine="native")
         bk.reset_launches()
+        ck.reset_launches()
         sol2, score2, _ = dismantle_greedy_banded(
             net, banded, env, step=max(int(step_ratio * n), 1), batch_env=True,
             max_steps=n // 10)
-        more = dict(bk.launches)
+        more = {**bk.launches, **ck.launches}
         log("main path, unshuffled phase: " + json.dumps(dict(
             removed=len(sol2), score=score2, launches=more)))
         counts = {k: counts[k] + more[k] for k in counts}
@@ -4313,6 +4334,193 @@ def tools_phase(device, ring, small=False):
     return counts, errs, lines
 
 
+# ---------------------------------------------------------------- the cascade
+
+CASCADE_SIZES = ((1 << 16, False), (1 << 20, False), (1 << 20, True))  # (n, shuffled)
+CASCADE_BATCHES = 30
+CASCADE_K = 1048
+CASCADE_REL = 1e-12      # score and curve: the same f64 terms, summed in one order
+
+
+def cascade_state(env):
+    """What the loops read of an env: covered, sever masks, rank, terminal,
+    t (alive_nodes is compared separately)."""
+    return (env.covered.tobytes(), [s.tobytes() for s in env.sever], env.rank,
+            env.terminal, env.t)
+
+
+def check_cascade_kernels(device, env, label, timed=True):
+    """Each csrc/cascade.cu kernel against its plain version on env's edges
+    (the native engine's order) under a seeded state (10% of the nodes
+    covered, 5% of each layer's edges severed, some actions out of range):
+    alive, counts, labels, touched, severs, rank and masks exactly.  With
+    timed, each kernel's median ms on the card (utils/timing.cuda_ms) beside
+    its plain version's and its bound (bytes at PEAK_BYTES_S: u, v and the
+    edge masks once, n-sized arrays once).  Returns the times."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.ops import cascade_kernels as ck
+
+    n = env.n
+    rng = np.random.default_rng(7)
+    u = [torch.from_numpy(e[:, 0].astype(np.int32)).to(device) for e in env.edges]
+    v = [torch.from_numpy(e[:, 1].astype(np.int32)).to(device) for e in env.edges]
+    m = [len(e) for e in env.edges]
+    sever = [torch.from_numpy(rng.random(k) < 0.05).to(device) for k in m]
+    acts = torch.from_numpy(np.concatenate([rng.choice(n, n // 10, replace=False),
+                                            [-1, n, n + 3]])).to(device)
+
+    def fresh():
+        return dict(covered=torch.zeros(n, dtype=torch.bool, device=device),
+                    alive=[torch.empty(k, dtype=torch.bool, device=device) for k in m],
+                    sever=[s.clone() for s in sever],
+                    label=[torch.empty(n, dtype=torch.int32, device=device) for _ in m],
+                    touched=[torch.empty(n, dtype=torch.bool, device=device) for _ in m],
+                    ids=torch.zeros(m[1], dtype=torch.int32, device=device),
+                    ctr=torch.zeros(4, dtype=torch.int64, device=device))
+
+    def run(st, kern):
+        f = {name: getattr(ck, name if kern else name + "_plain") for name in ck.NAMES}
+        f["cover"](st["covered"], acts)
+        for layer in (0, 1):
+            f["live_edges"](u[layer], v[layer], st["sever"][layer], st["covered"],
+                            st["alive"][layer], st["ctr"][layer:layer + 1])
+            f["components"](u[layer], v[layer], st["alive"][layer], st["label"][layer],
+                            st["touched"][layer])
+        f["sever_test"](u[1], v[1], st["alive"][1], st["sever"][1], st["label"][0],
+                        st["touched"][0], st["ids"], st["ctr"][2:3])
+        f["rank"](st["label"][0], st["covered"], torch.empty(n, dtype=torch.int32,
+                                                             device=device), st["ctr"][3:4])
+        st["mask"] = torch.empty(n, dtype=torch.bool, device=device)
+        f["alive_nodes"](u[1], v[1], st["alive"][1], st["mask"])
+        st["ids"] = torch.sort(st["ids"][: int(st["ctr"][2])]).values
+        return st
+
+    got, want = run(fresh(), True), run(fresh(), False)
+    for key in ("covered", "alive", "sever", "label", "touched", "ids", "ctr", "mask"):
+        a, b = got[key], want[key]
+        for x, y in (zip(a, b) if isinstance(a, list) else [(a, b)]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"cascade kernels, {label}: {key} differs from the "
+                                     "plain version")
+    log(f"cascade kernels, {label}: equal to their plain versions (live "
+        f"{got['ctr'][:2].tolist()}, severed {int(got['ctr'][2])}, rank {int(got['ctr'][3])})")
+    if not timed:
+        return {}
+    st = got
+    cnt = torch.zeros(1, dtype=torch.int64, device=device)
+    scratch = torch.empty(n, dtype=torch.int32, device=device)
+    ids = torch.empty(m[0], dtype=torch.int32, device=device)
+    mask = torch.empty(n, dtype=torch.bool, device=device)
+    cov_acts = acts[:CASCADE_K]
+    # layer 0 against its own labels severs nothing: the common case, and
+    # repeatable
+    calls = {
+        "cover": (lambda f: f(st["covered"], cov_acts), 9 * len(cov_acts)),
+        "live_edges": (lambda f: f(u[0], v[0], st["sever"][0], st["covered"],
+                                   st["alive"][0], cnt), 10 * m[0] + n),
+        "components": (lambda f: f(u[0], v[0], st["alive"][0], st["label"][0],
+                                   st["touched"][0]), 9 * m[0] + 5 * n),
+        "sever_test": (lambda f: f(u[0], v[0], st["alive"][0], st["sever"][0],
+                                   st["label"][0], st["touched"][0], ids, cnt), 9 * m[0] + 5 * n),
+        "rank": (lambda f: f(st["label"][0], st["covered"], scratch, cnt), 5 * n),
+        "alive_nodes": (lambda f: f(u[0], v[0], st["alive"][0], mask), 9 * m[0] + n),
+    }
+    out = {}
+    for name, (call, nbytes) in calls.items():
+        kern, plain = getattr(ck, name), getattr(ck, name + "_plain")
+        out["cc_" + name] = dict(ms=time_ms(lambda: call(kern)),
+                                 plain_ms=time_ms(lambda: call(plain)),
+                                 bound_ms=1e3 * nbytes / PEAK_BYTES_S, bytes=nbytes)
+    log(f"cascade kernel times, {label} (ms, median of 20; bound = bytes at 3.35 TB/s): "
+        + json.dumps({k: {kk: float(f"{vv:.4g}") for kk, vv in r.items()}
+                      for k, r in out.items()}))
+    return out
+
+
+def cascade_phase(device, small=False):
+    """The banded loops' cascade on the card (env/device_cascade.py): at
+    each of CASCADE_SIZES (synth_duplex_edges, degree 6; angular ids or
+    shuffled) each kernel against its plain version (check_cascade_kernels;
+    timed at 2^20 angular), then CASCADE_BATCHES batches of CASCADE_K
+    hub-first removals (with out-of-range entries and repeats) through two
+    native envs, one moved to the card with to(): after each batch the
+    covered set, sever masks, rank, terminal, t and the batch's new severs
+    (as sets) equal, alive_nodes every tenth batch, score and curve within
+    CASCADE_REL; each engine's ms a batch.  small: the CPU rehearsal's sizes
+    (the device engine on the plain versions).  Returns (kernel times, per
+    size the engines' median ms a batch)."""
+    import numpy as np
+    import torch
+
+    from mdcommunity_tpu_torch.env.host_env import make_host_env
+    from mdcommunity_tpu_torch.large_graph_demo import synth_duplex_edges
+    from mdcommunity_tpu_torch.ops import cascade_kernels as ck
+
+    t0 = time.perf_counter()
+    ck.reset_launches()
+    times, rows = {}, {}
+    sizes = ((2048, False), (4096, True)) if small else CASCADE_SIZES
+    k = 16 if small else CASCADE_K
+    for n, shuffled in sizes:
+        label = f"{n} {'shuffled' if shuffled else 'angular'}"
+        e0, e1 = synth_duplex_edges(n, 6, np.random.default_rng(0), shuffle=shuffled)
+        ref = make_host_env(n, e0, e1, engine="native")
+        timed = not small and n == 1 << 20 and not shuffled
+        times.update(check_cascade_kernels(device, ref, label, timed=timed))
+        dev = make_host_env(n, e0, e1, engine="native")
+        if device == "cpu":
+            dev.engage("cpu")
+        else:
+            dev.to(device)
+        deg = np.bincount(np.concatenate([e0.ravel(), e1.ravel()]), minlength=n)
+        order = np.argsort(-deg, kind="stable")
+        ms = {"native": [], "device": []}
+        for b in range(CASCADE_BATCHES):
+            acts = order[b * k:(b + 1) * k]
+            if b % 3 == 1:  # covered repeats and entries out of range
+                acts = np.concatenate([acts, order[:5], [-1, n]])
+            out = {}
+            for name, env in (("native", ref), ("device", dev)):
+                t1 = time.perf_counter()
+                out[name] = env.step_many(acts)
+                ms[name].append(1e3 * (time.perf_counter() - t1))
+            r, d = out["native"], out["device"]
+            same = (r[0] == d[0] and r[2] == d[2]
+                    and all(np.array_equal(np.unique(x, axis=0), np.unique(y, axis=0))
+                            for x, y in zip(r[1], d[1]))
+                    and cascade_state(ref) == cascade_state(dev)
+                    and abs(ref.score - dev.score) <= CASCADE_REL * abs(ref.score))
+            if same and b % 10 == 9:
+                same = all(np.array_equal(ref.alive_nodes(layer), dev.alive_nodes(layer))
+                           for layer in (0, 1))
+                rc, dc = np.asarray(ref.curve), np.asarray(dev.curve)
+                same = same and len(rc) == len(dc) and bool(
+                    np.all(np.abs(rc - dc) <= CASCADE_REL * np.abs(rc)))
+            if not same:
+                raise AssertionError(f"device cascade, {label}: batch {b} differs from the "
+                                     "native engine")
+            if ref.terminal:
+                break
+        st = dev.cascade_stats
+        if device != "cpu" and st["on_device"] != 1:
+            raise AssertionError("the moved env did not run its cascade on the card")
+        rows[label] = {name: float(np.median(v)) for name, v in ms.items()}
+        rows[label].update(batches=b + 1, rank=dev.rank, last_stats=st)
+        log(f"device cascade, {label}: {b + 1} batches equal to the native engine; ms a "
+            f"batch (median) native {rows[label]['native']:.3f}, device "
+            f"{rows[label]['device']:.3f}; last cascade {json.dumps(st)}")
+        del ref, dev
+    if device != "cpu":
+        if any(c <= 0 for c in ck.launches.values()):
+            raise AssertionError(f"a cascade kernel was not launched: {ck.launches}")
+        torch.cuda.empty_cache()
+    log(f"cascade phase: {time.perf_counter() - t0:.1f} s, launches "
+        + json.dumps(ck.launches))
+    return times, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4385,6 +4593,7 @@ def main(argv=None):
                         2048, edges, small=True)
         multiprocess_phase("cpu", small=True)
         tools_phase("cpu", ring, small=True)
+        cascade_phase("cpu", small=True)
         log("rehearsal done")
         return 0
     if not torch.cuda.is_available():
@@ -4415,6 +4624,8 @@ def main(argv=None):
         + json.dumps({k: [float(f"{x:.3e}") for x in v] for k, v in F64.items()}))
 
     lap("kernel checks")
+    cascade_times, cascade_rows = cascade_phase(device)
+    lap("cascade")
     main_graph = synth_banded(18222, True, 0, device)
     errs["band_spmm_bf16_bwd"] = check_bf16_backward(device, main_graph, "18,432 rows")
     times = time_kernels(device, main_graph, "18,432 rows")
@@ -4445,7 +4656,7 @@ def main(argv=None):
     lap("blocked kernels")
 
     counts, result = main_path(device, 18222, 0.001)
-    for k in ("band_spmm", "band_sage"):
+    for k in ("band_spmm", "band_sage", "cc_components"):
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     log(f"main path AUDC {result['audc']:.6f} after {result['removed']} removals")
@@ -4602,6 +4813,14 @@ def main(argv=None):
     log("baselines and tools: " + json.dumps(tools))
     for name, line in tool_lines.items():
         log(f"{name}: " + json.dumps(line))
+    for name, t in cascade_times.items():
+        kernels.append(dict(
+            name=name, route="cuda", source="mdcommunity_tpu_torch/csrc/cascade.cu",
+            replaces="none (the JAX package's cascade is host C++, native/src/mdc_native.cpp)",
+            mode="2^20 nodes, angular ids", launches=counts.get(name, 0), **t))
+    log("device cascade against the native engine: " + json.dumps(
+        {k: {kk: vv for kk, vv in r.items() if kk != "last_stats"}
+         for k, r in cascade_rows.items()}))
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -45,7 +45,10 @@ def make_host_env(
 
     engine: "native" (the C++ engine, raises if it cannot build), "scipy",
     or "auto" (native when a toolchain exists, else scipy with a warning).
-    The chosen engine's name is the env's `engine` attribute."""
+    The chosen engine's name is the env's `engine` attribute.  Where a card
+    is present the native env comes with its device engine's kernels built
+    (csrc/cascade.cu), so that moving it to the card (to(), which the
+    banded loops call) compiles nothing."""
 
     def _canon(e):
         e = np.sort(np.asarray(e, np.int64).reshape(-1, 2), axis=1)
@@ -57,6 +60,12 @@ def make_host_env(
     from mdcommunity_tpu_torch.native import NativeDuplexEnv, load
 
     if load() is not None:
+        import torch
+
+        if torch.cuda.is_available():
+            from mdcommunity_tpu_torch.ops import cascade_kernels
+
+            cascade_kernels.build()
         return NativeDuplexEnv(n, edges0, edges1, weights)
     if engine == "native":
         raise RuntimeError("the native host engine could not be built")
@@ -134,7 +143,7 @@ class HostDuplexEnv:
         severed and the sever tests' ns, the rank's bincount ns."""
         self.cascade_stats = dict(rounds=0, edges_walked=0, edges_severed=0,
                                   cover_ns=time.perf_counter_ns() - t0_ns,
-                                  relabel_ns=0, sever_test_ns=0, rank_ns=0)
+                                  relabel_ns=0, sever_test_ns=0, rank_ns=0, on_device=0)
         new_sev = [[], []]
         changed = True
         while changed:
@@ -154,6 +163,11 @@ class HostDuplexEnv:
         return rank, outs
 
     # -- MDP ----------------------------------------------------------------
+
+    def to(self, device) -> "HostDuplexEnv":
+        """This engine stays on the host whatever the device (the native
+        engine's to() moves its cascade to a card); returns the env."""
+        return self
 
     def reset(self):
         t0 = time.perf_counter_ns()

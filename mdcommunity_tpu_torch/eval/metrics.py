@@ -240,7 +240,10 @@ def dismantle_greedy_banded(
     """Greedy Q rollout on a large BandedDuplex with a host env.
 
     Each model call runs the banded Q forward on the banded duplex's device
-    and takes its top `step` nodes; the cascade runs on the host.  precise
+    and takes its top `step` nodes.  The env's cascade runs on the same
+    device: the loop calls env.to(banded.device) first (the native engine
+    moves its cascade onto a card in place, native.NativeDuplexEnv.to; on
+    the CPU it stays the C++ engine).  precise
     (default True): the forward runs in true f32, aggregation operands and
     dense layers (TF32 off).  precise=False is the JAX package's fast eval:
     K1's and K2's bf16 modes, h stored in `act_dtype`, dense layers in TF32.
@@ -266,8 +269,8 @@ def dismantle_greedy_banded(
     model call: host seconds of utils/profiling.span, t_call_s (the call),
     t_env_s (the env steps of its batch), t_sever_s (the covered update and
     the band's severs, with no wait for the card), and the env's
-    cascade_stats (summed over the batch's cascades; none when the env
-    removed nothing).
+    cascade_stats (summed over the batch's cascades, but on_device, 1 when
+    the card ran them; none when the env removed nothing).
 
     shadow, when given, watches a batch_env rollout (step > 1) without
     changing it: each model call, before its batch is taken, it is called
@@ -292,6 +295,7 @@ def dismantle_greedy_banded(
     degree_cost = variant == "degree_cost"
     fuse = (not hca) and (banded.spill_free if fuse_sage is None else bool(fuse_sage))
     device = banded.device
+    env.to(device)
     pad_n, n = banded.pad_n, env.n
     max_steps = max_steps or n
     sol: List[int] = []
@@ -329,7 +333,7 @@ def dismantle_greedy_banded(
     def count(counts: Dict[str, int]) -> None:
         row = rows[-1]
         for key, v in counts.items():
-            row[key] = row.get(key, 0) + v
+            row[key] = v if key == "on_device" else row.get(key, 0) + v
 
     # sync the band with the edges the env severed at reset (the t=0
     # cascade usually severs some: the two layers' partitions rarely agree)

@@ -93,9 +93,10 @@ def run(device: str = "cpu", backend: str = "gloo", config=None, out_dir=None,
     config = dict(SMALL if config is None else config, device=device, backend=backend)
     config.setdefault("rules", RULES)
     if device != "cpu":
-        from mdcommunity_tpu_torch.ops import band_kernels
+        from mdcommunity_tpu_torch.ops import band_kernels, cascade_kernels
 
         band_kernels.build()
+        cascade_kernels.build()
     if "trainer" in config["phases"]:
         from mdcommunity_tpu_torch.native import build as native_build
 

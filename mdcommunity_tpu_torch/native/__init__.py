@@ -6,6 +6,11 @@ first use and returns None when no toolchain is available.
 the engine of the large-graph eval path; `gmm_connect` is the GMM
 generator's pair sampler for large N (graphs/gmm.py).
 
+`NativeDuplexEnv.to(cuda device)` moves the env's cascade onto the card, in
+place (env/device_cascade.DeviceCascade, csrc/cascade.cu): the banded loops
+call it with their band's device.  An env that is never moved runs the C++
+engine.
+
 Every cascade (reset, step, step_many) records its work and time;
 `NativeDuplexEnv.cascade_stats` reads the last one's as a dict keyed by
 CASCADE_STATS.
@@ -27,10 +32,11 @@ _load_attempted = False
 # relabels walked; nodes that changed record; the other layer's incident
 # edges tested for a sever; edges severed; ns seeding (covering the step's
 # nodes, or reset's seed records), relabelling, testing severs, scanning
-# for the rank.
+# for the rank.  Then on_device: 1 for a cascade the card ran
+# (env/device_cascade.py gives the others their device meaning), 0 here.
 CASCADE_STATS = ("rounds", "records_relabelled", "nodes_walked", "edges_walked",
                  "nodes_moved", "edges_tested", "edges_severed",
-                 "cover_ns", "relabel_ns", "sever_test_ns", "rank_ns")
+                 "cover_ns", "relabel_ns", "sever_test_ns", "rank_ns", "on_device")
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -86,7 +92,8 @@ def _ptr(a: np.ndarray):
 
 
 class NativeDuplexEnv:
-    """Union-find duplex dismantling env; same surface as HostDuplexEnv."""
+    """Union-find duplex dismantling env; same surface as HostDuplexEnv.
+    After to(cuda) its DeviceCascade serves the surface."""
 
     engine = "native"
 
@@ -117,6 +124,37 @@ class NativeDuplexEnv:
         self.weights = w
         self.covered = np.zeros(self.n, bool)
         self.max_rank = int(lib.mdc_env_max_rank(self._handle))
+        self._dev = None  # the DeviceCascade once engaged
+
+    def to(self, device) -> "NativeDuplexEnv":
+        """Run the cascade on `device` from now on, in place: a CUDA device
+        engages a DeviceCascade (engage); the CPU keeps the C++ engine.
+        Returns the env."""
+        import torch
+
+        if torch.device(device).type == "cuda":
+            self.engage(device)
+        return self
+
+    def engage(self, device) -> "NativeDuplexEnv":
+        """Copy the C++ engine's state (covered, sever masks, rank, score,
+        curve, t) into a DeviceCascade on `device`, which then serves step,
+        step_many, reset, rank, terminal, sever, alive_nodes and
+        cascade_stats; on a CPU device it runs the kernels' plain versions
+        (the tests' way in).  Engaging the device already engaged does
+        nothing; another raises."""
+        import torch
+
+        from mdcommunity_tpu_torch.env.device_cascade import DeviceCascade
+
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if self._dev is None:
+            self._dev = DeviceCascade(self, dev)
+        elif self._dev.device != dev:
+            raise ValueError(f"the env's cascade is on {self._dev.device}, not {dev}")
+        return self
 
     def __del__(self):
         h = getattr(self, "_handle", None)
@@ -126,22 +164,32 @@ class NativeDuplexEnv:
 
     @property
     def rank(self) -> int:
+        if self._dev is not None:
+            return self._dev.rank
         return int(self._lib.mdc_env_rank(self._handle))
 
     @property
     def score(self) -> float:
+        if self._dev is not None:
+            return self._dev.score
         return float(self._lib.mdc_env_score(self._handle))
 
     @property
     def t(self) -> int:
+        if self._dev is not None:
+            return self._dev.t
         return int(self._lib.mdc_env_t(self._handle))
 
     @property
     def terminal(self) -> bool:
+        if self._dev is not None:
+            return self._dev.terminal
         return bool(self._lib.mdc_env_terminal(self._handle))
 
     @property
     def curve(self) -> List[float]:
+        if self._dev is not None:
+            return list(self._dev.curve)
         k = int(self._lib.mdc_env_curve_len(self._handle))
         out = np.empty(k, np.float64)
         self._lib.mdc_env_curve(self._handle, _ptr(out))
@@ -149,6 +197,8 @@ class NativeDuplexEnv:
 
     @property
     def sever(self) -> List[np.ndarray]:
+        if self._dev is not None:
+            return self._dev.sever_masks
         out = []
         for layer in (0, 1):
             buf = np.zeros(len(self.edges[layer]), np.uint8)
@@ -158,11 +208,15 @@ class NativeDuplexEnv:
         return out
 
     def reset(self):
+        if self._dev is not None:
+            return self._dev.reset()
         self._lib.mdc_env_reset(self._handle)
         self.covered[:] = False
 
     def step(self, a: int, degree_cost: bool = False) -> Tuple[int, List[np.ndarray]]:
         assert not self.covered[a], a
+        if self._dev is not None:
+            return self._dev.step(a, degree_cost)
         rank = int(self._lib.mdc_env_step(self._handle, int(a), int(degree_cost)))
         self.covered[a] = True
         return rank, self._new_sever()
@@ -176,6 +230,8 @@ class NativeDuplexEnv:
         order-independent); curve and score take the post-batch rank for
         every node of the batch (AUDC bias ≤ batch/n).  Skips covered
         entries.  Returns (rank, new severed edges per layer, n_removed)."""
+        if self._dev is not None:
+            return self._dev.step_many(actions, degree_cost)
         acts = np.ascontiguousarray(np.asarray(actions, np.int64).reshape(-1))
         removed = int(
             self._lib.mdc_env_step_many(
@@ -200,13 +256,17 @@ class NativeDuplexEnv:
     def cascade_stats(self) -> Dict[str, int]:
         """The last cascade's counters (CASCADE_STATS); a step_many that
         removed nothing ran none and leaves them as they were."""
+        if self._dev is not None:
+            return dict(self._dev.stats)
         out = np.zeros(len(CASCADE_STATS), np.int64)
         got = self._lib.mdc_env_cascade_stats(self._handle, _ptr(out))
-        assert got == len(CASCADE_STATS), got
-        return dict(zip(CASCADE_STATS, out.tolist()))
+        assert got == len(CASCADE_STATS) - 1, got
+        return dict(zip(CASCADE_STATS, out.tolist() + [0]))
 
     def alive_nodes(self, layer: int) -> np.ndarray:
         """bool [n]: nodes with at least one live edge in `layer`."""
+        if self._dev is not None:
+            return self._dev.alive_nodes(layer)
         out = np.zeros(self.n, np.uint8)
         self._lib.mdc_env_alive_nodes(self._handle, int(layer), _ptr(out))
         return out.astype(bool)

@@ -5,7 +5,9 @@ The reference's Train() loop (MultiDismantler_torch.py:433-547: rollout,
 transitions, fit, target snapshot) at the scale of the large-graph eval, as
 the JAX package's rl/big_trainer.py runs it: the unit of interaction is a
 StepRatio macro-step.  The policy ranks all nodes, the top k (eps-mixed) are
-removed together, and one host cascade advances the environment.
+removed together, and one cascade advances the environment: on the band's
+card when the env is the native one (the loop calls env.to(device);
+env/device_cascade.py), else on the host.
 
 * A transition is (s_t, A_t, r_t, s_{t+1}): A_t the k actions of the
   macro-step, r_t(a) = -norm_post·cost(a) per action (step_many's score
@@ -37,8 +39,8 @@ ShardedBandedDuplexes, selection and targets run the unfused forward through
 the sharded band operator (kernel K3) with a global top-k of the gathered
 Q, and the fit differentiates through ShardedBandSpmm.  The mesh may span
 processes (parallel/mesh.init_distributed): every process then runs the
-same host cascade from the same seed, as every JAX process runs the same
-host code, selects from the same gathered Q, fits its own shards' part of
+same cascade from the same seed (on its own card, or the host), as every
+JAX process runs the same host code, selects from the same gathered Q, fits its own shards' part of
 the loss, and sums the gradients with the others before the Adam step, so
 the parameters stay bit-identical on every process.
 """
@@ -150,8 +152,8 @@ def train_banded_loop(
     edges, or whose block count the shards do not divide, raises
     ValueError.  Selection and targets then run the unfused forward (the
     fused step is single-device), precise as asked; actions and targets
-    stay on the first shard's device; the host env is unchanged and its
-    severs are routed to the shards that own them.  On a mesh that spans
+    stay on the first shard's device; the env's cascade runs on that
+    device too, and its severs are routed to the shards that own them.  On a mesh that spans
     processes every process calls the loop with the same arguments (its
     own env, made alike) and returns the same net; the history's loss is
     the whole loss.
@@ -187,6 +189,7 @@ def train_banded_loop(
     if mesh is not None:
         banded0 = shard_banded_duplex(mesh, banded0)
     device = banded0.device
+    env.to(device)
     rng = np.random.default_rng(seed)
     pad_n = banded0.pad_n
     fuse = packed and banded0.spill_free and mesh is None

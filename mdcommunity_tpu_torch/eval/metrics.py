@@ -222,6 +222,13 @@ def top_k_stable(q: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
     return vals[:k].cpu().numpy(), order[:k].cpu().numpy()
 
 
+def _comm_launches() -> int:
+    """K1 launches of the HCA community pass so far (ops/band_kernels)."""
+    from mdcommunity_tpu_torch.ops.band_kernels import launches
+
+    return sum(v for k, v in launches.items() if k.startswith("band_spmm_comm"))
+
+
 def dismantle_greedy_banded(
     net: DuplexQNet,
     banded: BandedDuplex,
@@ -284,7 +291,10 @@ def dismantle_greedy_banded(
     degree cost also scores each removal by its cost (env.step(a,
     degree_cost=True)).  "hca" needs hca_data (models/hca_banded.HcaBandData
     in banded order) and runs banded_hca_forward: K1 for its pooling and its
-    community pass, never the fused step, f32 storage only.
+    community pass, never the fused step, f32 storage only; its rows add
+    the forward's spans (hca_node_pool, hca_comm_graph, hca_decode) and the
+    counters n_comms (a layer), c_pad and comm_launches (the community
+    pass's K1 launches of the call, band_spmm_comm*).
 
     Returns (solution in banded ids, score = AUDC, curve)."""
     if shadow is not None and not (batch_env and step > 1):
@@ -322,7 +332,11 @@ def dismantle_greedy_banded(
         with span(row, "t_call_s"):
             with matmul_precision(precise):
                 if hca:
-                    q = banded_hca_forward(net, banded, hca_data, covered, precise=precise)
+                    before = _comm_launches()
+                    q = banded_hca_forward(net, banded, hca_data, covered, precise=precise,
+                                           row=row)
+                    row.update(n_comms=list(hca_data.n_comms), c_pad=hca_data.c_pad,
+                               comm_launches=_comm_launches() - before)
                 else:
                     q = banded_test_forward(net, banded, covered, fuse_sage=fuse,
                                             precise=precise, act_dtype=act_dtype,

@@ -46,8 +46,11 @@ Adapted from networkx/algorithms/community/louvain.py and quality.py
 from __future__ import annotations
 
 import random
+import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Set
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
 
 # a level's graph: adjacency dicts {neighbour: integer weight} in insertion
 # order, one per node 0..k-1
@@ -119,8 +122,10 @@ def modularity(adj: Adj, communities: List[Set[int]], resolution=1) -> float:
     return sum(map(community_contribution, communities))
 
 
-def _one_level(adj: Adj, members: Optional[List[Set[int]]], m, partition, resolution, rng):
-    """One pass of local moves (networkx's `_one_level`, undirected)."""
+def _one_level(adj: Adj, members: Optional[List[Set[int]]], m, partition, resolution, rng,
+               tally: List[int]):
+    """One pass of local moves (networkx's `_one_level`, undirected); adds
+    the pass and its node moves to tally [passes, moves]."""
     k = len(adj)
     node2com = list(range(k))
     inner_partition = [{u} for u in range(k)]
@@ -160,6 +165,8 @@ def _one_level(adj: Adj, members: Optional[List[Set[int]]], m, partition, resolu
                 improvement = True
                 nb_moves += 1
                 node2com[u] = best_com
+        tally[1] += nb_moves
+    tally[0] += 1
     partition = list(filter(len, partition))
     inner_partition = list(filter(len, inner_partition))
     return partition, inner_partition, improvement
@@ -187,13 +194,8 @@ def _gen_graph(adj: Adj, members: Optional[List[Set[int]]], partition: List[Set[
     return out, new_members
 
 
-def louvain_communities(
-    n: int, edges: Sequence, seed: int = 0, resolution=1, threshold: float = 0.0000001
-) -> List[Set[int]]:
-    """`networkx.community.louvain_communities(G, seed=seed)` for the graph
-    `nx.Graph(); add_nodes_from(range(n)); add_edges_from(edges)`: the
-    communities (sets of node ids) of the last level, in networkx's order."""
-    rng = random.Random(seed)
+def _louvain_python(n: int, edges, rng: random.Random, resolution, threshold: float,
+                    tally: List[int]) -> List[Set[int]]:
     g = graph_adjacency(n, edges)
     partition = [{u} for u in range(n)]
     if not any(g):  # nx.is_empty: no edges
@@ -201,7 +203,8 @@ def louvain_communities(
     mod = modularity(g, partition, resolution)
     adj, members = _rebuild(g), None
     m = sum(degree(adj, u) for u in range(n)) / 2
-    partition, inner, improvement = _one_level(adj, members, m, partition, resolution, rng)
+    partition, inner, improvement = _one_level(adj, members, m, partition, resolution, rng,
+                                               tally)
     improvement = True
     last = partition
     while improvement:
@@ -212,5 +215,83 @@ def louvain_communities(
         mod = new_mod
         adj, members = _gen_graph(adj, members, inner)
         partition, inner, improvement = _one_level(adj, members, m, partition, resolution,
-                                                   rng)
+                                                   rng, tally)
     return last
+
+
+def _shuffled(rng: random.Random, k: int) -> np.ndarray:
+    order = list(range(k))
+    rng.shuffle(order)
+    return np.asarray(order, np.int64)
+
+
+def _louvain_native(lib, n: int, e: np.ndarray, rng: random.Random, resolution,
+                    threshold: float, tally: List[int]) -> Tuple[np.ndarray, int]:
+    from mdcommunity_tpu_torch.native import _ptr
+
+    h = lib.mdc_louvain_create(n, _ptr(e), len(e), float(resolution))
+    if not h:
+        raise ValueError(f"the native Louvain takes fewer than 2^31 - 1 nodes and edges "
+                         f"({n} nodes, {len(e)} edges)")
+    try:
+        labels = np.empty(n, np.int64)
+        if not lib.mdc_louvain_empty(h):
+            lib.mdc_louvain_level(h, _ptr(_shuffled(rng, n)))
+            while lib.mdc_louvain_next(h, float(threshold)):
+                if not lib.mdc_louvain_level(h, _ptr(_shuffled(rng, lib.mdc_louvain_size(h)))):
+                    break
+        count = int(lib.mdc_louvain_labels(h, _ptr(labels)))
+        st = np.zeros(2, np.int64)
+        lib.mdc_louvain_stats(h, _ptr(st))
+        tally[0] += int(st[0])
+        tally[1] += int(st[1])
+    finally:
+        lib.mdc_louvain_destroy(h)
+    return labels, count
+
+
+def louvain_labels(n: int, edges: Sequence, seed: int = 0, resolution=1,
+                   threshold: float = 0.0000001, stats: Optional[dict] = None
+                   ) -> Tuple[np.ndarray, int]:
+    """Each node's community in `louvain_communities(n, edges, seed)`'s list
+    (int64 [n]) and the number of communities.  With `stats`, appends to
+    its lists louvain_s (host seconds), louvain_levels (passes of local
+    moves) and louvain_moves (node moves, over all passes)."""
+    from mdcommunity_tpu_torch import native
+
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    tally = [0, 0]
+    lib = native.load()
+    if lib is not None:
+        e = np.ascontiguousarray(np.asarray(edges, np.int64).reshape(-1, 2))
+        bad = (e < 0) | (e >= n)
+        if bad.any():
+            u, v = e[int(np.argmax(bad.any(axis=1)))]
+            raise ValueError(f"edge ({u}, {v}) names a node outside range({n})")
+        labels, count = _louvain_native(lib, n, e, rng, resolution, threshold, tally)
+    else:
+        comms = _louvain_python(n, edges, rng, resolution, threshold, tally)
+        labels = np.empty(n, np.int64)
+        for cid, nodes in enumerate(comms):
+            labels[list(nodes)] = cid
+        count = len(comms)
+    if stats is not None:
+        for key, v in (("louvain_s", time.perf_counter() - t0), ("louvain_levels", tally[0]),
+                       ("louvain_moves", tally[1])):
+            stats.setdefault(key, []).append(v)
+    return labels, count
+
+
+def louvain_communities(
+    n: int, edges: Sequence, seed: int = 0, resolution=1, threshold: float = 0.0000001
+) -> List[Set[int]]:
+    """`networkx.community.louvain_communities(G, seed=seed)` for the graph
+    `nx.Graph(); add_nodes_from(range(n)); add_edges_from(edges)`: the
+    communities (sets of node ids) of the last level, in networkx's order."""
+    labels, count = louvain_labels(n, edges, seed, resolution, threshold)
+    if count == 0:
+        return []
+    order = np.argsort(labels, kind="stable")
+    bounds = np.cumsum(np.bincount(labels, minlength=count))[:-1]
+    return [set(part.tolist()) for part in np.split(order, bounds)]

@@ -39,6 +39,7 @@ from mdcommunity_tpu_torch.models.hca import HcaQNet, hca_decode, hca_head
 from mdcommunity_tpu_torch.ops.aggregate import l2_normalize
 from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band
 from mdcommunity_tpu_torch.utils.device import resolve_device
+from mdcommunity_tpu_torch.utils.profiling import span
 
 COMM_CHUNK = 256  # K1's widest right-hand side (csrc/band.cu)
 
@@ -47,8 +48,7 @@ COMM_CHUNK = 256  # K1's widest right-hand side (csrc/band.cu)
 class HcaBandData:
     """Static HCA node data in BANDED (locality-ordered, padded) node order.
 
-    comm_id  : int64[2, pad_n] community index, clipped to c_pad - 1
-               (padding rows 0)
+    comm_id  : int64[2, pad_n] community index (padding rows 0)
     n_comms  : (int, int)      real community counts
     hca_feat : f32[pad_n, 3]   [f_het, f_impact, f_roi] (padding rows 0)
     c_pad    : int             the community tables' rows
@@ -74,8 +74,9 @@ def make_hca_band_data(comm_id: np.ndarray, n_comms: np.ndarray, hca_feat: np.nd
     """Permute the host's HCA arrays (graphs/hca.py, original ids, length n)
     into banded order and pad to pad_n; perm maps banded position ->
     original id (build_banded_duplex's).  c_pad defaults to the least power
-    of two >= 8 that holds every layer's communities.  On `device`, CUDA
-    unless named."""
+    of two >= 8 that holds every layer's communities; a c_pad that holds
+    fewer raises (the tables would merge communities).  On `device`,
+    CUDA unless named."""
     device = resolve_device(device)
     n = len(perm)
     if c_pad is None:
@@ -84,7 +85,9 @@ def make_hca_band_data(comm_id: np.ndarray, n_comms: np.ndarray, hca_feat: np.nd
             c_pad *= 2
     cid = np.zeros((2, pad_n), np.int64)
     cid[:, :n] = np.asarray(comm_id, np.int64)[:, perm]
-    cid = np.clip(cid, 0, c_pad - 1)
+    most = max(int(np.max(n_comms, initial=0)), int(cid.max(initial=0)) + 1)
+    if most > c_pad:
+        raise ValueError(f"c_pad {c_pad} holds fewer than a layer's {most} communities")
     feat = np.zeros((pad_n, 3), np.float32)
     feat[:n] = np.asarray(hca_feat, np.float32)[perm]
     order = np.argsort(cid, axis=1, kind="stable")
@@ -124,13 +127,17 @@ def community_graph(bdx, hd: HcaBandData, layer: int, live: torch.Tensor,
 @torch.no_grad()
 def banded_hca_forward(net: HcaQNet, bdx, hd: HcaBandData, covered: torch.Tensor,
                        max_bp_iter: int = 3, top_frac: float = 0.3, precise: bool = True,
-                       ref_quirks: bool = False) -> torch.Tensor:
+                       ref_quirks: bool = False, row: Optional[dict] = None) -> torch.Tensor:
     """Q(s, ·) over all nodes of a BandedDuplex with HCA heads: [pad_n];
     dead nodes -inf.  The math of models/hca.hca_forward at B = 1 (see its
     docstring for ref_quirks).  precise=False runs K1's bf16 mode for the
     node pooling and the community pass (exact there), as the JAX
     package's precise flag does; the dense layers run at the caller's
-    matmul precision (utils/device.matmul_precision)."""
+    matmul precision (utils/device.matmul_precision).  Spans
+    (utils/profiling.span) into `row`: hca_node_pool (the rounds' pooling,
+    K1 over the node adjacency and the community sums), hca_comm_graph (the
+    community pass) and hca_decode (the decoder and the gate)."""
+    row = {} if row is None else row
     c_pad = hd.c_pad
     # HCA keeps isolated survivors active (PrepareBatchGraph :49-58)
     active = (~covered) & bdx.node_mask
@@ -142,13 +149,20 @@ def banded_hca_forward(net: HcaQNet, bdx, hd: HcaBandData, covered: torch.Tensor
 
     def pools(layer):
         def comm_adj():
-            a = (community_graph(bdx, hd, layer, live, precise) > 0).to(live.dtype)
-            eye = torch.eye(c_pad, dtype=live.dtype, device=live.device)
-            return a * (1.0 - eye) + eye * real[layer][:, None].to(live.dtype)
+            with span(row, "hca_comm_graph"):
+                a = (community_graph(bdx, hd, layer, live, precise) > 0).to(live.dtype)
+                eye = torch.eye(c_pad, dtype=live.dtype, device=live.device)
+                return a * (1.0 - eye) + eye * real[layer][:, None].to(live.dtype)
 
-        return (lambda h: spmm_dense_band(bdx.dbg(layer), live, live, h, precise=precise),
-                lambda h: community_sum(hd, layer, member_w[:, None] * h),
-                comm_adj)
+        def node_pool(h):
+            with span(row, "hca_node_pool"):
+                return spmm_dense_band(bdx.dbg(layer), live, live, h, precise=precise)
+
+        def comm_pool(h):
+            with span(row, "hca_node_pool"):
+                return community_sum(hd, layer, member_w[:, None] * h)
+
+        return node_pool, comm_pool, comm_adj
 
     real = torch.stack([torch.arange(c_pad, device=live.device) < k for k in hd.n_comms])
     hf, y_f = hca_head(net, h0, node_input[:, 0:1], c_pad, pools, max_bp_iter)
@@ -158,4 +172,5 @@ def banded_hca_forward(net: HcaQNet, bdx, hd: HcaBandData, covered: torch.Tensor
         cid = hd.comm_id[layer]
         return member_w * mask[cid], member_w[:, None] * y[cid]
 
-    return hca_decode(net, h_f, y_f, real, member_q, active, top_frac, ref_quirks)
+    with span(row, "hca_decode"):
+        return hca_decode(net, h_f, y_f, real, member_q, active, top_frac, ref_quirks)

@@ -4,7 +4,8 @@
 first use and returns None when no toolchain is available.
 `NativeDuplexEnv` has the same surface as env/host_env.HostDuplexEnv and is
 the engine of the large-graph eval path; `gmm_connect` is the GMM
-generator's pair sampler for large N (graphs/gmm.py).
+generator's pair sampler for large N (graphs/gmm.py); the `mdc_louvain_*`
+entries (src/mdc_louvain.cpp) run graphs/louvain.py's levels.
 
 `NativeDuplexEnv.to(cuda device)` moves the env's cascade onto the card, in
 place (env/device_cascade.DeviceCascade, csrc/cascade.cu): the banded loops
@@ -83,6 +84,19 @@ def load() -> Optional[ctypes.CDLL]:
     lib.mdc_env_cascade_stats.argtypes = [p, p]
     lib.mdc_gmm_connect.restype = i64
     lib.mdc_gmm_connect.argtypes = [i64, p, p, f64, f64, ctypes.c_uint64, p, i64]
+    lib.mdc_louvain_create.restype = p
+    lib.mdc_louvain_create.argtypes = [i64, p, i64, f64]
+    lib.mdc_louvain_destroy.argtypes = [p]
+    for name in ("mdc_louvain_empty", "mdc_louvain_level", "mdc_louvain_next"):
+        getattr(lib, name).restype = i32
+    lib.mdc_louvain_empty.argtypes = [p]
+    lib.mdc_louvain_level.argtypes = [p, p]
+    lib.mdc_louvain_next.argtypes = [p, f64]
+    lib.mdc_louvain_size.restype = i64
+    lib.mdc_louvain_size.argtypes = [p]
+    lib.mdc_louvain_labels.restype = i64
+    lib.mdc_louvain_labels.argtypes = [p, p]
+    lib.mdc_louvain_stats.argtypes = [p, p]
     _lib = lib
     return _lib
 

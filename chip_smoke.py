@@ -98,16 +98,19 @@ Phases, each of which raises (and so exits non-zero) on any failure:
  12. the variants (variant_phase): degree cost, CE and HCA, each with its
      committed *_100k_r5 checkpoint, dismantling the main path's graph
      through evaluate_real(variant=...) (the CE prior and the HCA
-     communities by the port's Louvain; HCA's pooling and community pass on
-     K1), each first forward on the card held to the CPU's, precise and
-     fast (at the fast rows' tolerances, CE's less the shift common to all
-     its nodes; HCA relaunched for the same bits), the first VARIANT_LOCKSTEP
-     model calls of each run held to the CPU forward (Lockstep), counts set
-     to 0 just before and read just after each run; K1 at the community
-     pass's widths (D = 128, 256 and a 512-wide pass in two launches, in
-     both precise modes; bit-equal on one-hot operands, relaunched for the
-     same bits) and timed at c_pad beside its bound, plain version and
-     torch.bmm; and each variant's synthetic rows (sizes 32, 64, 128) and
+     communities by the port's Louvain; HCA's pooling on K1, its community
+     pass on csrc/hca.cu, whose launches the HCA run must show and K1's
+     one-hot launches must not), each first forward on the card held to the
+     CPU's, precise and fast (at the fast rows' tolerances, CE's less the
+     shift common to all its nodes; HCA relaunched for the same bits), the
+     first VARIANT_LOCKSTEP model calls of each run held to the CPU forward
+     (Lockstep), counts set to 0 just before and read just after each run;
+     K1 at the community widths (D = 128, 256 and a 512-wide K1 form in two
+     launches, in both precise modes; bit-equal on one-hot operands,
+     relaunched for the same bits); the community pass at c_pad = 512
+     bit-equal to that K1 form, the CPU's plain pass and a relaunch, and
+     timed at the HCA path's c_pad and at 2^20 rows with c_pad 4,096 beside
+     its bound and plain version; and each variant's synthetic rows (sizes 32, 64, 128) and
      32-graph validation VC on the card against the CPU (identical rows,
      VCs within 1e-4);
  13. the variants' training (variant_train_phase): DQNAgent for CE and for
@@ -235,6 +238,7 @@ def build_all():
         band_kernels,
         blocked_kernels,
         cascade_kernels,
+        hca_kernels,
         probe_kernels,
     )
 
@@ -253,6 +257,7 @@ def build_all():
         threading.Thread(target=run, args=("blocked.cu (nvcc)", blocked_kernels.build)),
         threading.Thread(target=run, args=("probe.cu (nvcc)", probe_kernels.build)),
         threading.Thread(target=run, args=("cascade.cu (nvcc)", cascade_kernels.build)),
+        threading.Thread(target=run, args=("hca.cu (nvcc)", hca_kernels.build)),
         threading.Thread(target=run, args=("mdc_native.cpp (g++)", native_build.build)),
     ]
     t0 = time.perf_counter()
@@ -264,7 +269,7 @@ def build_all():
         raise RuntimeError(f"build of {name} failed") from exc
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    for name in ("band", "blocked", "probe", "cascade"):
+    for name in ("band", "blocked", "probe", "cascade", "hca"):
         with open(os.path.join(os.path.dirname(band_kernels.LIB), f"{name}_ptxas.log")) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -3206,6 +3211,7 @@ def variant_path(device, variant, n, step_ratio, lockstep=VARIANT_LOCKSTEP):
     from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
     from mdcommunity_tpu_torch.models.checkpoint import load_model
     from mdcommunity_tpu_torch.ops import band_kernels as bk
+    from mdcommunity_tpu_torch.ops import hca_kernels as hk
 
     name = main_graph_file(n)
     path = os.path.join(OUT, name)
@@ -3248,6 +3254,7 @@ def variant_path(device, variant, n, step_ratio, lockstep=VARIANT_LOCKSTEP):
     shadow = Lockstep(net, path, n, step, lockstep, variant, extra)
     stats = {}
     bk.reset_launches()
+    hk.reset_launches()
     t0 = time.perf_counter()
     sol, solve_s, score = evaluate_real(
         net, OUT, name, out, n_nodes=n, layers=(1, 2), step_ratio=step_ratio,
@@ -3255,7 +3262,7 @@ def variant_path(device, variant, n, step_ratio, lockstep=VARIANT_LOCKSTEP):
         stats=stats, shadow=shadow, variant=variant)
     if device != "cpu":
         torch.cuda.synchronize()
-    counts = dict(bk.launches)
+    counts = {**bk.launches, **hk.launches}
     lock = shadow.summary()
     mean_fwd = 1e3 * stats["model_call_s"] / max(stats["model_calls"], 1)
     k12 = {k: v for k, v in counts.items() if v and k.startswith(("band_spmm", "band_sage"))}
@@ -3278,13 +3285,16 @@ def variant_path(device, variant, n, step_ratio, lockstep=VARIANT_LOCKSTEP):
     for f in files:
         if not os.path.isfile(os.path.join(tag, f"{f}_synthetic_{n}_multiplex_12.txt")):
             raise AssertionError(f"{variant}: no {f} file")
-    need = ("band_spmm", "band_spmm_comm") if variant == "hca" else ("band_spmm", "band_sage")
+    need = ("band_spmm", "hca_comm_adj") if variant == "hca" else ("band_spmm", "band_sage")
     if device != "cpu":
         for k in need:
             if counts[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the {variant} path")
         if variant == "hca" and counts["band_sage"]:
             raise AssertionError("the HCA forward runs K1 only")
+        if variant == "hca" and any(v for k, v in counts.items()
+                                    if k.startswith("band_spmm_comm")):
+            raise AssertionError("the HCA forward ran K1 on the one-hot membership")
     return counts, result, extra
 
 
@@ -3350,8 +3360,8 @@ def check_comm_widths(device, banded, cpu_banded):
     """K1 at the community pass's widths on the main graph's 18,432 rows, in
     both precise modes: random operands at D = 128 and 256 against the
     plain version (REL_TOL), one-hot operands (integer sums) bit-equal to
-    it, every launch twice for the same bits; and the whole community pass
-    at c_pad = 512 (two K1 launches of 256 columns, community sums in a
+    it, every launch twice for the same bits; and the community pass's K1
+    form at c_pad = 512 (two K1 launches of 256 columns, community sums in a
     fixed order) on the card bit-equal to the CPU's plain pass (on
     cpu_banded, the same build on the CPU) and to a relaunch.  Returns the
     worst error by counter."""
@@ -3393,53 +3403,109 @@ def check_comm_widths(device, banded, cpu_banded):
         got = community_graph(banded, data(device), 0, live.to(device), precise)
         again = community_graph(banded, data(device), 0, live.to(device), precise)
         if not (torch.equal(got.cpu(), ref) and torch.equal(got, again)):
-            raise AssertionError(f"community pass at c_pad=512 (precise={precise}): "
+            raise AssertionError(f"K1 form at c_pad=512 (precise={precise}): "
                                  "not bit-equal to the plain pass or to a relaunch")
-        log(f"check community pass c_pad=512 precise={precise}: bit-equal to the CPU's "
+        log(f"check K1 form c_pad=512 precise={precise}: bit-equal to the CPU's "
             f"plain pass and to a relaunch ({int(ref.sum().item())} live directed edges)")
     return errs
 
 
-def time_comm(device, banded, hd, label):
-    """K1 at the community pass's width c_pad on the HCA path's operands
-    (layer 0's one-hot membership, every node live), beside its plain
-    version, its bound and torch.bmm of the widened band against the
-    materialised windows (the same product without the mirror lanes)."""
+def check_comm_pass(device, banded, cpu_banded):
+    """The community pass (ops/hca_kernels.comm_adj) at c_pad = 512 on both
+    layers of the main graph's 18,432 rows, 10% of the nodes covered, with
+    seeded and with arc communities (every edge across, most edges inside):
+    on the card bit-equal to the K1 form on the card, (community_graph > 0)
+    with the diagonal set to the real communities, to the CPU's plain pass
+    and to a relaunch."""
     import torch
 
-    from mdcommunity_tpu_torch.ops import band_kernels as bk
-    from mdcommunity_tpu_torch.ops.band_kernels import _windows
-    from mdcommunity_tpu_torch.ops.dense_band import mirror_sub
+    from mdcommunity_tpu_torch.models.hca_banded import HcaBandData, community_graph
+    from mdcommunity_tpu_torch.ops import hca_kernels as hk
 
-    dbg = banded.dbg0
-    live = banded.node_mask.float()
-    ids = torch.arange(hd.c_pad, device=live.device)
-    x = (hd.comm_id[0][:, None] == ids[None, :]).float().contiguous()
-    sub = mirror_sub(dbg, live, x)
-    kern = lambda: bk.spmm_band(dbg, live, live, x, sub, "band_spmm_comm")  # noqa: E731
-    plain = lambda: bk.spmm_band_plain(dbg, live, live, x, sub)  # noqa: E731
-    err = compare(f"{label} K1 D={hd.c_pad} community pass", kern(), plain())
-    base_f = widened(dbg, torch.float32)
-    win = _windows(x * live[:, None], dbg.n_blocks, dbg.S, dbg.B).contiguous()
-    lib_ms = time_ms(lambda: torch.bmm(base_f, win))
-    lib_dev = device_time_ms(lambda: torch.bmm(base_f, win))
-    del base_f, win
-    bound_ms, bound_by = bounds(dbg, hd.c_pad, False)
+    pad_n, n_real, c_pad = banded.pad_n, 500, 512
+    live_f = comm_operands(banded.dbg0, 1, 50, "cpu")[1]
+    live = live_f > 0
+    eye = torch.eye(c_pad, device=device)
+    real = (torch.arange(c_pad, device=device) < n_real).float()
+    arcs = torch.arange(pad_n) * n_real // pad_n
+    seeded = torch.randint(0, n_real, (pad_n,), generator=torch.Generator().manual_seed(51))
+    for label, cid in (("seeded", seeded), ("arcs", arcs)):
+        order = torch.argsort(cid, stable=True)
+        lengths = torch.bincount(cid, minlength=c_pad)
+        hd = HcaBandData(comm_id=torch.stack([cid, cid]).to(device), n_comms=(n_real, n_real),
+                         hca_feat=torch.zeros(pad_n, 3, device=device), c_pad=c_pad,
+                         order=torch.stack([order, order]).to(device),
+                         lengths=torch.stack([lengths, lengths]).to(device))
+        for layer in range(2):
+            args = (hd.comm_id[layer], live.to(device), n_real, c_pad)
+            got = hk.comm_adj(banded.dbg(layer), *args)
+            again = hk.comm_adj(banded.dbg(layer), *args)
+            k1 = (community_graph(banded, hd, layer, live_f.to(device)) > 0).float()
+            k1 = k1 * (1.0 - eye) + eye * real[:, None]
+            plain = hk.comm_adj_plain(cpu_banded.dbg(layer), cid, live, n_real, c_pad)
+            if not (torch.equal(got, k1) and torch.equal(got.cpu(), plain)
+                    and torch.equal(got, again)):
+                raise AssertionError(f"community pass ({label}, layer {layer}): not bit-equal "
+                                     "to the K1 form, the plain pass or a relaunch")
+            log(f"check community pass c_pad=512 {label} layer {layer}: bit-equal to the K1 "
+                f"form, the CPU's plain pass and a relaunch "
+                f"({int(got.sum().item()) - n_real} inter-community pairs)")
+
+
+def comm_bound_ms(dbg, c_pad, store_bytes=4):
+    """Least time of one community pass: each byte read once (the band
+    rows at their stored width, the mirror map, the mirror and spill COOs'
+    edges and weights, comm_id and live) and the table written once, at the
+    card's memory rate."""
+    pitch = dbg.W2 // 2 if dbg.nibble else dbg.W2
+    byts = (dbg.n_blocks * dbg.S * pitch + dbg.mirror_node.numel() * 8
+            + (dbg.ccoo.nnz + dbg.spill.nnz) * 20 + dbg.pad_n * 9
+            + c_pad * c_pad * store_bytes)
+    return 1e3 * byts / PEAK_BYTES_S
+
+
+def time_comm(device, dbg, cid, n_real, c_pad, label, random_cid=None):
+    """The community pass (ops/hca_kernels.comm_adj) on one layer, every
+    real node live: ms (CUDA events) and device ms beside its plain version
+    (PyTorch on the same tensors) and its bound (comm_bound_ms); checked
+    bit-equal to the plain version.  With random_cid, the device ms of the
+    same pass under those communities too (nearly every edge a store)."""
+    import torch
+
+    from mdcommunity_tpu_torch.ops import hca_kernels as hk
+
+    live = torch.zeros(dbg.pad_n, dtype=torch.bool, device=cid.device)
+    live[:dbg.n] = True
+    kern = lambda: hk.comm_adj(dbg, cid, live, n_real, c_pad)  # noqa: E731
+    plain = lambda: hk.comm_adj_plain(dbg, cid, live, n_real, c_pad)  # noqa: E731
+    got, ref = kern(), plain()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{label} community pass: not bit-equal to its plain version")
+    err = (got - ref).abs().max().item()
+    del got, ref
     res = dict(ms=time_ms(kern), device_ms=device_time_ms(kern), plain_ms=time_ms(plain),
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-               library_device_ms=lib_dev, max_abs_err=err, D=hd.c_pad)
-    log(f"time {label} band_spmm_comm: pad_n={dbg.pad_n} C={dbg.C} " + json.dumps(res))
+               bound_ms=comm_bound_ms(dbg, c_pad), bound_by="bytes", library_ms=None,
+               library_device_ms=None, max_abs_err=err, c_pad=c_pad, n_real=n_real,
+               rows=dbg.pad_n, nibble=dbg.nibble)
+    if random_cid is not None:
+        res["device_ms_random_cid"] = device_time_ms(
+            lambda: hk.comm_adj(dbg, random_cid, live, n_real, c_pad))
+    log(f"time {label} hca_comm_adj: pad_n={dbg.pad_n} C={dbg.C} " + json.dumps(res))
     return res
 
 
 def variant_phase(device, n=18222, step_ratio=0.001, lockstep=VARIANT_LOCKSTEP,
-                  small=None):
+                  small=None, big=None):
     """Slice D1's phase: the three variants' large-graph dismantlings
-    (variant_path), K1 at the community pass's widths (check_comm_widths)
-    and timed at c_pad on the HCA path's structure (time_comm), and the
-    small-graph paths (variant_small_phase; `small` its keyword arguments).
-    Returns (counts by variant, results by variant, the community row's
-    numbers)."""
+    (variant_path), K1 at the community pass's widths (check_comm_widths),
+    the community pass checked (check_comm_pass) and timed on the HCA path's
+    structure (time_comm) and, given the 2^20-row build `big`, at its rows
+    with c_pad 4,096 (3,191 arc communities, as Louvain's count on the
+    benchmark's graph), and the small-graph paths (variant_small_phase;
+    `small` its keyword arguments).  Returns (counts by variant, results by
+    variant, the community pass's row: its 2^20 numbers under "2^20")."""
+    import torch
+
     from mdcommunity_tpu_torch.graphs.io import read_multiplex_edges
 
     counts, results, extras = {}, {}, {}
@@ -3453,11 +3519,19 @@ def variant_phase(device, n=18222, step_ratio=0.001, lockstep=VARIANT_LOCKSTEP,
     raw = read_multiplex_edges(os.path.join(OUT, main_graph_file(n)), n)
     band, hd = variant_band("hca", n, raw[1], raw[2], extra, device)
     cpu_band = variant_band("hca", n, raw[1], raw[2], extra, "cpu")[0]
-    comm = time_comm(device, band, hd, f"{band.pad_n:,} rows")
-    comm["max_abs_err"] = max(comm["max_abs_err"],
-                              *check_comm_widths(device, band, cpu_band).values())
+    comm = time_comm(device, band.dbg0, hd.comm_id[0], hd.n_comms[0], hd.c_pad,
+                     f"{band.pad_n:,} rows")
+    check_comm_widths(device, band, cpu_band)
+    check_comm_pass(device, band, cpu_band)
     del band, hd, cpu_band
-    log(f"variant phase: the community pass's K1 took {time.perf_counter() - t0:.1f} s")
+    if big is not None:
+        pad_n, n_real = big.pad_n, 3191
+        arcs = (torch.arange(pad_n, device=big.device) * n_real) // big.n_nodes
+        rand = torch.randint(0, n_real, (pad_n,), device=big.device,
+                             generator=torch.Generator(big.device).manual_seed(52))
+        comm["2^20"] = time_comm(device, big.dbg0, arcs.clamp(max=n_real - 1), n_real, 4096,
+                                 f"{pad_n:,} rows", random_cid=rand)
+    log(f"variant phase: the community pass took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     variant_small_phase(device, **(small or {}))
     log(f"variant phase: the small graphs took {time.perf_counter() - t0:.1f} s")
@@ -4585,7 +4659,7 @@ def main(argv=None):
         dqn_phase("cpu", dataclasses.replace(Config().smoke, save_frequency=5,
                                              update_time=5), iters=11, more=2)
         variant_phase("cpu", 2048, 0.01, lockstep=5,
-                      small=dict(sizes=(32, 48), n_graphs=2, n_valid=8))
+                      small=dict(sizes=(32, 48), n_graphs=2, n_valid=8), big=small)
         variant_train_phase("cpu", small, edges, 16, n=2048, iters=11, more=2, gp=2,
                             cfg=dataclasses.replace(Config().smoke, save_frequency=5,
                                                     update_time=5))
@@ -4702,7 +4776,7 @@ def main(argv=None):
     lap("blocked path")
     dqn = dqn_phase(device)[0]
     lap("dqn trainer")
-    variant_counts, variants, comm = variant_phase(device)
+    variant_counts, variants, comm = variant_phase(device, big=big)
     lap("variants")
     vt_counts, vt = variant_train_phase(device, big, big_edges, 1048)
     del big
@@ -4781,14 +4855,14 @@ def main(argv=None):
             replaces=f"mdcommunity_tpu/ops/pallas_spmm.py:{replaces}",
             launches=launched[name], **t))
     kernels.append(dict(
-        name="band_spmm_comm", route="cuda", source="mdcommunity_tpu_torch/csrc/band.cu",
-        replaces="mdcommunity_tpu/ops/band_pallas.py:259",
-        mode=f"K1 as the HCA community pass (models/hca_banded.py; JAX hca_banded.py:"
-             f"141-146, the XLA engine's band operator): the one-hot membership at "
-             f"D = c_pad = {comm['D']}",
-        launches=variant_counts["hca"]["band_spmm_comm"],
+        name="hca_comm_adj", route="cuda", source="mdcommunity_tpu_torch/csrc/hca.cu",
+        replaces="mdcommunity_tpu/ops/band_pallas.py:259 as HCA's community pass (JAX "
+                 "hca_banded.py:141-146, the band operator on the one-hot membership)",
+        mode=f"the binarised live community graph from the stored edges, c_pad = "
+             f"{comm['c_pad']}; at 2^20 rows, c_pad = 4,096: its numbers under \"2^20\"",
+        launches=variant_counts["hca"]["hca_comm_adj"],
         **{k: comm[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "library_device_ms")}))
+                                "bound_by", "library_ms", "library_device_ms", "2^20")}))
     for row in kernels:
         # phase 15: K3 and its backward in each of the two processes
         multi = {k: c.get(row["name"], 0) for k, c in mp_counts.items()}

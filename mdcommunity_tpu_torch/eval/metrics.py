@@ -223,10 +223,11 @@ def top_k_stable(q: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _comm_launches() -> int:
-    """K1 launches of the HCA community pass so far (ops/band_kernels)."""
-    from mdcommunity_tpu_torch.ops.band_kernels import launches
+    """Launches of the HCA community pass so far (ops/hca_kernels: one a
+    layer a call)."""
+    from mdcommunity_tpu_torch.ops.hca_kernels import launches
 
-    return sum(v for k, v in launches.items() if k.startswith("band_spmm_comm"))
+    return sum(launches.values())
 
 
 def dismantle_greedy_banded(
@@ -290,11 +291,12 @@ def dismantle_greedy_banded(
     with that variant's inputs (the band holds the weights and the prior);
     degree cost also scores each removal by its cost (env.step(a,
     degree_cost=True)).  "hca" needs hca_data (models/hca_banded.HcaBandData
-    in banded order) and runs banded_hca_forward: K1 for its pooling and its
-    community pass, never the fused step, f32 storage only; its rows add
-    the forward's spans (hca_node_pool, hca_comm_graph, hca_decode) and the
-    counters n_comms (a layer), c_pad and comm_launches (the community
-    pass's K1 launches of the call, band_spmm_comm*).
+    in banded order) and runs banded_hca_forward: K1 for its pooling,
+    ops/hca_kernels.comm_adj for its community pass, never the fused step,
+    f32 storage only; its rows add the forward's spans (hca_node_pool,
+    hca_comm_graph, hca_decode) and the counters n_comms (a layer), c_pad
+    and comm_launches (the community pass's launches of the call,
+    hca_kernels.launches: 2 on the card, 0 on the CPU).
 
     Returns (solution in banded ids, score = AUDC, curve)."""
     if shadow is not None and not (batch_env and step > 1):

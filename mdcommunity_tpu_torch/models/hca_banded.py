@@ -13,13 +13,15 @@ module computes the same math with large-graph operands:
     (comm_id is static for a graph), each community summed in node order
     (torch.segment_reduce), so a relaunch gives the same bits and a near-tie
     ranks the same way each time; the JAX package's segment_sum
-  * community graph    Mᵀ(A_live M)    K1 on the one-hot membership [pad_n,
-    c_pad], in column chunks of at most 256 (K1's widest), then the same
-    community sums over the rows; binarised + self loops as
-    comm_adj_construct (:491-541).  The one-hot operand and the int8 band
-    make every sum a small integer, exact in either precise mode.  Its
-    launches count under band_spmm_comm (band_spmm_comm_bf16 at
-    precise=False)
+  * community graph    (Mᵀ A_live M > 0) with self loops, the only form
+    the head uses: one hand-written CUDA pass a layer over the stored live
+    edges (ops/hca_kernels.comm_adj -> csrc/hca.cu), which stores 1 at each
+    live inter-community pair and writes the diagonal; binarised + self
+    loops as comm_adj_construct (:491-541).  It reads the storage that K1
+    reads and severs edit, so it is exact and independent of thread order.
+    Its launches count under ops/hca_kernels.launches["hca_comm_adj"].
+    community_graph, the counts Mᵀ(A_live M) by K1 on the one-hot
+    membership, is kept as the pass's independent check
   * decoder broadcast  memberᵀ ops     per-node gathers from [c_pad, *] tables
 
 The JAX package's banded_hca_forward_packed has no counterpart, for the
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from mdcommunity_tpu_torch.models.hca import HcaQNet, hca_decode, hca_head
+from mdcommunity_tpu_torch.ops import hca_kernels
 from mdcommunity_tpu_torch.ops.aggregate import l2_normalize
 from mdcommunity_tpu_torch.ops.dense_band import spmm_dense_band
 from mdcommunity_tpu_torch.utils.device import resolve_device
@@ -112,7 +115,9 @@ def community_graph(bdx, hd: HcaBandData, layer: int, live: torch.Tensor,
                     precise: bool = True) -> torch.Tensor:
     """The live community graph Mᵀ(A_live M) [c_pad, c_pad] (counts of live
     edges between communities): K1 on the one-hot membership, COMM_CHUNK
-    columns a launch."""
+    columns a launch.  The forward no longer runs it: this K1 form is kept
+    as the independent check of ops/hca_kernels.comm_adj, which must equal
+    (community_graph(...) > 0) · (1 − I) + I · real bit for bit."""
     counter = "band_spmm_comm" if precise else "band_spmm_comm_bf16"
     cid = hd.comm_id[layer]
     cols = []
@@ -131,12 +136,13 @@ def banded_hca_forward(net: HcaQNet, bdx, hd: HcaBandData, covered: torch.Tensor
     """Q(s, ·) over all nodes of a BandedDuplex with HCA heads: [pad_n];
     dead nodes -inf.  The math of models/hca.hca_forward at B = 1 (see its
     docstring for ref_quirks).  precise=False runs K1's bf16 mode for the
-    node pooling and the community pass (exact there), as the JAX
-    package's precise flag does; the dense layers run at the caller's
-    matmul precision (utils/device.matmul_precision).  Spans
-    (utils/profiling.span) into `row`: hca_node_pool (the rounds' pooling,
-    K1 over the node adjacency and the community sums), hca_comm_graph (the
-    community pass) and hca_decode (the decoder and the gate)."""
+    node pooling, as the JAX package's precise flag does; the community
+    pass (ops/hca_kernels.comm_adj) is exact in either mode; the dense
+    layers run at the caller's matmul precision
+    (utils/device.matmul_precision).  Spans (utils/profiling.span) into
+    `row`: hca_node_pool (the rounds' pooling, K1 over the node adjacency
+    and the community sums), hca_comm_graph (the community pass) and
+    hca_decode (the decoder and the gate)."""
     row = {} if row is None else row
     c_pad = hd.c_pad
     # HCA keeps isolated survivors active (PrepareBatchGraph :49-58)
@@ -150,9 +156,8 @@ def banded_hca_forward(net: HcaQNet, bdx, hd: HcaBandData, covered: torch.Tensor
     def pools(layer):
         def comm_adj():
             with span(row, "hca_comm_graph"):
-                a = (community_graph(bdx, hd, layer, live, precise) > 0).to(live.dtype)
-                eye = torch.eye(c_pad, dtype=live.dtype, device=live.device)
-                return a * (1.0 - eye) + eye * real[layer][:, None].to(live.dtype)
+                return hca_kernels.comm_adj(bdx.dbg(layer), hd.comm_id[layer], active,
+                                            hd.n_comms[layer], c_pad, live.dtype)
 
         def node_pool(h):
             with span(row, "hca_node_pool"):

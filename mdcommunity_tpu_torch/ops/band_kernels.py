@@ -81,8 +81,9 @@ launches = {
 launches.update({f"{k}{m}_bwd{n}": 0 for k in ("band_spmm", "band_halo")
                  for m in _MODES[:2] for n in _NIB})
 launches.update({f"band_spmm{m}_diag_{d}": 0 for m in _MODES[:2] for d in DIAGS})
-# K1 as the HCA community pass (models/hca_banded.community_graph: the
-# one-hot membership at width c_pad), precise and bf16 mode
+# K1 on the HCA one-hot membership at width c_pad, precise and bf16 mode
+# (models/hca_banded.community_graph, kept as the check of the community
+# pass ops/hca_kernels.comm_adj)
 launches.update({f"band_spmm_comm{m}{n}": 0 for m in _MODES[:2] for n in _NIB})
 
 _lib: Optional[ctypes.CDLL] = None

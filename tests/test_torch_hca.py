@@ -1,8 +1,8 @@
 """The HCA model against the JAX package, with the JAX parameters carried
 across (from_jax_params): the dense forward (B = 2, with and without
 ref_quirks) and its Laplacian term, the banded forward on the intact state
-and mid-dismantling (the cases of tests/test_hca_banded.py), the chunked
-community pass at c_pad = 512, and the committed HCA checkpoint through
+and mid-dismantling (the cases of tests/test_hca_banded.py), the community
+pass's chunked K1 form at c_pad = 512, and the committed HCA checkpoint through
 load_model against the JAX predict_q.
 
 Q is compared in two parts.  Nodes selected by the decoder carry Q of order
@@ -148,8 +148,8 @@ def test_banded_intact(setup, banded):
 @pytest.mark.parametrize("c_pad", [None, 512])
 def test_banded_mid_dismantling(setup, banded, c_pad):
     """Covered nodes and severed edges (the band's in-place edits against
-    the JAX package's); c_pad = 512 runs the community pass in two K1
-    chunks of 256 columns and must give the same Q."""
+    the JAX package's); c_pad = 512 runs the community tables 512 wide
+    and must give the same Q."""
     n, e0, e1, params, net = setup
     jg, jb, tb0, perm, jhd, args = banded
     tb = build_banded_duplex(n, e0, e1, S=64, B=32, device="cpu")[0]
@@ -175,7 +175,8 @@ def test_banded_mid_dismantling(setup, banded, c_pad):
 
 
 def test_community_graph_is_exact(setup, banded):
-    """The community pass at c_pad = 512 (two K1 chunks of 256 columns):
+    """The community pass's K1 form (community_graph, the check of
+    ops/hca_kernels.comm_adj) at c_pad = 512 (two K1 chunks of 256 columns):
     integer counts equal to the live inter-community edges counted one by
     one, and the same table as at the default c_pad where both have
     rows."""
